@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``dynamo_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure exits non-zero:
+
+1. build    — compile every CUDA kernel of the serving path from ``csrc/``.
+2. kernels  — hold each kernel against its plain PyTorch version at the
+              llama-3.2-1b (32/8 heads, hd 64) and llama-3-8b (32/8, hd 128)
+              attention geometries, in bf16 and f32: ragged lengths, -1 table
+              tails, num_splits 1 and auto, T_q 1 and 4, prefill chunks with
+              start > 0 and mixed 1-token rows; the bitwise T_q=1 /
+              verify-column check; a mixed step at the serve phase's shape;
+              then at the main path's shapes each kernel is held against its
+              plain version once more and timed (CUDA events, median of
+              repeats) beside its bound, the plain version's time and one
+              PyTorch library call's. Every comparison is per row, relative to
+              the row's largest plain output.
+3. forward  — one llama-3.2-1b forward at full width with the kernels and
+              one with the plain attention, same inputs; logits compared.
+4. serve    — ``build_engine_service("llama-3.2-1b")`` (random init, bf16)
+              behind ``build_pipeline``: 8 concurrent OpenAI completion
+              requests, prompts of 16..1500 tokens, 32 tokens each; both
+              kernels' launch counts must be > 0 and every engine step's
+              attention must have run in the kernels.
+
+Then the kernels line, the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+MODEL = "llama-3.2-1b"
+# Per row: max |kernel - plain| <= REL_TOL * max |plain| over the row's real
+# columns (reasons in compare).
+REL_TOL = {torch.float32: 2**-14, torch.bfloat16: 2**-6}
+SERVE_LENGTHS = [16, 40, 100, 250, 500, 800, 1200, 1500]  # prompt tokens, BOS included
+SERVE_ENGINE = dict(num_pages=2048, max_batch_size=16)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, rows, dtype: torch.dtype) -> float:
+    """Hold a kernel's output against its plain version row by row, over each
+    row's real columns ``rows = [(b, n), ...]``; returns the max abs error.
+
+    The limit is relative to the row's own largest output, so a long row
+    whose outputs are small (a softmax over thousands of keys averages its
+    values down to ~0.05) is held as tightly as a short one. bf16: both sides
+    round their outputs to bf16, one ulp apart at most, and an ulp is at most
+    2**-7 of the row's largest value; 2**-6 is two ulps. f32: both sides
+    accumulate in f32 in different orders; 2**-14 leaves ~100x room over the
+    disagreement that order alone gives, and still fails a row that lost a
+    64-key block (a change of a few percent)."""
+    worst = 0.0
+    for b, n in rows:
+        g, w = got[b, :n].float(), want[b, :n].float()
+        err, ref = float((g - w).abs().max()), float(w.abs().max())
+        if not err <= REL_TOL[dtype] * ref:
+            raise AssertionError(f"{name}: row {b}: max abs err {err} exceeds {REL_TOL[dtype]} * "
+                                 f"max|plain| {ref} ({dtype})")
+        worst = max(worst, err)
+    return worst
+
+
+def time_ms(fn, *, iters: int, repeats: int = 7) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph, the
+    graph replayed ``repeats`` times between CUDA events; the median replay
+    over ``iters``. Replay launches no Python, so the host's per-call
+    overhead (wrapper checks, allocation, ctypes) is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture (allocator, lazy loading)
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(samples)
+
+
+# -- phase 2: kernels ---------------------------------------------------------
+
+
+def _case(rng, dev, *, b, t, h, n_kv, hd, ps, npp, dtype, lengths, contiguous, layers=1):
+    """Random paged caches + tables with -1 tails past each row's used pages."""
+    w = n_kv * hd
+    pages = layers * b * npp + 1
+    kc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
+    vc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
+    q = torch.randn((b, t, h, hd), generator=rng, device=dev).to(dtype)
+    perm = torch.randperm(pages - 1, generator=rng, device=dev)[: layers * b * npp] + 1
+    tables = perm.view(layers, b, npp).to(torch.int32)
+    pos = np.zeros((b, t), np.int32)
+    for i, n in enumerate(lengths):
+        if contiguous:  # the row's last min(t, n) tokens, padded with zeros
+            k = min(t, n)
+            pos[i, :k] = np.arange(n - k, n)
+        else:  # gappy verify columns, last one at n-1
+            cols = np.sort(np.random.default_rng(i).choice(n, size=min(t, n), replace=False))
+            cols[-1] = n - 1
+            pos[i, : len(cols)] = np.sort(cols)
+    tb = tables.clone()
+    for i in range(b):
+        used = int(pos[i].max()) // ps + 1
+        tb[:, i, used:] = -1
+    return q, kc, vc, tb, torch.from_numpy(pos).to(dev), pos
+
+
+def kernel_checks(dev) -> dict:
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+
+    rng = torch.Generator(device=dev).manual_seed(0)
+    errs = {f"{k}/{d}": 0.0 for k in ("paged_decode", "paged_prefill") for d in ("bfloat16", "float32")}
+    bitwise = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, n_kv, hd in ((32, 8, 64), (32, 8, 128)):
+            scale = hd**-0.5
+            for ps in (16, 32):
+                lengths = [1, 37, 300, 1000]
+                npp = -(-1000 // ps) + 2
+                for t in (1, 4):
+                    q, kc, vc, tb, pos, _ = _case(rng, dev, b=4, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                                  dtype=dtype, lengths=lengths, contiguous=False)
+                    for ns in (1, 0):
+                        got = pd.paged_decode_attention(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                        want = pd.paged_decode_plain(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                        err = compare(f"decode {dtype} hd{hd} ps{ps} T{t} splits{ns}", got, want,
+                                      [(i, t) for i in range(4)], dtype)
+                        key = f"paged_decode/{str(dtype).removeprefix('torch.')}"
+                        errs[key] = max(errs[key], err)
+                        if t > 1:
+                            # A T_q=1 decode of each verify column must equal that column bitwise.
+                            for j in range(t):
+                                one = pd.paged_decode_attention(q[:, j:j + 1].contiguous(), kc, vc, tb[0],
+                                                                pos[:, j:j + 1].contiguous(), scale=scale,
+                                                                num_splits=ns)
+                                same = bool(torch.equal(one[:, 0], got[:, j]))
+                                bitwise.append(same)
+                                if not same:
+                                    raise AssertionError(
+                                        f"T_q=1 decode differs from verify column {j} ({dtype} hd{hd} ps{ps} splits{ns})")
+                # Prefill: chunks continuing after a cached prefix (start > 0),
+                # a whole prompt from 0, and mixed 1-token decode rows.
+                t = 100
+                spans = [(900, 100), (0, 77), (499, 1), (650, 1)]  # (start, real tokens)
+                q, kc, vc, tb, _, _ = _case(rng, dev, b=4, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                            dtype=dtype, lengths=[s + n for s, n in spans], contiguous=True)
+                posn = np.zeros((4, t), np.int32)
+                for i, (start, n) in enumerate(spans):
+                    posn[i, :n] = np.arange(start, start + n)
+                pos = torch.from_numpy(posn).to(dev)
+                got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=scale)
+                want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=scale)
+                err = compare(f"prefill {dtype} hd{hd} ps{ps}", got, want,
+                              [(i, n) for i, (_, n) in enumerate(spans)], dtype)
+                key = f"paged_prefill/{str(dtype).removeprefix('torch.')}"
+                errs[key] = max(errs[key], err)
+    errs["paged_prefill/bfloat16"] = max(errs["paged_prefill/bfloat16"], mixed_step_check(dev, rng))
+    emit({"phase": "kernels", "max_abs_err": errs,
+          "tolerance": {"float32": f"{REL_TOL[torch.float32]} * max|plain| per row",
+                        "bfloat16": f"{REL_TOL[torch.bfloat16]} * max|plain| per row"},
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    return errs
+
+
+def mixed_step_check(dev, rng) -> float:
+    """The prefill kernel at a mixed step of the serve phase: llama-3.2-1b
+    geometry in bf16, 16-token pages, a batch of 8 on 128-page tables, the
+    step's 512-token bucket holding a chunk after 1024 cached tokens, a
+    whole 512-token chunk from 0, a short last chunk, and 1-token decode rows
+    (start = kv_len - 1) of up to 1531 tokens."""
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+
+    h, n_kv, hd, ps, t, npp = 32, 8, 64, 16, 512, 128
+    spans = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
+    q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                dtype=torch.bfloat16, lengths=[s + n for s, n in spans], contiguous=True)
+    posn = np.zeros((len(spans), t), np.int32)
+    for i, (start, n) in enumerate(spans):
+        posn[i, :n] = np.arange(start, start + n)
+    pos = torch.from_numpy(posn).to(dev)
+    got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=hd**-0.5)
+    want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=hd**-0.5)
+    return compare("prefill mixed step (serve shape)", got, want,
+                   [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16)
+
+
+def kernel_timings(dev) -> dict:
+    """Each kernel at the main path's shapes (llama-3.2-1b, bf16, 16-token
+    pages): decode at batch 8 over 2048-token contexts on 128-page tables
+    (the serve phase's table width, so the same split plan), prefill of a
+    512-token chunk after 1024 cached tokens. Before timing, each kernel's
+    output on the timed inputs is held against its plain version's."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+    from dynamo_tpu_torch.ops.attention import gather_pages
+
+    rng = torch.Generator(device=dev).manual_seed(1)
+    h, n_kv, hd, ps, dtype = 32, 8, 64, 16, torch.bfloat16
+    scale = hd**-0.5
+    out = {}
+
+    # Decode: 4 layers' worth of distinct pages (4 x 33.6 MB > the 50 MB L2),
+    # cycled per launch, so each launch reads its K/V from HBM as a serving
+    # step does.
+    b, ctx, layers = 8, 2048, 4
+    npp = ctx // ps
+    q, kc, vc, tb, pos, _ = _case(rng, dev, b=b, t=1, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=dtype,
+                                  lengths=[ctx] * b, contiguous=True, layers=layers)
+    tbs = [tb[i].contiguous() for i in range(layers)]
+    it = iter(range(10**9))
+    kern = lambda: pd.paged_decode_attention(q, kc, vc, tbs[next(it) % layers], pos, scale=scale)
+    plain = lambda: pd.paged_decode_plain(q, kc, vc, tbs[next(it) % layers], pos, scale=scale)
+    err = max(compare(f"decode timing inputs, layer {i}",
+                      pd.paged_decode_attention(q, kc, vc, tbs[i], pos, scale=scale),
+                      pd.paged_decode_plain(q, kc, vc, tbs[i], pos, scale=scale), [(r, 1) for r in range(b)], dtype)
+              for i in range(layers))
+    kg = [gather_pages(kc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
+    vg = [gather_pages(vc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
+    qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, 1, hd]
+    lib = lambda: (lambda i: F.scaled_dot_product_attention(qg, kg[i], vg[i], scale=scale, enable_gqa=True))(
+        next(it) % layers)
+    nbytes = (2 * b * ctx * n_kv * hd * 2  # K and V strips, read once
+              + 2 * b * h * hd * 2  # q in, out
+              + b * npp * 4 + b * 4)  # tables, positions
+    flops = 4 * b * h * ctx * hd
+    out["paged_decode"] = dict(
+        ms=time_ms(kern, iters=50), plain_ms=time_ms(plain, iters=5), library_ms=time_ms(lib, iters=50),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        shape=f"B={b} ctx={ctx} heads=32/8 hd=64 bf16 page=16", max_abs_err=err,
+        splits=pd.split_plan(b, n_kv, npp, ps, 0, q.device),
+    )
+
+    # Prefill: one 512-token chunk at positions 1024..1535.
+    start, t = 1024, 512
+    kv_len = start + t
+    npp = kv_len // ps
+    q, kc, vc, tb, pos, _ = _case(rng, dev, b=1, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=dtype,
+                                  lengths=[kv_len], contiguous=True)
+    tb0 = tb[0].contiguous()
+    kern = lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=scale)
+    plain = lambda: pp.paged_prefill_plain(q, kc, vc, tb0, pos, scale=scale)
+    err = compare("prefill timing inputs", kern(), plain(), [(0, t)], dtype)
+    kgp = gather_pages(kc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
+    vgp = gather_pages(vc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
+    qgp = q.permute(0, 2, 1, 3).contiguous()
+    causal = (torch.arange(kv_len, device=dev)[None, :] <= (start + torch.arange(t, device=dev))[:, None])
+    lib = lambda: F.scaled_dot_product_attention(qgp, kgp, vgp, attn_mask=causal, scale=scale, enable_gqa=True)
+    pairs = t * start + t * (t + 1) // 2  # causal (query, key) pairs
+    nbytes = 2 * kv_len * n_kv * hd * 2 + 2 * t * h * hd * 2 + npp * 4 + t * 4
+    flops = 4 * pairs * h * hd
+    out["paged_prefill"] = dict(
+        ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=20),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        shape=f"B=1 T={t} start={start} heads=32/8 hd=64 bf16 page=16", max_abs_err=err,
+    )
+    emit({"phase": "kernel_timing", **out})
+    return out
+
+
+# -- phase 3: forward -----------------------------------------------------------
+
+
+def forward_check(dev) -> None:
+    """One prefill chunk (T=64, two rows, the second continuing at 64) and
+    one decode step of llama-3.2-1b at full width, run with the kernels and
+    with the plain attention from the same caches."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[MODEL]
+    params = llama.init_params(cfg, 0, device=dev)
+    ps, npages = 16, 64
+    kc0, vc0 = llama.init_kv_cache(cfg, npages, ps, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, t = 2, 64
+    tables = torch.arange(1, 19, dtype=torch.int32, device=dev).view(b, 9)  # 9 pages of 16 tokens per row
+    starts = [0, 64]
+    # Row 1 continues a 64-token prefix: fill it with the plain path first.
+    tokens0 = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen, device=dev, dtype=torch.int32)
+    pos0 = torch.arange(64, device=dev, dtype=torch.int32)[None]
+    slots0 = (tables[1:2, (pos0[0] // ps).long()] * ps + pos0 % ps).to(torch.int32)
+    llama.forward(params, cfg, tokens0, pos0, kc0, vc0, tables[1:2], slots0,
+                  torch.tensor([63], dtype=torch.int32, device=dev), attn_impl="reference")
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.stack([torch.arange(s, s + t, device=dev, dtype=torch.int32) for s in starts])
+    slots = torch.stack([tables[i, (pos[i] // ps).long()] * ps + pos[i] % ps for i in range(b)]).to(torch.int32)
+    last = torch.full((b,), t - 1, dtype=torch.int32, device=dev)
+    dec_tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+    dec_pos = pos[:, -1:] + 1
+    dec_slots = torch.stack([tables[i, (dec_pos[i] // ps).long()] * ps + dec_pos[i] % ps for i in range(b)]).to(torch.int32)
+    results = {}
+    with torch.inference_mode():
+        for impl in (None, "reference"):
+            kc, vc = kc0.clone(), vc0.clone()
+            pre, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, last, attn_impl=impl)
+            dec, _, _ = llama.forward(params, cfg, dec_tok, dec_pos, kc, vc, tables, dec_slots,
+                                      torch.zeros(b, dtype=torch.int32, device=dev), attn_impl=impl)
+            results[impl] = (pre, dec)
+    torch.cuda.synchronize()
+    errs = {}
+    for i, phase in enumerate(("prefill", "decode")):
+        a, r = results[None][i], results["reference"][i]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"forward {phase}: non-finite logits")
+        errs[phase] = float((a - r).abs().max())
+        scale = float(r.abs().max())
+        # bf16 weights and activations through 16 layers: the two attention
+        # implementations round differently (~2**-8 relative per layer);
+        # allow 5% of the largest logit.
+        if not errs[phase] <= 0.05 * scale:
+            raise AssertionError(f"forward {phase}: max abs err {errs[phase]} > 5% of max |logit| {scale}")
+        errs[f"{phase}_argmax_equal"] = bool(torch.equal(a.argmax(-1), r.argmax(-1)))
+    emit({"phase": "forward", "model": MODEL, "logits_max_abs_err": errs,
+          "tolerance": "0.05 * max|logit|", "logits_shape": list(results[None][0].shape)})
+
+
+# -- phase 4: serve -------------------------------------------------------------
+
+
+async def build_serving():
+    """The serve phase's engine and pipeline: ``build_engine_service`` of
+    llama-3.2-1b (random init, bf16, on the card) behind ``build_pipeline``."""
+    from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
+
+    service = await build_engine_service(MODEL, **SERVE_ENGINE)
+    return service, build_pipeline(service)
+
+
+def serve_bodies(rng: np.random.Generator) -> list[dict]:
+    """The serve mix: one OpenAI completion body per ``SERVE_LENGTHS`` prompt
+    length, random letters, 32 output tokens each; greedy except one seeded
+    nucleus-sampled request."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", dtype=np.uint8)
+    bodies = []
+    for i, n in enumerate(SERVE_LENGTHS):
+        body = {"model": MODEL, "prompt": bytes(rng.choice(letters, n - 1)).decode(),  # + BOS = n tokens
+                "max_tokens": 32, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+        if i == 3:
+            body.update(temperature=0.8, top_p=0.95, seed=1234)
+        bodies.append(body)
+    return bodies
+
+
+async def warm_up(pipeline) -> None:
+    """One request outside any measurement: CUDA lazy loading, cuBLAS
+    heuristics and allocator growth would otherwise land in the first timed
+    requests' TTFT."""
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    warm = {"model": MODEL, "prompt": "w" * 600, "max_tokens": 4, "temperature": 0.0,
+            "nvext": {"ignore_eos": True}}
+    async for _ in pipeline.generate(warm, Context()):
+        pass
+
+
+async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
+    """Send every body concurrently; per request its prompt length, tokens,
+    time to first token and finish reason."""
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(body: dict, n: int) -> dict:
+        sent = time.perf_counter()
+        first, toks, finish = None, [], None
+        async for out in pipeline.generate(body, Context()):
+            if out.token_ids and first is None:
+                first = time.perf_counter() - sent
+            toks += out.token_ids
+            finish = out.finish_reason
+        return {"n_prompt": n, "tokens": toks, "ttft_s": first, "finish": finish}
+
+    return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, SERVE_LENGTHS)))
+
+
+async def serve(dev) -> dict:
+    from dynamo_tpu_torch.ops import paged_decode, paged_prefill
+
+    t0 = time.perf_counter()
+    service, pipeline = await build_serving()
+    build_s = time.perf_counter() - t0
+    bodies = serve_bodies(np.random.default_rng(3))
+    try:
+        await warm_up(pipeline)
+        # Counters go to 0 just before the main path and are read just after;
+        # the engine's own cumulative counters are read as differences.
+        core = service.core
+        dispatch0, mixed0 = dict(core.attn_dispatch_counts), core.mixed_steps
+        paged_decode.launches = 0
+        paged_prefill.launches = 0
+        start = time.perf_counter()
+        results = await send_all(pipeline, bodies)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {"paged_decode": paged_decode.launches, "paged_prefill": paged_prefill.launches}
+        dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
+        mixed = core.mixed_steps - mixed0
+    finally:
+        await service.close()
+    for r in results:
+        if len(r["tokens"]) != 32 or r["finish"] is None or r["finish"].value != "length":
+            raise AssertionError(f"request of {r['n_prompt']} tokens ended with {len(r['tokens'])} tokens ({r['finish']})")
+        if not all(0 <= tok < 128256 for tok in r["tokens"]):
+            raise AssertionError("token id outside the vocabulary")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    off_kernel = {k: n for k, n in dispatch.items() if n and not k.endswith("/kernel")}
+    if off_kernel:
+        raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
+    if mixed <= 0:
+        raise AssertionError("no mixed prefill+decode step occurred")
+    out_tokens = sum(len(r["tokens"]) for r in results)
+    ttfts = sorted(r["ttft_s"] for r in results)
+    emit({"phase": "serve", "model": MODEL, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
+          "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
+          "output_tokens_per_s": out_tokens / wall, "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts),
+                                                              "max": ttfts[-1]},
+          "engine_build_s": build_s, "kernel_launches": launches,
+          "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch})
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from dynamo_tpu_torch.ops import build
+    except ImportError as exc:
+        print(f"chip_smoke: the dynamo_tpu_torch package is not importable here: {exc}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    built = build.build()
+    regs = {name: sorted({int(x.split("Used ")[1].split()[0]) for x in log.splitlines() if "Used " in x})
+            for name, log in built["ptxas"].items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs})
+
+    errs = kernel_checks(dev)
+    timing = kernel_timings(dev)
+    forward_check(dev)
+    launches = asyncio.run(serve(dev))
+
+    replaces = {
+        "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",
+        "paged_prefill": "dynamo_tpu/ops/pallas_prefill.py:93",
+    }
+    kernels = []
+    for name in ("paged_decode", "paged_prefill"):
+        tm = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max([tm["max_abs_err"]] + [e for k, e in errs.items() if k.startswith(name + "/")]),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

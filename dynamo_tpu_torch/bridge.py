@@ -1,0 +1,44 @@
+"""Parameter bridge from the JAX build: its parameter pytree, given as numpy
+arrays, to the port's parameter dict.
+
+The layer-stacked leaves and the ``x @ W`` (``[in, out]``) orientation are
+kept as they are, so no transpose is needed. bf16 leaves cross through a
+``uint16`` view, because ``torch.from_numpy`` rejects the ml_dtypes bf16
+dtype. Quantized leaves (``{"qw"|"qw4", "scale", ...}`` dicts) are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.device import resolve_device
+
+
+def _is_quantized(leaf) -> bool:
+    return isinstance(leaf, dict) and "scale" in leaf and ("qw" in leaf or "qw4" in leaf)
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """One leaf: numpy (or anything ``np.asarray`` takes) -> CPU tensor, bf16 bit-exact."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(tree: dict, *, device: str | torch.device = "cuda") -> dict:
+    """Convert a ``dynamo_tpu.models.llama`` params pytree (numpy leaves) into
+    the port's params on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    device = resolve_device(device)
+
+    def convert(node, path):
+        if _is_quantized(node):
+            raise NotImplementedError(f"quantized leaf at {path} is not ported to dynamo_tpu_torch yet")
+        if isinstance(node, dict):
+            return {k: convert(v, f"{path}/{k}") for k, v in node.items()}
+        return tensor_from_numpy(node).to(device)
+
+    return convert(tree, "")

@@ -1,0 +1,595 @@
+"""Engine core: continuous batching with stall-free mixed steps (synchronous
+step path of ``dynamo_tpu/engine/core.py:EngineCore``).
+
+A ``step()`` fuses decode and prefill work into ONE runner dispatch: every
+running sequence contributes a 1-token decode row, and waiting or mid-prompt
+sequences advance by *chunks* under a per-step token budget
+(``chunk_prefill_tokens``), so a long prompt never stalls the decode stream.
+``chunk_prefill_tokens=0`` keeps the legacy phase-exclusive behavior (a step
+is prefill XOR decode).
+
+- Admission: FIFO from the waiting queue under the prefill token budget and
+  page availability; prefix-cache matches reduce the charge. Pages are
+  allocated per chunk, so a prompt larger than the free pool admits
+  incrementally.
+- Decode first: running sequences' next-token pages are reserved before any
+  chunk is sized.
+- Preemption: on page exhaustion during decode the most recently arrived
+  running sequence is evicted (pages released, tokens kept) and requeued.
+- Pages commit to the prefix cache as they fill, emitting KV stored events;
+  eviction emits removed events (allocator.py).
+
+Not ported yet, and without a config field here, so setting their flag
+fails: overlapped execution, speculative decoding, multi-step decode
+bursts, SLO scheduling, cache-aware admission and async tier onboarding.
+Per-request features that are not ported (constrained decoding, multimodal
+inputs) finish the request with an error. The block manager, fault points, tracing spans and the
+flight recorder are not part of this core.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+import time
+from collections import deque
+from typing import Callable
+
+import numpy as np
+
+from dynamo_tpu_torch.engine.allocator import OutOfPagesError, PageAllocator
+from dynamo_tpu_torch.engine.runner import StepBatch
+from dynamo_tpu_torch.engine.sequence import SeqStatus, Sequence
+from dynamo_tpu_torch.protocols.common import EngineOutput, FinishReason, PreprocessedRequest
+from dynamo_tpu_torch.protocols.kv import ForwardPassMetrics, KvCacheEvent
+from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.tokens import DEFAULT_SALT
+
+logger = logging.getLogger(__name__)
+
+# Logprobs requests always compute this many alternatives (one bucket;
+# per-request top_logprobs slices host-side). 20 = the OpenAI cap.
+LOGPROBS_TOP_K = 20
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """The JAX build's EngineConfig with the same names and defaults, less
+    every field only an unported feature reads (``overlap``, ``spec_k``,
+    ``decode_steps``, ``slo_sched``, ``cache_aware``, ``async_onboard``,
+    ``overlap_spec``, ``swa_free_pages``, ``constraint_lookahead_tokens``):
+    passing one fails with a ``TypeError`` that names it."""
+
+    num_pages: int = 512
+    page_size: int = 16
+    max_batch_size: int = 64
+    max_prefill_tokens: int = 2048  # token budget per prefill step (chunked-prefill cap)
+    max_seq_len: int = 4096
+    eos_token_ids: tuple[int, ...] = ()
+    enable_prefix_caching: bool = True
+    salt: int = DEFAULT_SALT
+    worker_id: int = 0
+    chunk_prefill_tokens: int = 512
+
+
+class EngineCore:
+    """Synchronous scheduler + executor. The async service layer drives it."""
+
+    def __init__(
+        self,
+        runner,
+        config: EngineConfig,
+        *,
+        on_kv_event: Callable[[KvCacheEvent], None] | None = None,
+    ) -> None:
+        if runner.num_pages != config.num_pages or runner.page_size != config.page_size:
+            raise ValueError("runner and engine config disagree on cache geometry")
+        self.runner = runner
+        self.config = config
+        self.allocator = PageAllocator(config.num_pages, config.page_size, on_event=on_kv_event)
+        self.waiting: deque[Sequence] = deque()
+        self.running: list[Sequence] = []
+        # Admitted but mid-prompt: their next chunk is scheduled each step
+        # before new admissions; decodable once the final chunk samples.
+        self.prefilling: list[Sequence] = []
+        # Composition of the latest dispatch + cumulative mixed-step stats
+        # (the observable form of the stall-free invariant).
+        self.last_step_info: dict = {}
+        self.mixed_steps = 0
+        self.stall_violations = 0
+        self._next_seq_id = 0
+        self._eos = set(config.eos_token_ids)
+        self.num_preemptions = 0
+        self.admission_rejections = 0
+        # Attention dispatch-path accounting: steps by (phase, path).
+        self.attn_dispatch_counts: dict[tuple[str, str], int] = {}
+        self._prompt_tokens_total = 0
+        self._generated_tokens_total = 0
+        # Serializes step() (executor thread) against abort_all() (event loop).
+        self.step_lock = threading.RLock()
+        self._head_stall_steps = 0
+
+    # -- request intake ----------------------------------------------------
+
+    def add_request(self, request: PreprocessedRequest, context: Context | None = None) -> Sequence:
+        context = context or Context()
+        seq = Sequence.from_request(
+            self._next_seq_id, request, context,
+            page_size=self.config.page_size, salt=self.config.salt,
+        )
+        self._next_seq_id += 1
+        if not request.token_ids:
+            return self._reject(seq, FinishReason.ERROR)
+        if len(request.token_ids) > self.config.max_seq_len - 1:
+            return self._reject(seq, FinishReason.LENGTH)
+        if request.sampling.json_mode or request.mm_inputs:
+            logger.warning("rejecting request %s: constrained decoding and multimodal inputs "
+                           "are not ported to dynamo_tpu_torch yet", request.request_id)
+            return self._reject(seq, FinishReason.ERROR)
+        # A prompt needing more pages than the pool holds can never be
+        # scheduled; admitting it would wedge the FIFO head forever.
+        usable_pages = self.config.num_pages - 1  # page 0 is the reserved null page
+        pages_needed = -(-len(request.token_ids) // self.config.page_size)
+        if pages_needed > usable_pages:
+            logger.warning("rejecting request: prompt needs %d pages, pool holds %d",
+                           pages_needed, usable_pages)
+            return self._reject(seq, FinishReason.ERROR)
+        self.waiting.append(seq)
+        return seq
+
+    def _reject(self, seq: Sequence, reason: FinishReason) -> Sequence:
+        self.admission_rejections += 1
+        seq.status = SeqStatus.FINISHED
+        seq.finish_reason = reason
+        return seq
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running or self.prefilling)
+
+    # -- stepping ----------------------------------------------------------
+
+    def step(self) -> list[tuple[Sequence, EngineOutput]]:
+        """Advance the engine by one batched forward; returns per-seq deltas."""
+        with self.step_lock:
+            out = self._step_locked()
+            # Consume the runner's dispatch label, so a step that dispatched
+            # nothing never re-counts the previous dispatch.
+            attn = getattr(self.runner, "last_attn_dispatch", None)
+            if attn is not None:
+                self.runner.last_attn_dispatch = None
+                self.attn_dispatch_counts[attn] = self.attn_dispatch_counts.get(attn, 0) + 1
+            return out
+
+    def _step_locked(self) -> list[tuple[Sequence, EngineOutput]]:
+        cancelled = self._reap_cancelled()
+        chunks = self._schedule_prefill()
+        fused = self.config.chunk_prefill_tokens > 0
+        if chunks or (fused and self.running and self.prefilling):
+            # Mixed step: decode rows + prefill-chunk rows in one dispatch
+            # (also with zero chunks scheduled: decode must not wait on
+            # page-starved prefills). Legacy mode runs whole prompts alone.
+            return cancelled + self._run_mixed(chunks)
+        if self.running:
+            return cancelled + self._run_decode()
+        return cancelled
+
+    def _reap_cancelled(self) -> list[tuple[Sequence, EngineOutput]]:
+        out: list[tuple[Sequence, EngineOutput]] = []
+        for q in (self.waiting, self.prefilling, self.running):
+            for seq in list(q):
+                if seq.context.is_stopped and seq.status is not SeqStatus.FINISHED:
+                    self._finish(seq, FinishReason.CANCELLED)
+                    out.append((seq, EngineOutput(
+                        token_ids=[],
+                        finish_reason=FinishReason.CANCELLED,
+                        cumulative_tokens=seq.num_generated,
+                        prompt_tokens=seq.num_prompt,
+                        cached_tokens=seq.num_cached_at_start,
+                    )))
+        return out
+
+    # -- prefill phase -----------------------------------------------------
+
+    def _schedule_prefill(self) -> list[tuple[Sequence, int]]:
+        """This step's prefill work as ``(sequence, num_tokens)`` chunks.
+
+        Continues mid-prompt sequences first (arrival order), then admits
+        from the waiting queue FIFO, all under the per-step token budget:
+        ``chunk_prefill_tokens`` while decodable sequences are running, the
+        full ``max_prefill_tokens`` otherwise. A resumed (preempted)
+        sequence recomputes everything generated so far; its final chunk's
+        sample is the legitimate next token."""
+        ps = self.config.page_size
+        chunk_budget = self.config.chunk_prefill_tokens
+        chunked = chunk_budget > 0
+        if chunked and self.running:
+            budget = min(chunk_budget, self.config.max_prefill_tokens)
+        else:
+            budget = self.config.max_prefill_tokens
+        chunks: list[tuple[Sequence, int]] = []
+        # Decode first: the running sequences' next-token pages are spoken
+        # for before any chunk is sized against the free pool.
+        reserve = sum(
+            s.pages_needed(ps, max(0, min(1, s.request.stop.max_tokens - s.num_generated,
+                                          self.config.max_seq_len - len(s.tokens))))
+            for s in self.running
+        ) if chunked else 0
+
+        def free_pages() -> int:
+            return max(0, self.allocator.num_free() - reserve)
+
+        # 1) Continue sequences already mid-prompt (arrival order).
+        for seq in self.prefilling:
+            if budget <= 0:
+                break
+            n = min(seq.prompt_remaining, budget)
+            n = min(n, len(seq.pages) * ps - seq.num_cached + free_pages() * ps)
+            if n <= 0:
+                continue  # page-starved this step; decode still proceeds
+            need = seq.pages_needed(ps, n)
+            if need:
+                try:
+                    seq.pages.extend(self.allocator.allocate(need))
+                except OutOfPagesError:
+                    continue
+            budget -= n
+            chunks.append((seq, n))
+
+        # 2) Admit from the waiting queue.
+        while (
+            self.waiting
+            and budget > 0
+            and len(self.running) + len(self.prefilling) < self.config.max_batch_size
+        ):
+            seq = self.waiting[0]
+            total = len(seq.tokens)  # prompt + any generated-before-preemption
+            matched: list[int] = []
+            if self.config.enable_prefix_caching:
+                matched = self.allocator.match_prefix(seq.block_seq.block_hashes)
+                # Must compute at least the final token's logits.
+                while len(matched) * ps > total - 1:
+                    self.allocator.release([matched.pop()])
+            cached_len = len(matched) * ps
+            num_new = total - cached_len
+            if chunked:
+                n = min(num_new, budget)
+                n = min(n, (len(matched) + free_pages()) * ps - cached_len)
+                if n <= 0:
+                    self.allocator.release(matched)
+                    if not chunks and not self.running:
+                        self._note_head_stall(seq, num_new)
+                    break
+            else:
+                n = num_new
+                if chunks and n > budget:
+                    self.allocator.release(matched)
+                    break
+            pages_goal = -(-(cached_len + n) // ps)
+            try:
+                new_pages = self.allocator.allocate(pages_goal - len(matched))
+            except OutOfPagesError:
+                self.allocator.release(matched)
+                if not chunks and not self.running:
+                    self._note_head_stall(seq, num_new)
+                break
+            self.waiting.popleft()
+            seq.admitted_time = time.monotonic()
+            seq.pages = matched + new_pages
+            seq.prefill_chunks = 0
+            seq.committed_pages = len(matched)
+            seq.num_cached = cached_len
+            if seq.status is not SeqStatus.PREEMPTED:
+                seq.num_cached_at_start = cached_len
+            seq.status = SeqStatus.RUNNING
+            self.prefilling.append(seq)
+            budget -= n
+            chunks.append((seq, n))
+        if chunks:
+            self._head_stall_steps = 0
+        elif chunked and not self.running and len(self.prefilling) > 1:
+            # Nothing can move: mid-prompt sequences pin every page among
+            # themselves. Preempt the most recently arrived one and retry
+            # (bounded by the prefilling count; a sole mid-prompt sequence
+            # always fits — its prompt passed the pool check at intake).
+            self._preempt(self.prefilling[-1])
+            return self._schedule_prefill()
+        return chunks
+
+    def _note_head_stall(self, seq: Sequence, num_new: int) -> None:
+        self._head_stall_steps += 1
+        if self._head_stall_steps % 100 == 1:
+            logger.warning(
+                "head-of-queue seq %d cannot allocate pages for %d tokens "
+                "(free %d pages) with nothing running; stalled %d steps",
+                seq.seq_id, num_new, self.allocator.num_free(), self._head_stall_steps,
+            )
+
+    def _run_mixed(self, chunks: list[tuple[Sequence, int]]) -> list[tuple[Sequence, EngineOutput]]:
+        """One fused dispatch: a 1-token decode row per running sequence plus
+        an n-token prefill row per scheduled chunk. Non-final chunk rows
+        discard their sample — their rng counter (``num_generated``) does
+        not advance, so the final chunk samples exactly what a whole-prompt
+        prefill would."""
+        fused = self.config.chunk_prefill_tokens > 0
+        out: list[tuple[Sequence, EngineOutput]] = []
+        decode_rows: list[Sequence] = []
+        if fused and self.running:
+            failed = self._ensure_burst_pages(1)
+            if failed is not None:
+                out.append((failed, self._final_output(failed)))
+            decode_rows = list(self.running)
+        self.last_step_info = {
+            "decode_rows": len(decode_rows),
+            "chunk_rows": len(chunks),
+            "chunk_tokens": int(sum(n for _, n in chunks)),
+            "decodable": len(self.running),
+        }
+        if chunks and fused:
+            self.mixed_steps += 1
+        if chunks and self.running and not decode_rows:
+            self.stall_violations += 1  # legacy XOR: this dispatch stalls decodes
+        batch = decode_rows + [s for s, _ in chunks]
+        if not batch:
+            return out
+        n_dec = len(decode_rows)
+        ns = [1] * n_dec + [n for _, n in chunks]
+        ps = self.config.page_size
+        t = max(ns)
+        npg = max(len(s.pages) for s in batch)
+        b = len(batch)
+        tokens = np.zeros((b, t), np.int32)
+        positions = np.zeros((b, t), np.int32)
+        block_tables = np.zeros((b, npg), np.int32)
+        slots = np.zeros((b, t), np.int32)
+        last = np.zeros(b, np.int32)
+        for i, (s, n) in enumerate(zip(batch, ns)):
+            tokens[i, :n] = s.tokens[s.num_cached : s.num_cached + n]
+            pos = np.arange(s.num_cached, s.num_cached + n, dtype=np.int32)
+            positions[i, :n] = pos
+            block_tables[i, : len(s.pages)] = s.pages
+            page_arr = np.asarray(s.pages, dtype=np.int32)
+            slots[i, :n] = page_arr[pos // ps] * ps + pos % ps
+            last[i] = n - 1
+        # A row samples iff its span reaches the end of its tokens: all
+        # decode rows, and exactly the chunks that finish their prompt.
+        samples = [i < n_dec or s.num_cached + n == len(s.tokens) for i, (s, n) in enumerate(zip(batch, ns))]
+        sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
+        lp_k = LOGPROBS_TOP_K if any(
+            s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
+        ) else 0
+        try:
+            stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
+            next_tokens, lp_aux = stepped if lp_k else (stepped, None)
+        except Exception:
+            for s in batch:
+                self._finish(s, FinishReason.ERROR)
+            raise
+        for i, (s, n) in enumerate(zip(batch, ns)):
+            if s.status is not SeqStatus.RUNNING:
+                continue
+            # Prompt-token accounting: only the prompt part of the span.
+            self._prompt_tokens_total += max(0, min(s.num_cached + n, s.num_prompt) - s.num_cached)
+            s.num_cached += n
+            if n > 1 or not samples[i]:
+                s.prefill_chunks += 1
+            if samples[i]:
+                tok = int(next_tokens[i])
+                s.append_token(tok)
+                self._generated_tokens_total += 1
+                self._commit_filled_pages(s)
+                out.append(self._emit(s, tok, self._lp_entries(s, lp_aux, i)))
+            else:
+                # Non-final chunk: publish its full pages (shareable before
+                # the prefill finishes) and discard the sampled token.
+                self._commit_filled_pages(s)
+        # Chunks whose final span sampled are decodable now.
+        for s in batch[n_dec:]:
+            if s in self.prefilling and s.prompt_remaining <= 1 and not s.is_finished:
+                self.prefilling.remove(s)
+                self.running.append(s)
+        return out
+
+    # -- decode phase ------------------------------------------------------
+
+    def _run_decode(self) -> list[tuple[Sequence, EngineOutput]]:
+        failed = self._ensure_burst_pages(1)
+        if failed is not None:
+            return [(failed, self._final_output(failed))]
+        batch = list(self.running)  # snapshot: _emit may finish rows
+        if not batch:
+            return []
+        ps = self.config.page_size
+        b = len(batch)
+        n = max(len(s.pages) for s in batch)
+        tokens = np.zeros((b, 1), np.int32)
+        positions = np.zeros((b, 1), np.int32)
+        block_tables = np.zeros((b, n), np.int32)
+        slots = np.zeros((b, 1), np.int32)
+        for i, s in enumerate(batch):
+            pos = s.num_cached
+            tokens[i, 0] = s.tokens[pos]
+            positions[i, 0] = pos
+            block_tables[i, : len(s.pages)] = s.pages
+            slots[i, 0] = s.pages[pos // ps] * ps + pos % ps
+        sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, np.zeros(b, np.int32))
+        lp_k = LOGPROBS_TOP_K if any(s.request.sampling.logprobs for s in batch) else 0
+        try:
+            stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
+            next_tokens, lp_aux = stepped if lp_k else (stepped, None)
+        except Exception:
+            for s in batch:
+                self._finish(s, FinishReason.ERROR)
+            raise
+        outputs = []
+        for i, s in enumerate(batch):
+            if s.status is not SeqStatus.RUNNING:
+                continue
+            s.num_cached += 1
+            tok = int(next_tokens[i])
+            s.append_token(tok)
+            self._generated_tokens_total += 1
+            self._commit_filled_pages(s)
+            outputs.append(self._emit(s, tok, self._lp_entries(s, lp_aux, i)))
+        return outputs
+
+    def _ensure_burst_pages(self, horizon: int) -> Sequence | None:
+        """Give every running sequence pages covering its next ``horizon``
+        tokens; preempt on exhaustion. A sole sequence that cannot fit is
+        finished with ERROR and returned."""
+        i = 0
+        while i < len(self.running):
+            seq = self.running[i]
+            remaining = seq.remaining_tokens(self.config.max_seq_len)
+            need = seq.pages_needed(self.config.page_size, min(horizon, remaining))
+            if need:
+                try:
+                    seq.pages.extend(self.allocator.allocate(need))
+                except OutOfPagesError:
+                    victim = self.running[-1]
+                    if victim is seq and len(self.running) == 1:
+                        self._finish(seq, FinishReason.ERROR)  # context outgrew the cache
+                        return seq
+                    self._preempt(victim)
+                    continue  # retry same index (list shrank behind us)
+            i += 1
+        return None
+
+    # -- shared helpers ----------------------------------------------------
+
+    def _sampling_batch(self, batch, tokens, positions, block_tables, slots, last) -> StepBatch:
+        b = len(batch)
+        temp = np.zeros(b, np.float32)
+        top_k = np.zeros(b, np.int32)
+        top_p = np.ones(b, np.float32)
+        seeds = np.zeros(b, np.uint32)
+        steps = np.zeros(b, np.int32)
+        freq = np.zeros(b, np.float32)
+        pres = np.zeros(b, np.float32)
+        limits = np.zeros(b, np.int32)
+        for i, s in enumerate(batch):
+            sp = s.request.sampling
+            temp[i] = sp.temperature
+            top_k[i] = sp.top_k
+            top_p[i] = sp.top_p
+            seeds[i] = np.uint32((sp.seed if sp.seed is not None else s.seq_id * 0x9E3779B9 + 1) & 0xFFFFFFFF)
+            steps[i] = s.num_generated
+            freq[i] = sp.frequency_penalty
+            pres[i] = sp.presence_penalty
+            limits[i] = s.position_limit(self.config.max_seq_len)
+        # Generated-token history feeds the repetition penalties; shipped
+        # only when some request set one (H collapses to 1 otherwise).
+        if freq.any() or pres.any():
+            h = max(int(steps.max()) + 1, 1)
+            history = np.full((b, h), -1, np.int32)
+            for i, s in enumerate(batch):
+                gen = s.tokens[s.num_prompt:]
+                history[i, : len(gen)] = gen
+        else:
+            history = np.full((b, 1), -1, np.int32)
+        return StepBatch(tokens, positions, block_tables, slots, last, temp, top_k, top_p,
+                         seeds, steps, freq, pres, limits, history)
+
+    def _commit_filled_pages(self, seq: Sequence) -> None:
+        """Publish newly-filled pages to the prefix cache (emits stored events)."""
+        if not self.config.enable_prefix_caching:
+            return
+        full_pages = seq.num_cached // self.config.page_size
+        blocks = seq.block_seq.blocks
+        while seq.committed_pages < full_pages:
+            idx = seq.committed_pages
+            blk = blocks[idx]
+            self.allocator.commit(seq.pages[idx], blk.block_hash, blk.parent_hash, blk.tokens)
+            seq.committed_pages += 1
+
+    def abort_all(self, reason: FinishReason = FinishReason.ERROR) -> None:
+        """Finish every live sequence (releasing its pages); blocks until a
+        step running in another thread completes."""
+        with self.step_lock:
+            for seq in list(self.running) + list(self.prefilling) + list(self.waiting):
+                seq.context.kill()
+                self._finish(seq, reason)
+
+    def _emit(self, seq: Sequence, token: int, logprobs: list[dict] | None = None) -> tuple[Sequence, EngineOutput]:
+        reason = seq.check_stop(self._eos, self.config.max_seq_len)
+        if reason is not None and not seq.is_finished:
+            self._finish(seq, reason)
+        wait_ms = None
+        if seq.admitted_time is not None and not seq.admission_reported:
+            seq.admission_reported = True
+            wait_ms = max(0.0, (seq.admitted_time - seq.arrival_time) * 1e3)
+        return seq, EngineOutput(
+            token_ids=[token],
+            finish_reason=seq.finish_reason,
+            cumulative_tokens=seq.num_generated,
+            prompt_tokens=seq.num_prompt if seq.finish_reason else None,
+            cached_tokens=seq.num_cached_at_start if seq.finish_reason else None,
+            logprobs=logprobs[:1] if logprobs else None,
+            admission_wait_ms=round(wait_ms, 3) if wait_ms is not None else None,
+        )
+
+    def _lp_entries(self, seq: Sequence, lp_aux, i: int) -> list[dict] | None:
+        """One request's logprobs entry from a step's aux arrays (row i)."""
+        enc = seq.request.sampling.logprobs
+        if not enc or lp_aux is None:
+            return None
+        alts = min(enc - 1, lp_aux["top_ids"].shape[1])
+        top = [
+            [int(t), float(lp)]
+            for t, lp in zip(lp_aux["top_ids"][i][:alts], lp_aux["top_lps"][i][:alts])
+        ]
+        return [{"id": int(seq.tokens[-1]), "logprob": float(lp_aux["logprob"][i]), "top": top}]
+
+    def _final_output(self, seq: Sequence) -> EngineOutput:
+        return EngineOutput(
+            token_ids=[],
+            finish_reason=seq.finish_reason,
+            cumulative_tokens=seq.num_generated,
+            prompt_tokens=seq.num_prompt,
+            cached_tokens=seq.num_cached_at_start,
+        )
+
+    def _preempt(self, seq: Sequence) -> None:
+        logger.info("preempting seq %d (%d pages)", seq.seq_id, len(seq.pages))
+        self.num_preemptions += 1
+        self.allocator.release([p for p in seq.pages if p != 0])
+        seq.pages = []
+        seq.committed_pages = 0
+        seq.num_cached = 0
+        seq.prefill_chunks = 0
+        seq.status = SeqStatus.PREEMPTED
+        if seq in self.running:
+            self.running.remove(seq)
+        if seq in self.prefilling:
+            self.prefilling.remove(seq)
+        self.waiting.appendleft(seq)
+
+    def _finish(self, seq: Sequence, reason: FinishReason) -> None:
+        seq.status = SeqStatus.FINISHED
+        seq.finish_reason = reason
+        if seq.pages:
+            self.allocator.release([p for p in seq.pages if p != 0])
+            seq.pages = []
+        if seq in self.running:
+            self.running.remove(seq)
+        if seq in self.prefilling:
+            self.prefilling.remove(seq)
+        if seq in self.waiting:
+            self.waiting.remove(seq)
+
+    # -- bookkeeping -------------------------------------------------------
+
+    def metrics(self) -> ForwardPassMetrics:
+        st = self.allocator.stats()
+        return ForwardPassMetrics(
+            worker_id=self.config.worker_id,
+            kv_active_blocks=st.active_pages,
+            kv_total_blocks=st.total_pages,
+            num_requests_waiting=len(self.waiting),
+            num_requests_running=len(self.running) + len(self.prefilling),
+            request_total_slots=self.config.max_batch_size,
+            cache_hit_rate=st.hit_rate,
+            prompt_tokens_total=self._prompt_tokens_total,
+            generated_tokens_total=self._generated_tokens_total,
+        )

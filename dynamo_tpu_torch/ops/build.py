@@ -1,0 +1,146 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (seconds per file, where a source that
+includes PyTorch's headers takes minutes). Libraries land in ``_build/``
+beside the package (listed in ``.gitignore``), named by a digest of the
+sources and flags so a changed source rebuilds and an unchanged one is
+reused. :func:`build` compiles every missing library at once, one ``nvcc``
+process per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point and argument types of each kernel library.
+SIGNATURES: dict[str, tuple[str, list]] = {
+    "paged_decode": (
+        "dyn_paged_decode",
+        [_P] * 9 + [_I] * 11 + [_F, _P],
+    ),
+    "paged_prefill": (
+        "dyn_paged_prefill",
+        [_P] * 6 + [_I] * 9 + [_F, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in (SRC_DIR / f"{name}.cu", SRC_DIR / "common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict:
+    """Compile every library of ``names`` not yet built, in parallel.
+
+    Returns ``{"seconds": wall time, "ptxas": {name: nvcc's register and
+    shared-memory report}}``; raises RuntimeError with the compiler output
+    when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, target)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode == 0:
+            os.replace(tmp, target)
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "ptxas": logs}
+
+
+def load(name: str):
+    """The C entry point of kernel library ``name``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            target = _target(name)
+            if not target.exists():
+                build((name,))
+            lib = ctypes.CDLL(str(target))
+            _libs[name] = lib
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device (kernels launch there)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_paged_args(q, k_cache, v_cache, block_tables, positions) -> None:
+    """Raise ValueError unless the arguments have the layout the CUDA kernels
+    read: one device, contiguous, ``q [B, T, H, hd]``, equal caches
+    ``[P, ps, W]``, int32 ``block_tables [B, N]`` and ``positions [B, T]``."""
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("block_tables", block_tables), ("positions", positions)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dim() != 4 or k_cache.dim() != 3 or k_cache.shape != v_cache.shape or k_cache.dtype != v_cache.dtype:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise ValueError("block_tables and positions must be int32")
+    b, t = q.shape[:2]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or tuple(positions.shape) != (b, t):
+        raise ValueError(f"bad table/position shapes {tuple(block_tables.shape)} / {tuple(positions.shape)}")

@@ -1,0 +1,161 @@
+"""Paged GQA decode / verify attention: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+Replaces ``dynamo_tpu/ops/pallas_paged.py:_decode_kernel`` (launched at
+``:507`` by ``paged_decode_attention``) and its host-side combine
+``_lse_combine`` (``:212``). Kernel source: ``csrc/paged_decode.cu``, whose
+header note gives the bound (HBM bytes of K/V) and what the design does
+about it.
+
+Both versions compute the same function: per (sequence, query token, head),
+causal attention over the paged history with the per-row mask
+``kpos <= positions[b, t]``, walked in split-K partials whose boundaries
+come from static shapes only, then merged by a log-sum-exp combine. The
+wrapper launches the kernel for CUDA tensors (or raises) and takes the plain
+version only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from dynamo_tpu_torch.ops import build
+from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
+
+BLOCK_TOKENS = 64  # keys per kernel iteration (csrc/paged_decode.cu kBlockTokens)
+MAX_VERIFY_T = 32  # query tokens per row the multi-query form takes
+SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
+
+launches = 0  # kernel launches through paged_decode_attention (CUDA only)
+
+
+def _smem_bytes(t_q: int, group: int, head_dim: int, itemsize: int) -> int:
+    """Mirror of ``DecodeSmem::bytes`` in the kernel source."""
+    rows = t_q * group
+    vec = 16 // itemsize
+    return (2 * itemsize * BLOCK_TOKENS * (2 * head_dim + vec)  # double-buffered K/V tiles
+            + 4 * (2 * rows * head_dim + rows * BLOCK_TOKENS + 3 * rows) + 4 * t_q)
+
+
+def decode_kernel_supported(n_heads: int, head_dim: int, width: int, t_q: int = 1, *,
+                            q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
+    """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups, bf16
+    or f32 queries and cache, and T_q within the shared-memory row budget."""
+    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
+        return False
+    n_kv = width // head_dim
+    if n_heads % n_kv:
+        return False
+    itemsize = torch.empty((), dtype=cache_dtype).element_size()
+    return t_q <= MAX_VERIFY_T and _smem_bytes(t_q, n_heads // n_kv, head_dim, itemsize) <= SMEM_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(batch: int, n_kv: int, pages_per_seq: int, page_size: int, num_splits: int,
+               device: torch.device) -> tuple[int, int]:
+    """(num_splits, key blocks per split) from static shapes only.
+
+    Auto (``num_splits <= 0``) on the card aims at two waves of blocks over
+    the SMs, ``batch * n_kv * splits >= 2 * SMs``; on the CPU it is 1. Never
+    a function of runtime lengths: a row's reduction order must not depend
+    on what else is batched or how long the other rows are."""
+    max_blocks = -(-(pages_per_seq * page_size) // BLOCK_TOKENS)
+    if num_splits <= 0:
+        if device.type == "cuda":
+            sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+            num_splits = -(-2 * sms // max(1, batch * n_kv))
+        else:
+            num_splits = 1
+    splits = max(1, min(num_splits, max_blocks))
+    return splits, -(-max_blocks // splits)
+
+
+def lse_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Merge split partials along dim 1: ``acc`` f32[B, S, ..., hd],
+    ``m``/``l`` f32[B, S, ...]. An empty split (m=NEG_INF, l=0, acc=0) scales
+    by exp(NEG_INF - M) = 0 exactly; one split gives exactly acc / l."""
+    m_max = m.amax(dim=1, keepdim=True)
+    alpha = torch.exp(m - m_max)
+    denom = (alpha * l).sum(dim=1)
+    num = (acc * alpha[..., None]).sum(dim=1)
+    return num / denom[..., None]
+
+
+def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float,
+                       num_splits: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: gathered K/V, f32 scores of the
+    pre-scaled (cache-dtype) queries, per-split online-softmax partials with
+    p masked explicitly, then :func:`lse_combine`."""
+    b, t, h, hd = q.shape
+    _, ps, w = k_cache.shape
+    n_kv = w // hd
+    g = h // n_kv
+    splits, bps = split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
+    tables = block_tables.clamp(min=0)
+    k = gather_pages(k_cache, tables, n_kv).float()  # [B, S, kv, hd]
+    v = gather_pages(v_cache, tables, n_kv).float()
+    s_len = k.shape[1]
+    qs = (q.float() * scale).to(k_cache.dtype).float().reshape(b, t, n_kv, g, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", qs, k)  # [B, kv, g, T, S]
+    key_pos = torch.arange(s_len, device=q.device, dtype=torch.int32)
+    mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None, None]  # [B,1,1,T,S]
+    logits = torch.where(mask, logits, NEG_INF)
+    span = bps * BLOCK_TOKENS
+    accs, ms, ls = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * span, min((sp + 1) * span, s_len)
+        if lo >= hi:  # an empty split
+            ms.append(torch.full((b, n_kv, g, t), NEG_INF, device=q.device))
+            ls.append(torch.zeros((b, n_kv, g, t), device=q.device))
+            accs.append(torch.zeros((b, n_kv, g, t, hd), device=q.device))
+            continue
+        sl = logits[..., lo:hi]
+        m = sl.amax(dim=-1)
+        p = torch.where(mask[..., lo:hi], torch.exp(sl - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgts,bskd->bkgtd", p, v[:, lo:hi]))
+    out = lse_combine(torch.stack(accs, 1), torch.stack(ms, 1), torch.stack(ls, 1))  # [B, kv, g, T, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
+def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scale: float,
+                           num_splits: int = 0) -> torch.Tensor:
+    """Decode / verify paged attention; returns [B, T_q, H, hd] in q's dtype.
+
+    ``q [B, T_q, H, hd]``, caches ``[P, ps, n_kv*hd]``, ``block_tables
+    i32[B, N]`` (-1 tails allowed), ``positions i32[B, T_q]`` (gappy rows
+    allowed). ``num_splits`` 0 = auto (:func:`split_plan`)."""
+    global launches
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_cache, v_cache, block_tables, positions,
+                                  scale=scale, num_splits=num_splits)
+    build.check_paged_args(q, k_cache, v_cache, block_tables, positions)
+    b, t, h, hd = q.shape
+    _, ps, w = k_cache.shape
+    if not decode_kernel_supported(h, hd, w, t, q_dtype=q.dtype, cache_dtype=k_cache.dtype):
+        raise NotImplementedError(f"paged_decode kernel does not take heads={h}, head_dim={hd}, width={w}, "
+                         f"T_q={t}, q {q.dtype}, cache {k_cache.dtype}")
+    n_kv = w // hd
+    splits, bps = split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
+    acc = torch.empty((b, splits, t, h, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, splits, t, h), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, splits, t, h), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = build.load("paged_decode")
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
+             positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
+             b, t, h, n_kv, hd, ps, block_tables.shape[1], splits, bps,
+             build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
+             build.stream_of(q))
+    build.check_launch("paged_decode", err)
+    launches += 1
+    return out

@@ -1,0 +1,89 @@
+"""Paged causal flash attention for contiguous query chunks: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces ``dynamo_tpu/ops/pallas_prefill.py:_prefill_kernel`` (launched at
+``:295`` by ``paged_prefill_attention``). Kernel source:
+``csrc/paged_prefill.cu``, whose header note gives the bound (bytes at short
+chunks, flops at long ones) and what the design does about it.
+
+Each row's queries are contiguous (``positions[b, t] = start_b + t`` for its
+real tokens, zeros after): every prefill chunk, chunk continuations after a
+prefix-cache hit, and the 1-token decode rows a mixed step carries
+(start = kv_len - 1). A query attends to keys ``kpos <= qpos`` and
+``kpos < kv_len`` with ``kv_len = max(positions[b]) + 1``; a query with no
+attendable key gets 0, not NaN. Outputs at a row's padding columns are
+unspecified (the engine never reads them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dynamo_tpu_torch.ops import build
+from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
+
+BLOCK_ROWS = 64  # query rows (token x head) per kernel block (csrc/paged_prefill.cu kRows)
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
+
+launches = 0  # kernel launches through paged_prefill_attention (CUDA only)
+
+
+def prefill_kernel_supported(n_heads: int, head_dim: int, width: int, *,
+                             q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
+    """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups of at
+    most BLOCK_ROWS heads, bf16 or f32 queries and cache. The chunk width is
+    unbounded (the grid tiles it)."""
+    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
+        return False
+    n_kv = width // head_dim
+    return n_heads % n_kv == 0 and n_heads // n_kv <= BLOCK_ROWS
+
+
+def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
+    """Plain PyTorch version: gathered K/V, f32 scores of the pre-scaled
+    (cache-dtype) queries, mask ``kpos <= qpos & kpos < kv_len``, softmax
+    with p masked explicitly and 0 for rows with no attendable key."""
+    b, t, h, hd = q.shape
+    _, ps, w = k_cache.shape
+    n_kv = w // hd
+    g = h // n_kv
+    tables = block_tables.clamp(min=0)
+    k = gather_pages(k_cache, tables, n_kv).float()
+    v = gather_pages(v_cache, tables, n_kv).float()
+    s_len = k.shape[1]
+    qs = (q.float() * scale).to(k_cache.dtype).float().reshape(b, t, n_kv, g, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", qs, k)
+    kv_len = positions.amax(dim=1) + 1  # [B]
+    key_pos = torch.arange(s_len, device=q.device, dtype=torch.int32)
+    mask = (key_pos[None, None, :] <= positions[:, :, None]) & (key_pos[None, None, :] < kv_len[:, None, None])
+    mask = mask[:, None, None]  # [B,1,1,T,S]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgts,bskd->bkgtd", p, v)
+    out = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
+    """Prefill-phase (T > 1) paged flash attention; returns [B, T, H, hd] in q's dtype."""
+    global launches
+    if q.device.type == "cpu":
+        return paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, scale=scale)
+    build.check_paged_args(q, k_cache, v_cache, block_tables, positions)
+    b, t, h, hd = q.shape
+    _, ps, w = k_cache.shape
+    if not prefill_kernel_supported(h, hd, w, q_dtype=q.dtype, cache_dtype=k_cache.dtype):
+        raise NotImplementedError(f"paged_prefill kernel does not take heads={h}, head_dim={hd}, width={w}, "
+                         f"q {q.dtype}, cache {k_cache.dtype}")
+    out = torch.empty_like(q)
+    fn = build.load("paged_prefill")
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
+             positions.data_ptr(), out.data_ptr(), b, t, h, w // hd, hd, ps, block_tables.shape[1],
+             build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
+             build.stream_of(q))
+    build.check_launch("paged_prefill", err)
+    launches += 1
+    return out

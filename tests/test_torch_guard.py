@@ -1,0 +1,70 @@
+"""Guards of the dynamo_tpu_torch package: it imports neither JAX nor anything
+of dynamo_tpu, and its entry points never fall back to the CPU quietly."""
+
+import asyncio
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dynamo_tpu_torch
+
+PKG = pathlib.Path(dynamo_tpu_torch.__file__).resolve().parent
+
+_IMPORT_ALL = """
+import importlib, pathlib, sys
+pkg = pathlib.Path(sys.argv[1])
+names = sorted(
+    "dynamo_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__")
+    for p in pkg.rglob("*.py")
+)
+for name in names:
+    importlib.import_module(name.removesuffix("."))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "dynamo_tpu"
+             or m.startswith("dynamo_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_package_imports_neither_jax_nor_dynamo_tpu():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(PKG)], capture_output=True, text=True,
+                         timeout=120, cwd=PKG.parent)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20  # every module of the package was imported
+    assert bad == "[]"
+
+
+def test_entry_points_default_to_the_card_and_refuse_without_one(monkeypatch):
+    from dynamo_tpu_torch.engine.runner import TorchModelRunner
+    from dynamo_tpu_torch.launch import build_engine_service
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    from dynamo_tpu_torch.bridge import params_from_jax
+    from dynamo_tpu_torch.models import llama
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(build_engine_service("test-tiny"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchModelRunner(PRESETS["test-tiny"], {}, num_pages=4, page_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.init_params(PRESETS["test-tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.init_kv_cache(PRESETS["test-tiny"], 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax({"embed": torch.zeros(2, 2).numpy()})
+
+
+def test_runner_on_the_card_refuses_a_geometry_the_kernels_do_not_take(monkeypatch):
+    """On the card every attention call runs in a kernel; a model outside
+    their support (test-tiny: head_dim 16) is refused before anything is
+    allocated, not served through the plain version."""
+    from dynamo_tpu_torch.engine.runner import TorchModelRunner
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="head_dim=16"):
+        TorchModelRunner(PRESETS["test-tiny"], {}, num_pages=4, page_size=4, device="cuda")

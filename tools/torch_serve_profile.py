@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where a serving step's time goes in the PyTorch/CUDA port, on one card.
+
+    python3 tools/torch_serve_profile.py --out DIR
+
+Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
+script so the two stay the same (llama-3.2-1b, random init, 8 concurrent
+completions of 16..1500 prompt tokens, 32 output tokens each), after the
+same warm-up request, under ``torch.profiler`` (CPU + CUDA activities).
+Prints one JSON line: wall time, engine steps, device busy share (union of
+CUDA kernel intervals over the profiled wall), kernel launches per step, and
+the device time by kernel family. Writes the Chrome trace to
+``DIR/serve_trace.json`` (tens of MB). The profiler adds host overhead of
+its own, so the wall time here is not a throughput number;
+``chip_smoke.py`` measures that without the profiler.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the serve mix lives there)
+
+FAMILIES = (  # kernel name fragment -> family, first match wins
+    ("decode_partials", "attention: paged_decode"), ("decode_combine", "attention: paged_decode"),
+    ("prefill", "attention: paged_prefill"), ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
+    ("sm90_xmma", "matmul"), ("nvjet", "matmul"), ("index", "gather/scatter"), ("elementwise", "elementwise"),
+    ("reduce", "reduction"), ("softmax", "sampling/softmax"), ("topk", "sampling/softmax"),
+    ("sort", "sampling/softmax"), ("Memcpy", "copy"), ("copy", "copy"), ("cat", "elementwise"),
+)
+
+
+def family(name: str) -> str:
+    for frag, fam in FAMILIES:
+        if frag.lower() in name.lower():
+            return fam
+    return "other"
+
+
+async def main(out_dir: str) -> dict:
+    service, pipeline = await chip_smoke.build_serving()
+    bodies = chip_smoke.serve_bodies(np.random.default_rng(3))
+    steps = {"n": 0}
+    step = service.core.step
+
+    def counted_step():
+        steps["n"] += 1
+        return step()
+
+    service.core.step = counted_step
+    try:
+        await chip_smoke.warm_up(pipeline)  # not profiled
+        torch.cuda.synchronize()
+        steps["n"] = 0
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            await chip_smoke.send_all(pipeline, bodies)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        await service.close()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "serve_trace.json"))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:  # union of kernel intervals (us)
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_family: dict[str, float] = {}
+    for e in kernels:
+        fam = family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return {
+        "model": chip_smoke.MODEL, "device": torch.cuda.get_device_name(0), "profiled_wall_s": wall,
+        "engine_steps": steps["n"], "cuda_kernels": len(kernels),
+        "kernels_per_step": len(kernels) / max(1, steps["n"]),
+        "device_busy_share": busy / 1e6 / wall,
+        "device_ms_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+    }
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--out", required=True, help="directory for the Chrome trace")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    print(json.dumps(asyncio.run(main(args.out))), flush=True)
