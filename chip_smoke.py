@@ -5,25 +5,33 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. build    — compile every CUDA kernel of the serving path from ``csrc/``.
-2. kernels  — hold each kernel against its plain PyTorch version at the
-              llama-3.2-1b (32/8 heads, hd 64) and llama-3-8b (32/8, hd 128)
-              attention geometries, in bf16 and f32: ragged lengths, -1 table
-              tails, num_splits 1 and auto, T_q 1 and 4, prefill chunks with
-              start > 0 and mixed 1-token rows; the bitwise T_q=1 /
-              verify-column check; a mixed step at the serve phase's shape;
-              then at the main path's shapes each kernel is held against its
-              plain version once more and timed (CUDA events, median of
-              repeats) beside its bound, the plain version's time and one
-              PyTorch library call's. Every comparison is per row, relative to
-              the row's largest plain output.
-3. forward  — one llama-3.2-1b forward at full width with the kernels and
-              one with the plain attention, same inputs; logits compared.
-4. serve    — ``build_engine_service("llama-3.2-1b")`` (random init, bf16)
-              behind ``build_pipeline``: 8 concurrent OpenAI completion
-              requests, prompts of 16..1500 tokens, 32 tokens each; both
-              kernels' launch counts must be > 0 and every engine step's
-              attention must have run in the kernels.
+1. build    — compile every CUDA kernel of the serving paths from ``csrc/``,
+              one nvcc per source, all started together.
+2. kernels  — hold each kernel against its plain PyTorch version. GQA
+              (paged_decode, paged_prefill): the llama-3.2-1b (32/8 heads,
+              hd 64) and llama-3-8b (32/8, hd 128) geometries. MLA
+              (paged_mla, phase "kernels_mla"): the mla-8b-proxy (32 heads,
+              latent 512, rope 64) and test-mla-kernel (4 heads, latent 128,
+              rope 64) geometries. Each in bf16 and f32, pages of 16 and 32:
+              ragged lengths, -1 table tails, num_splits 1 and auto, T_q 1
+              and 4, prefill chunks with start > 0 and mixed 1-token rows;
+              the bitwise T_q=1 / verify-column check; a mixed step at each
+              serve phase's shape. Then, at the main paths' shapes, each
+              kernel is held against its plain version once more and timed
+              (CUDA-graph replay between CUDA events, median of repeats)
+              beside its bound, the plain version's time and one PyTorch
+              library call's. Every comparison is per row, relative to the
+              row's largest plain output.
+3. forward  — one prefill and one decode step at full width, with the
+              kernels and with the plain attention, same inputs; logits
+              compared: llama-3.2-1b, then mla-8b-proxy.
+4. serve    — ``build_engine_service`` (random init, bf16) behind
+              ``build_pipeline``: 8 concurrent OpenAI completion requests,
+              prompts of 16..1500 tokens, 32 tokens each; the model's
+              kernels' launch counts must be > 0, every engine step's
+              attention must have run in a kernel, and a mixed step must
+              occur. llama-3.2-1b (paged_decode, paged_prefill), then, after
+              it is freed, mla-8b-proxy (paged_mla).
 
 Then the kernels line, the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
@@ -32,7 +40,10 @@ Then the kernels line, the card's name and power limit, and the last line
 from __future__ import annotations
 
 import asyncio
+import gc
+import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +55,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 MODEL = "llama-3.2-1b"
+MLA_MODEL = "mla-8b-proxy"
+SERVE_KERNELS = {MODEL: ("paged_decode", "paged_prefill"), MLA_MODEL: ("paged_mla",)}
+# MLA geometries: heads, latent (kv_lora_rank), rope lanes, rope stream width, nope dim.
+MLA_GEOMS = {"mla-8b-proxy": (32, 512, 64, 128, 128), "test-mla-kernel": (4, 128, 64, 128, 32)}
 # Per row: max |kernel - plain| <= REL_TOL * max |plain| over the row's real
 # columns (reasons in compare).
 REL_TOL = {torch.float32: 2**-14, torch.bfloat16: 2**-6}
@@ -108,7 +123,52 @@ def time_ms(fn, *, iters: int, repeats: int = 7) -> float:
     return statistics.median(samples)
 
 
+def device_us_by_kernel(fn, calls: int = 10) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches, by kernel
+    name (``torch.profiler``; the function's name without its namespace,
+    template arguments and parameters)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"(\w+)\s*[<(]", e.name.replace("(anonymous namespace)::", "")).group(1)
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / calls
+    return out
+
+
 # -- phase 2: kernels ---------------------------------------------------------
+
+
+def _positions(lengths, t: int, contiguous: bool) -> np.ndarray:
+    """Query positions [len(lengths), t]: per row of n tokens its last
+    min(t, n) positions (contiguous) or min(t, n) sorted gappy columns ending
+    at n-1 (verify), padded with zeros."""
+    pos = np.zeros((len(lengths), t), np.int32)
+    for i, n in enumerate(lengths):
+        if contiguous:  # the row's last min(t, n) tokens, padded with zeros
+            k = min(t, n)
+            pos[i, :k] = np.arange(n - k, n)
+        else:  # gappy verify columns, last one at n-1
+            cols = np.sort(np.random.default_rng(i).choice(n, size=min(t, n), replace=False))
+            cols[-1] = n - 1
+            pos[i, : len(cols)] = np.sort(cols)
+    return pos
+
+
+def _tables(rng, dev, pos: np.ndarray, *, layers: int, npp: int, ps: int) -> torch.Tensor:
+    """Distinct random pages (page 0 is the null page) for ``layers`` x rows,
+    -1 past each row's used pages."""
+    b = pos.shape[0]
+    perm = torch.randperm(layers * b * npp, generator=rng, device=dev) + 1
+    tables = perm.view(layers, b, npp).to(torch.int32)
+    for i in range(b):
+        tables[:, i, int(pos[i].max()) // ps + 1:] = -1
+    return tables
 
 
 def _case(rng, dev, *, b, t, h, n_kv, hd, ps, npp, dtype, lengths, contiguous, layers=1):
@@ -118,21 +178,8 @@ def _case(rng, dev, *, b, t, h, n_kv, hd, ps, npp, dtype, lengths, contiguous, l
     kc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
     vc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
     q = torch.randn((b, t, h, hd), generator=rng, device=dev).to(dtype)
-    perm = torch.randperm(pages - 1, generator=rng, device=dev)[: layers * b * npp] + 1
-    tables = perm.view(layers, b, npp).to(torch.int32)
-    pos = np.zeros((b, t), np.int32)
-    for i, n in enumerate(lengths):
-        if contiguous:  # the row's last min(t, n) tokens, padded with zeros
-            k = min(t, n)
-            pos[i, :k] = np.arange(n - k, n)
-        else:  # gappy verify columns, last one at n-1
-            cols = np.sort(np.random.default_rng(i).choice(n, size=min(t, n), replace=False))
-            cols[-1] = n - 1
-            pos[i, : len(cols)] = np.sort(cols)
-    tb = tables.clone()
-    for i in range(b):
-        used = int(pos[i].max()) // ps + 1
-        tb[:, i, used:] = -1
+    pos = _positions(lengths, t, contiguous)
+    tb = _tables(rng, dev, pos, layers=layers, npp=npp, ps=ps)
     return q, kc, vc, tb, torch.from_numpy(pos).to(dev), pos
 
 
@@ -216,6 +263,191 @@ def mixed_step_check(dev, rng) -> float:
                    [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16)
 
 
+def _mla_case(rng, dev, pos: np.ndarray, *, h, r_kv, dr, r_width, ps, npp, dtype, layers=1):
+    """Random latent / rope pages (the rope stream's tail past ``dr`` zero, as
+    the writers leave it), queries, and tables with -1 tails."""
+    b, t = pos.shape
+    pages = layers * b * npp + 1
+    c = torch.randn((pages, ps, r_kv), generator=rng, device=dev).to(dtype)
+    r = torch.zeros((pages, ps, r_width), device=dev, dtype=dtype)
+    r[..., :dr] = torch.randn((pages, ps, dr), generator=rng, device=dev).to(dtype)
+    q_lat = torch.randn((b, t, h, r_kv), generator=rng, device=dev).to(dtype)
+    q_rope = torch.randn((b, t, h, dr), generator=rng, device=dev).to(dtype)
+    tables = _tables(rng, dev, pos, layers=layers, npp=npp, ps=ps)
+    return q_lat, q_rope, c, r, tables, torch.from_numpy(pos).to(dev)
+
+
+def _spans(spans, t: int) -> np.ndarray:
+    """Contiguous rows ``(start, real tokens)`` in a ``t``-token bucket."""
+    pos = np.zeros((len(spans), t), np.int32)
+    for i, (start, n) in enumerate(spans):
+        pos[i, :n] = np.arange(start, start + n)
+    return pos
+
+
+def mla_kernel_checks(dev) -> dict:
+    """paged_mla against its plain version at the MLA_GEOMS geometries, bf16
+    and f32, pages of 16 and 32: gappy T_q 1 and 4 rows at ragged lengths
+    (splits 1 and auto) with the bitwise T_q=1 / verify-column check, and
+    prefill chunks after a cached prefix beside 1-token rows; then a 512-token
+    chunk after 1024 cached tokens (both dtypes) and a mixed step at the serve
+    phase's shape. Returns the max errors by dtype."""
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    rng = torch.Generator(device=dev).manual_seed(10)
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    bitwise = []
+
+    def check(name, case, real, dtype, scale, num_splits=0):
+        got = pm.paged_mla(*case, scale=scale, num_splits=num_splits)
+        want = pm.paged_mla_plain(*case, scale=scale, num_splits=num_splits)
+        key = str(dtype).removeprefix("torch.")
+        errs[key] = max(errs[key], compare(name, got, want, list(enumerate(real)), dtype))
+        return got
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for geom, (h, r_kv, dr, r_width, dn) in MLA_GEOMS.items():
+            scale = (dn + dr) ** -0.5
+            dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype)
+            for ps in (16, 32):
+                lengths = [1, 37, 300, 1000]
+                npp = -(-1000 // ps) + 2
+                for t in (1, 4):
+                    pos = _positions(lengths, t, contiguous=False)
+                    real = [min(t, n) for n in lengths]
+                    q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+                    for ns in (1, 0):
+                        tag = f"mla {geom} {dtype} ps{ps} T{t} splits{ns}"
+                        got = check(tag, (q_lat, q_rope, c, r, tb[0], posd), real, dtype, scale, ns)
+                        if t == 1:
+                            continue
+                        # A T_q=1 decode of each verify column must equal that column bitwise.
+                        for j in range(t):
+                            one = pm.paged_mla(q_lat[:, j:j + 1].contiguous(), q_rope[:, j:j + 1].contiguous(), c, r,
+                                               tb[0], posd[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
+                            for i in range(len(lengths)):
+                                if j < real[i]:
+                                    bitwise.append(bool(torch.equal(one[i, 0], got[i, j])))
+                                    if not bitwise[-1]:
+                                        raise AssertionError(f"T_q=1 decode differs from verify column {j} of row "
+                                                             f"{i} ({tag})")
+                spans = [(900, 100), (0, 77), (499, 1), (650, 1)]
+                pos = _spans(spans, 100)
+                case = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+                check(f"mla chunk {geom} {dtype} ps{ps}", (*case[:4], case[4][0], case[5]), [n for _, n in spans],
+                      dtype, scale)
+        # The main path's prefill shape: one 512-token chunk after 1024 cached tokens.
+        h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+        pos = _spans([(1024, 512)], 512)
+        case = _mla_case(rng, dev, pos, h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=96, dtype=dtype)
+        check(f"mla 512 after 1024 {dtype}", (*case[:4], case[4][0], case[5]), [512], dtype, (dn + dr) ** -0.5)
+    errs["bfloat16"] = max(errs["bfloat16"], mla_mixed_step_check(dev, rng))
+    emit({"phase": "kernels_mla", "max_abs_err": errs,
+          "tolerance": {"float32": f"{REL_TOL[torch.float32]} * max|plain| per row",
+                        "bfloat16": f"{REL_TOL[torch.bfloat16]} * max|plain| per row"},
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    return errs
+
+
+def mla_mixed_step_check(dev, rng) -> float:
+    """paged_mla at a mixed step of the MLA serve phase: mla-8b-proxy
+    geometry in bf16, 16-token pages, a batch of 8 on 128-page tables, the
+    512-token bucket holding a chunk after 1024 cached tokens, a whole chunk
+    from 0, a short last chunk and 1-token decode rows of up to 1531 tokens."""
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+    spans = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
+    case = _mla_case(rng, dev, _spans(spans, 512), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=128,
+                     dtype=torch.bfloat16)
+    case = (*case[:4], case[4][0], case[5])
+    got = pm.paged_mla(*case, scale=(dn + dr) ** -0.5)
+    want = pm.paged_mla_plain(*case, scale=(dn + dr) ** -0.5)
+    return compare("mla mixed step (serve shape)", got, want, [(i, n) for i, (_, n) in enumerate(spans)],
+                   torch.bfloat16)
+
+
+def mla_timings(dev) -> dict:
+    """paged_mla at the MLA main path's shapes (mla-8b-proxy, bf16, 16-token
+    pages): decode at batch 8 over 2048-token contexts on 128-page tables
+    (the serve phase's table width, so the same split plan), and a 512-token
+    chunk after 1024 cached tokens; each held against its plain version on
+    the timed inputs first. The library yardstick is one SDPA call on
+    pre-gathered keys [c; r[:dr]] and values c (one shared KV head)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    rng = torch.Generator(device=dev).manual_seed(11)
+    h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+    ps, dtype, scale = 16, torch.bfloat16, (dn + dr) ** -0.5
+    dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype)
+
+    def gathered(c, r, tb):
+        idx = tb.clamp(min=0).reshape(-1).long()
+        b, s = tb.shape[0], tb.shape[1] * ps
+        cg = c[idx].reshape(b, 1, s, r_kv)
+        return torch.cat([cg, r[idx].reshape(b, 1, s, r_width)[..., :dr]], dim=-1).contiguous(), cg.contiguous()
+
+    def entry(kern, plain, lib, nbytes, flops, iters, **extra):
+        return dict(ms=time_ms(kern, iters=iters), plain_ms=time_ms(plain, iters=3),
+                    library_ms=time_ms(lib, iters=iters),
+                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", **extra)
+
+    out = {}
+    # Decode: 4 layers' worth of distinct pages (4 x 21 MB > the 50 MB L2),
+    # cycled per launch, so each launch reads its latents from HBM.
+    b, ctx, layers = 8, 2048, 4
+    npp = ctx // ps
+    pos = np.full((b, 1), ctx - 1, np.int32)
+    q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, layers=layers, **dims)
+    tbs = [tb[i].contiguous() for i in range(layers)]
+    it = iter(range(10**9))
+    err = max(compare(f"mla decode timing inputs, layer {i}",
+                      pm.paged_mla(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
+                      pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
+                      [(row, 1) for row in range(b)], dtype) for i in range(layers))
+    kv = [gathered(c, r, tbs[i]) for i in range(layers)]
+    qg = torch.cat([q_lat, q_rope], dim=-1).permute(0, 2, 1, 3).contiguous()  # [B, H, 1, r_kv + dr]
+    nbytes = (b * ctx * (r_kv + dr) * 2  # latent + rope lanes, read once
+              + b * h * (r_kv + dr) * 2 + b * h * r_kv * 4  # queries in, f32 latent out
+              + b * npp * 4 + b * 4)  # tables, positions
+    flops = 2 * b * h * ctx * (r_kv + dr) + 2 * b * h * ctx * r_kv
+    out["decode"] = entry(
+        lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
+        lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
+        lambda: (lambda i: F.scaled_dot_product_attention(qg, kv[i][0], kv[i][1], scale=scale, enable_gqa=True))(
+            next(it) % layers),
+        nbytes, flops, 50, shape=f"B={b} ctx={ctx} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
+        max_abs_err=err, splits=pm.mla_split_plan(b, 1, npp, ps, 0, dev),
+        device_us_by_kernel=device_us_by_kernel(
+            lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale)))
+
+    # Prefill: one 512-token chunk at positions 1024..1535.
+    start, t = 1024, 512
+    kv_len = start + t
+    npp = kv_len // ps
+    pos = _spans([(start, t)], t)
+    q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+    tb0 = tb[0].contiguous()
+    kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale)
+    plain = lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tb0, posd, scale=scale)
+    err = compare("mla prefill timing inputs", kern(), plain(), [(0, t)], dtype)
+    kg, vg = gathered(c, r, tb0)
+    qg = torch.cat([q_lat, q_rope], dim=-1).permute(0, 2, 1, 3).contiguous()  # [1, H, T, r_kv + dr]
+    causal = torch.arange(kv_len, device=dev)[None, :] <= (start + torch.arange(t, device=dev))[:, None]
+    lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=causal, scale=scale, enable_gqa=True)
+    pairs = t * start + t * (t + 1) // 2  # causal (query, key) pairs
+    nbytes = kv_len * (r_kv + dr) * 2 + t * h * (r_kv + dr) * 2 + t * h * r_kv * 4 + npp * 4 + t * 4
+    flops = 2 * h * pairs * (r_kv + dr) + 2 * h * pairs * r_kv
+    out["prefill"] = entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err,
+                           shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
+                           device_us_by_kernel=device_us_by_kernel(kern, 5))
+    emit({"phase": "kernel_timing_mla", **out})
+    return out
+
+
 def kernel_timings(dev) -> dict:
     """Each kernel at the main path's shapes (llama-3.2-1b, bf16, 16-token
     pages): decode at batch 8 over 2048-token contexts on 128-page tables
@@ -296,14 +528,14 @@ def kernel_timings(dev) -> dict:
 # -- phase 3: forward -----------------------------------------------------------
 
 
-def forward_check(dev) -> None:
+def forward_check(dev, model: str) -> None:
     """One prefill chunk (T=64, two rows, the second continuing at 64) and
-    one decode step of llama-3.2-1b at full width, run with the kernels and
+    one decode step of ``model`` at full width, run with the kernels and
     with the plain attention from the same caches."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import PRESETS
 
-    cfg = PRESETS[MODEL]
+    cfg = PRESETS[model]
     params = llama.init_params(cfg, 0, device=dev)
     ps, npages = 16, 64
     kc0, vc0 = llama.init_kv_cache(cfg, npages, ps, device=dev)
@@ -340,36 +572,36 @@ def forward_check(dev) -> None:
             raise AssertionError(f"forward {phase}: non-finite logits")
         errs[phase] = float((a - r).abs().max())
         scale = float(r.abs().max())
-        # bf16 weights and activations through 16 layers: the two attention
-        # implementations round differently (~2**-8 relative per layer);
-        # allow 5% of the largest logit.
+        # bf16 weights and activations through 16 (32) layers: the two
+        # attention implementations round differently (~2**-8 relative per
+        # layer); allow 5% of the largest logit.
         if not errs[phase] <= 0.05 * scale:
             raise AssertionError(f"forward {phase}: max abs err {errs[phase]} > 5% of max |logit| {scale}")
         errs[f"{phase}_argmax_equal"] = bool(torch.equal(a.argmax(-1), r.argmax(-1)))
-    emit({"phase": "forward", "model": MODEL, "logits_max_abs_err": errs,
+    emit({"phase": "forward", "model": model, "logits_max_abs_err": errs,
           "tolerance": "0.05 * max|logit|", "logits_shape": list(results[None][0].shape)})
 
 
 # -- phase 4: serve -------------------------------------------------------------
 
 
-async def build_serving():
+async def build_serving(model: str = MODEL):
     """The serve phase's engine and pipeline: ``build_engine_service`` of
-    llama-3.2-1b (random init, bf16, on the card) behind ``build_pipeline``."""
+    ``model`` (random init, bf16, on the card) behind ``build_pipeline``."""
     from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
 
-    service = await build_engine_service(MODEL, **SERVE_ENGINE)
+    service = await build_engine_service(model, **SERVE_ENGINE)
     return service, build_pipeline(service)
 
 
-def serve_bodies(rng: np.random.Generator) -> list[dict]:
+def serve_bodies(rng: np.random.Generator, model: str = MODEL) -> list[dict]:
     """The serve mix: one OpenAI completion body per ``SERVE_LENGTHS`` prompt
     length, random letters, 32 output tokens each; greedy except one seeded
     nucleus-sampled request."""
     letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", dtype=np.uint8)
     bodies = []
     for i, n in enumerate(SERVE_LENGTHS):
-        body = {"model": MODEL, "prompt": bytes(rng.choice(letters, n - 1)).decode(),  # + BOS = n tokens
+        body = {"model": model, "prompt": bytes(rng.choice(letters, n - 1)).decode(),  # + BOS = n tokens
                 "max_tokens": 32, "temperature": 0.0, "nvext": {"ignore_eos": True}}
         if i == 3:
             body.update(temperature=0.8, top_p=0.95, seed=1234)
@@ -377,13 +609,13 @@ def serve_bodies(rng: np.random.Generator) -> list[dict]:
     return bodies
 
 
-async def warm_up(pipeline) -> None:
+async def warm_up(pipeline, model: str = MODEL) -> None:
     """One request outside any measurement: CUDA lazy loading, cuBLAS
     heuristics and allocator growth would otherwise land in the first timed
     requests' TTFT."""
     from dynamo_tpu_torch.runtime.engine import Context
 
-    warm = {"model": MODEL, "prompt": "w" * 600, "max_tokens": 4, "temperature": 0.0,
+    warm = {"model": model, "prompt": "w" * 600, "max_tokens": 4, "temperature": 0.0,
             "nvext": {"ignore_eos": True}}
     async for _ in pipeline.generate(warm, Context()):
         pass
@@ -407,26 +639,27 @@ async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
     return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, SERVE_LENGTHS)))
 
 
-async def serve(dev) -> dict:
-    from dynamo_tpu_torch.ops import paged_decode, paged_prefill
-
+async def serve(model: str) -> dict:
+    """Serve the mix on ``model``; returns the launches of its kernels
+    (``SERVE_KERNELS``) over the timed requests."""
+    kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[model]}
     t0 = time.perf_counter()
-    service, pipeline = await build_serving()
+    service, pipeline = await build_serving(model)
     build_s = time.perf_counter() - t0
-    bodies = serve_bodies(np.random.default_rng(3))
+    bodies = serve_bodies(np.random.default_rng(3), model)
     try:
-        await warm_up(pipeline)
+        await warm_up(pipeline, model)
         # Counters go to 0 just before the main path and are read just after;
         # the engine's own cumulative counters are read as differences.
         core = service.core
         dispatch0, mixed0 = dict(core.attn_dispatch_counts), core.mixed_steps
-        paged_decode.launches = 0
-        paged_prefill.launches = 0
+        for mod in kernels.values():
+            mod.launches = 0
         start = time.perf_counter()
         results = await send_all(pipeline, bodies)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        launches = {"paged_decode": paged_decode.launches, "paged_prefill": paged_prefill.launches}
+        launches = {name: mod.launches for name, mod in kernels.items()}
         dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
         mixed = core.mixed_steps - mixed0
     finally:
@@ -445,7 +678,7 @@ async def serve(dev) -> dict:
         raise AssertionError("no mixed prefill+decode step occurred")
     out_tokens = sum(len(r["tokens"]) for r in results)
     ttfts = sorted(r["ttft_s"] for r in results)
-    emit({"phase": "serve", "model": MODEL, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
+    emit({"phase": "serve", "model": model, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
           "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
           "output_tokens_per_s": out_tokens / wall, "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts),
                                                               "max": ttfts[-1]},
@@ -471,19 +704,35 @@ def main() -> int:
     built = build.build()
     regs = {name: sorted({int(x.split("Used ")[1].split()[0]) for x in log.splitlines() if "Used " in x})
             for name, log in built["ptxas"].items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs})
+    spills = {name: max([int(n) for n in re.findall(r"(\d+) bytes spill stores", log)] or [0])
+              for name, log in built["ptxas"].items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs,
+          "nvcc_max_spill_store_bytes": spills})
 
     errs = kernel_checks(dev)
+    mla_errs = mla_kernel_checks(dev)
+    errs.update({f"paged_mla/{k}": e for k, e in mla_errs.items()})
     timing = kernel_timings(dev)
-    forward_check(dev)
-    launches = asyncio.run(serve(dev))
+    # The kernels line carries paged_mla's decode time; its prefill time is on
+    # the kernel_timing_mla line.
+    timing["paged_mla"] = mla_timings(dev)["decode"]
+    launches = {}
+    for model in (MODEL, MLA_MODEL):
+        forward_check(dev, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for model in (MODEL, MLA_MODEL):  # each model's service is freed before the next is built
+        launches.update(asyncio.run(serve(model)))
+        gc.collect()
+        torch.cuda.empty_cache()
 
     replaces = {
         "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",
         "paged_prefill": "dynamo_tpu/ops/pallas_prefill.py:93",
+        "paged_mla": "dynamo_tpu/ops/pallas_mla.py:83",
     }
     kernels = []
-    for name in ("paged_decode", "paged_prefill"):
+    for name in ("paged_decode", "paged_prefill", "paged_mla"):
         tm = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name}.cu",

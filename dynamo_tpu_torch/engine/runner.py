@@ -24,8 +24,10 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.mla import mla_cache_widths
 from dynamo_tpu_torch.ops.attention import NEG_INF, attention_phase, noncontiguous_rows
 from dynamo_tpu_torch.ops.paged_decode import decode_kernel_supported
+from dynamo_tpu_torch.ops.paged_mla import paged_mla_supported
 from dynamo_tpu_torch.ops.paged_prefill import prefill_kernel_supported
 from dynamo_tpu_torch.ops.sampling import CANDIDATES, gumbel_noise, sample_tokens, token_logprobs
 
@@ -90,24 +92,34 @@ class TorchModelRunner:
         # Held by every entry point that touches the KV cache (today: step).
         self.io_lock = threading.RLock()
         # (phase, path) of the most recent dispatch — phase in {decode,
-        # verify, prefill}, path "kernel" on the card or "plain" on the CPU.
+        # verify, prefill}, path "kernel" on the card (every phase of a GQA
+        # or MLA model runs in a kernel there) or "plain" on the CPU.
         # EngineCore consumes it into its dispatch-path counters.
         self.last_attn_dispatch: tuple[str, str] | None = None
         self._attn_path = "kernel" if self.device.type == "cuda" else "plain"
         dt = cache_dtype or llama.param_dtype(cfg)
         if self.device.type == "cuda":
-            self._check_kernels_take(cfg, dt)
+            self._check_kernels_take(cfg, dt, page_size)
         self.params = _to_device(params, self.device)
         self.k_cache, self.v_cache = llama.init_kv_cache(
             cfg, num_pages, page_size, dtype=dt, device=self.device
         )
 
     @staticmethod
-    def _check_kernels_take(cfg: ModelConfig, cache_dtype: torch.dtype) -> None:
-        """On the card every step's attention runs in the two kernels; refuse
-        a model whose geometry they do not take before allocating anything."""
-        w = cfg.num_kv_heads * cfg.head_dim
+    def _check_kernels_take(cfg: ModelConfig, cache_dtype: torch.dtype, page_size: int) -> None:
+        """On the card every step's attention runs in a kernel (``paged_mla``
+        for an MLA model, the decode and prefill kernels for GQA); refuse a
+        model whose geometry they do not take before allocating anything."""
         kw = dict(q_dtype=llama.param_dtype(cfg), cache_dtype=cache_dtype)
+        if cfg.attn_type == "mla":
+            r_kv, r_width = mla_cache_widths(cfg)
+            if not paged_mla_supported(cfg.num_heads, r_kv, r_width, cfg.qk_rope_head_dim, page_size, **kw):
+                raise NotImplementedError(
+                    f"the paged MLA kernel does not take heads={cfg.num_heads}, kv_lora_rank={r_kv}, "
+                    f"qk_rope_head_dim={cfg.qk_rope_head_dim}, page size {page_size}, cache {cache_dtype}"
+                )
+            return
+        w = cfg.num_kv_heads * cfg.head_dim
         if not (decode_kernel_supported(cfg.num_heads, cfg.head_dim, w, **kw)
                 and prefill_kernel_supported(cfg.num_heads, cfg.head_dim, w, **kw)):
             raise NotImplementedError(

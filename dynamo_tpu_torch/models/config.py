@@ -2,8 +2,8 @@
 
 A copy of ``dynamo_tpu/models/config.py:ModelConfig`` (same fields, so a
 config converts either way with ``dataclasses.asdict``) restricted to the
-presets the first slice of the port runs: the two CPU test models and the
-two Llama-3 widths served on the card.
+presets the port runs: the CPU test models (dense GQA and MLA) and the
+widths served on the card (two Llama-3 models and the dense-trunk MLA proxy).
 """
 
 from __future__ import annotations
@@ -98,5 +98,25 @@ PRESETS: dict[str, ModelConfig] = {
         name="llama-3-8b", vocab_size=128256, hidden_size=4096, num_layers=32,
         num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
         rope_theta=500000.0, max_position=8192,
+    ),
+    # MLA throughput proxy at 8B-class scale: DeepSeek-V3's per-layer MLA
+    # geometry (kv_lora 512 + rope 64 latent cache, absorbed projections)
+    # on a 32-layer/4096-hidden dense trunk; no public checkpoint has this
+    # exact shape.
+    "mla-8b-proxy": ModelConfig(
+        name="mla-8b-proxy", vocab_size=128256, hidden_size=4096,
+        num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+        intermediate_size=14336, rope_theta=500000.0, max_position=8192,
+        attn_type="mla", q_lora_rank=1536, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        rope_interleave=True,
+    ),
+    # MLA test model (tiny): latent cache + absorbed projections.
+    "test-tiny-mla": ModelConfig(
+        name="test-tiny-mla", vocab_size=256, hidden_size=64, num_layers=2,
+        num_heads=4, num_kv_heads=4, head_dim=16, intermediate_size=128,
+        rope_theta=10000.0, max_position=512, tie_embeddings=True, dtype="float32",
+        attn_type="mla", q_lora_rank=32, kv_lora_rank=24,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
     ),
 }

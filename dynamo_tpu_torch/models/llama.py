@@ -1,15 +1,16 @@
-"""Llama-family decoder, dense GQA path (counterpart of
-``dynamo_tpu/models/llama.py``).
+"""Llama-family decoder, dense trunk with GQA or MLA attention (counterpart
+of ``dynamo_tpu/models/llama.py``).
 
 Parameters are a plain dict of tensors with **layers stacked on a leading
 axis** and every projection stored ``[in, out]`` (``x @ W``), exactly the
 JAX pytree's layout, so ``bridge.params_from_jax`` needs no transposes. The
-paged KV cache is ``[L, num_pages, page_size, n_kv * head_dim]``; the forward
-addresses it flat (``[L * pages, ps, W]``) with per-layer page offsets and
-updates it **in place** (``write_kv`` before attention).
+paged KV cache is ``[L, num_pages, page_size, n_kv * head_dim]`` (MLA: latents
+in ``k_cache``, lane-padded rope keys in ``v_cache``, ``models/mla.py``); the
+forward addresses it flat (``[L * pages, ps, W]``) with per-layer page
+offsets and updates it **in place** before attention.
 
-MoE, MLA, ring attention, multimodal inputs and sliding window raise
-``NotImplementedError`` in this slice of the port.
+MoE, ring attention, multimodal inputs and sliding window raise
+``NotImplementedError`` in this port.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.mla import init_mla_params, mla_attention, mla_cache_widths
 from dynamo_tpu_torch.ops.attention import paged_attention, paged_attention_reference, write_kv
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_attention_factor, rope_frequencies
@@ -33,11 +35,11 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architecture features this slice does not port yet."""
+    """Raise for the architecture features the port does not take yet."""
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported to dynamo_tpu_torch yet")
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"attention type {cfg.attn_type!r} (MLA) is not ported yet")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise NotImplementedError(f"attention type {cfg.attn_type!r} is not ported")
     if cfg.sliding_window > 0:
         raise NotImplementedError("sliding-window attention is not ported yet")
     if cfg.image_token_id is not None or cfg.video_token_id is not None or cfg.mrope_section:
@@ -61,19 +63,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
     layers = {
         "attn_norm": torch.ones((nl, d), dtype=dt, device=dev),
         "mlp_norm": torch.ones((nl, d), dtype=dt, device=dev),
-        "wq": w((nl, d, q), d),
-        "wk": w((nl, d, kv), d),
-        "wv": w((nl, d, kv), d),
-        "wo": w((nl, q, d), q),
-        "w_gate": w((nl, d, f), d),
-        "w_up": w((nl, d, f), d),
-        "w_down": w((nl, f, d), f),
     }
     if cfg.qk_norm:
         qn = cfg.head_dim if cfg.qk_norm == "head" else q
         kn = cfg.head_dim if cfg.qk_norm == "head" else kv
         layers["q_norm"] = torch.ones((nl, qn), dtype=dt, device=dev)
         layers["k_norm"] = torch.ones((nl, kn), dtype=dt, device=dev)
+    if cfg.attn_type == "mla":
+        layers.update(init_mla_params(cfg, gen, dt, nl))
+    else:
+        layers.update({
+            "wq": w((nl, d, q), d),
+            "wk": w((nl, d, kv), d),
+            "wv": w((nl, d, kv), d),
+            "wo": w((nl, q, d), q),
+        })
+    layers.update({
+        "w_gate": w((nl, d, f), d),
+        "w_up": w((nl, d, f), d),
+        "w_down": w((nl, f, d), f),
+    })
     if cfg.attention_bias:
         layers.update({
             "bq": torch.zeros((nl, q), dtype=dt, device=dev),
@@ -93,12 +102,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype | None = None,
                   *, device: str | torch.device = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Allocate the paged KV cache on ``device`` (the card unless the caller
-    asks for the CPU): two zeroed [L, num_pages, page_size, n_kv * hd] tensors."""
+    asks for the CPU): two zeroed [L, num_pages, page_size, W] tensors, W =
+    n_kv * hd for GQA; for MLA the latent and the padded rope widths
+    (``mla_cache_widths``)."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads * cfg.head_dim)
     dt = dtype or param_dtype(cfg)
-    return torch.zeros(shape, dtype=dt, device=device), torch.zeros(shape, dtype=dt, device=device)
+    if cfg.attn_type == "mla":
+        wk, wv = mla_cache_widths(cfg)
+    else:
+        wk = wv = cfg.num_kv_heads * cfg.head_dim
+    geom = (cfg.num_layers, num_pages, page_size)
+    return torch.zeros((*geom, wk), dtype=dt, device=device), torch.zeros((*geom, wv), dtype=dt, device=device)
 
 
 def _mlp_dense(lp: dict, li: int, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -123,7 +138,7 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # i32[B, T]
     positions: torch.Tensor,  # i32[B, T]
-    k_cache: torch.Tensor,  # [L, num_pages, page_size, n_kv * hd]; updated in place
+    k_cache: torch.Tensor,  # [L, num_pages, page_size, W]; updated in place
     v_cache: torch.Tensor,
     block_tables: torch.Tensor,  # i32[B, pages_per_seq]
     slot_mapping: torch.Tensor,  # i32[B, T]
@@ -136,15 +151,18 @@ def forward(
     """One forward step. Returns (logits f32[B, vocab] — or f32[B, V, vocab]
     with ``logit_indices`` — , k_cache, v_cache); the caches are the same
     tensors, written in place. ``attn_impl="reference"`` runs attention as
-    ``paged_attention_reference`` (the JAX build's ``attn_impl`` switch)."""
+    ``paged_attention_reference``, or MLA's gather formulation (the JAX
+    build's ``attn_impl`` switch)."""
     if attn_impl not in (None, "reference"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (want None or 'reference')")
     check_supported(cfg)
     b, t = tokens.shape
     nl, npages, ps, w = k_cache.shape
     dev = tokens.device
+    mla = cfg.attn_type == "mla"
+    rope_dim = cfg.qk_rope_head_dim if mla else cfg.head_dim
     inv_freq = torch.from_numpy(
-        rope_frequencies(cfg.head_dim, theta=cfg.rope_theta, scaling=cfg.rope_scaling)
+        rope_frequencies(rope_dim, theta=cfg.rope_theta, scaling=cfg.rope_scaling)
     ).to(dev)
     attn_mscale = rope_attention_factor(cfg.rope_scaling) ** 2
     # Ids past the vocabulary read its last row, as the JAX build's clamped
@@ -156,13 +174,22 @@ def forward(
     # pages sit at offset li*pages. Offset tables and slots for every layer
     # are built once per step.
     kf = k_cache.view(nl * npages, ps, w)
-    vf = v_cache.view(nl * npages, ps, w)
+    vf = v_cache.view(nl * npages, ps, v_cache.shape[3])
     layer_ids = torch.arange(nl, device=dev, dtype=torch.int32)
     tables_all = (block_tables[None] + (layer_ids * npages)[:, None, None]).contiguous()
     slots_all = slot_mapping.long()[None] + (layer_ids.long() * (npages * ps))[:, None, None]
     lp = params["layers"]
     for li in range(nl):
         h = rms_norm(x, lp["attn_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
+        if mla:
+            attn_out, _, _ = mla_attention(
+                {k: v[li] for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
+                inv_freq, attn_mscale=attn_mscale, impl=attn_impl,
+            )
+            x = x + attn_out
+            h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
+            x = x + _mlp_dense(lp, li, h2, cfg.mlp_act)
+            continue
         qp, kp, vp = h @ lp["wq"][li], h @ lp["wk"][li], h @ lp["wv"][li]
         if cfg.attention_bias:
             qp, kp, vp = qp + lp["bq"][li], kp + lp["bk"][li], vp + lp["bv"][li]

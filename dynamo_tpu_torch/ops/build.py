@@ -43,6 +43,10 @@ SIGNATURES: dict[str, tuple[str, list]] = {
         "dyn_paged_prefill",
         [_P] * 6 + [_I] * 9 + [_F, _P],
     ),
+    "paged_mla": (
+        "dyn_paged_mla",
+        [_P] * 10 + [_I] * 12 + [_F, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,7 @@ import torch
 from dynamo_tpu.engine.runner import ModelRunner, StepBatch as JStepBatch
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.models.config import PRESETS as JPRESETS
+from dynamo_tpu.models.mla import mla_cache_widths as jmla_cache_widths
 from dynamo_tpu_torch.bridge import params_from_jax, tensor_from_numpy
 from dynamo_tpu_torch.engine.runner import StepBatch, TorchModelRunner
 from dynamo_tpu_torch.models import llama as tllama
@@ -33,12 +34,26 @@ def test_presets_equal_jax():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(JPRESETS[name])
 
 
-@pytest.mark.parametrize("feature", [dict(num_experts=4, num_experts_per_token=2), dict(attn_type="mla"),
+@pytest.mark.parametrize("feature", [dict(num_experts=4, num_experts_per_token=2),
+                                     dict(num_experts=4, num_experts_per_token=2, attn_type="mla"),
                                      dict(sliding_window=32), dict(image_token_id=5), dict(video_token_id=6)])
 def test_unported_architectures_are_refused(feature):
     cfg = dataclasses.replace(PRESETS["test-tiny"], **feature)
     with pytest.raises(NotImplementedError):
         tllama.init_kv_cache(cfg, 4, 4, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["test-tiny-mla", "mla-8b-proxy"])
+def test_mla_cache_has_the_jax_widths(name):
+    """MLA caches the latent (kv_lora_rank) in k_cache and the rope key,
+    lane-padded to max(qk_rope_head_dim, 128), in v_cache: the JAX build's
+    widths (no array is built on the JAX side)."""
+    cfg = PRESETS[name]
+    k, v = tllama.init_kv_cache(cfg, 3, 4, device="cpu")
+    wk, wv = jmla_cache_widths(JPRESETS[name])
+    assert (wk, wv) == (cfg.kv_lora_rank, max(cfg.qk_rope_head_dim, 128))
+    assert k.shape == (cfg.num_layers, 3, 4, wk) and v.shape == (cfg.num_layers, 3, 4, wv)
+    assert bool((v == 0).all())
 
 
 def test_bridge_keeps_bf16_bits_and_refuses_quantized_leaves():
@@ -70,12 +85,13 @@ def _step_inputs(cfg, ps, npages):
     return [(tokens, pos, tables, slots, last), (dec_tok, dec_pos, tables, dec_slots, np.zeros(b, np.int32))]
 
 
-@pytest.mark.parametrize("name", ["test-tiny", "test-kernel"])
+@pytest.mark.parametrize("name", ["test-tiny", "test-kernel", "test-tiny-mla"])
 def test_forward_matches_jax(name):
     """Logits of a prefill step and a decode step, and both caches after
     them. f32 on both sides over two layers: 1e-4 absolute on O(1) logits
     covers the different summation orders; the null page (padding writes)
-    is excluded from the cache comparison."""
+    is excluded from the cache comparison (for MLA the zero rope tail is
+    compared too)."""
     jcfg, cfg = JPRESETS[name], PRESETS[name]
     jparams = _jax_params(name)
     params = params_from_jax(_numpy_tree(jparams), device="cpu")

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 tools/torch_serve_profile.py --out DIR
+    python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy]
 
 Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
-script so the two stay the same (llama-3.2-1b, random init, 8 concurrent
-completions of 16..1500 prompt tokens, 32 output tokens each), after the
-same warm-up request, under ``torch.profiler`` (CPU + CUDA activities).
+script so the two stay the same (llama-3.2-1b by default, or mla-8b-proxy;
+random init, 8 concurrent completions of 16..1500 prompt tokens, 32 output
+tokens each), after the same warm-up request, under ``torch.profiler``
+(CPU + CUDA activities).
 Prints one JSON line: wall time, engine steps, device busy share (union of
 CUDA kernel intervals over the profiled wall), kernel launches per step, and
 the device time by kernel family. Writes the Chrome trace to
-``DIR/serve_trace.json`` (tens of MB). The profiler adds host overhead of
+``DIR/serve_trace_<model>.json`` (tens of MB). The profiler adds host overhead of
 its own, so the wall time here is not a throughput number;
 ``chip_smoke.py`` measures that without the profiler.
 """
@@ -33,6 +34,7 @@ import chip_smoke  # noqa: E402  (the serve mix lives there)
 
 FAMILIES = (  # kernel name fragment -> family, first match wins
     ("decode_partials", "attention: paged_decode"), ("decode_combine", "attention: paged_decode"),
+    ("mla_", "attention: paged_mla"),
     ("prefill", "attention: paged_prefill"), ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
     ("sm90_xmma", "matmul"), ("nvjet", "matmul"), ("index", "gather/scatter"), ("elementwise", "elementwise"),
     ("reduce", "reduction"), ("softmax", "sampling/softmax"), ("topk", "sampling/softmax"),
@@ -47,9 +49,9 @@ def family(name: str) -> str:
     return "other"
 
 
-async def main(out_dir: str) -> dict:
-    service, pipeline = await chip_smoke.build_serving()
-    bodies = chip_smoke.serve_bodies(np.random.default_rng(3))
+async def main(out_dir: str, model: str) -> dict:
+    service, pipeline = await chip_smoke.build_serving(model)
+    bodies = chip_smoke.serve_bodies(np.random.default_rng(3), model)
     steps = {"n": 0}
     step = service.core.step
 
@@ -59,7 +61,7 @@ async def main(out_dir: str) -> dict:
 
     service.core.step = counted_step
     try:
-        await chip_smoke.warm_up(pipeline)  # not profiled
+        await chip_smoke.warm_up(pipeline, model)  # not profiled
         torch.cuda.synchronize()
         steps["n"] = 0
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -71,7 +73,7 @@ async def main(out_dir: str) -> dict:
     finally:
         await service.close()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "serve_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}.json"))
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
@@ -89,7 +91,7 @@ async def main(out_dir: str) -> dict:
         fam = family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     return {
-        "model": chip_smoke.MODEL, "device": torch.cuda.get_device_name(0), "profiled_wall_s": wall,
+        "model": model, "device": torch.cuda.get_device_name(0), "profiled_wall_s": wall,
         "engine_steps": steps["n"], "cuda_kernels": len(kernels),
         "kernels_per_step": len(kernels) / max(1, steps["n"]),
         "device_busy_share": busy / 1e6 / wall,
@@ -100,8 +102,10 @@ async def main(out_dir: str) -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", required=True, help="directory for the Chrome trace")
+    ap.add_argument("--model", default=chip_smoke.MODEL, choices=sorted(chip_smoke.SERVE_KERNELS),
+                    help="the served preset (default %(default)s)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    print(json.dumps(asyncio.run(main(args.out))), flush=True)
+    print(json.dumps(asyncio.run(main(args.out, args.model))), flush=True)
