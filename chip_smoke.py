@@ -9,7 +9,10 @@ Phases, one JSON line each; any failure exits non-zero:
               one nvcc per source, all started together.
 2. kernels  — hold each kernel against its plain PyTorch version. GQA
               (paged_decode, paged_prefill): the llama-3.2-1b (32/8 heads,
-              hd 64) and llama-3-8b (32/8, hd 128) geometries. MLA
+              hd 64), llama-3-8b (32/8, hd 128) and a GQA group of 8
+              (64/8, hd 64) geometries, bf16 also on pages of 12 (no TMA
+              box, page lookups by division) and 24 (TMA, division), decode
+              also at T_q 8 (two and four 16-row tiles). MLA
               (paged_mla, phase "kernels_mla"): the mla-8b-proxy (32 heads,
               latent 512, rope 64) and test-mla-kernel (4 heads, latent 128,
               rope 64) geometries. Each in bf16 and f32, pages of 16 and 32:
@@ -19,9 +22,12 @@ Phases, one JSON line each; any failure exits non-zero:
               serve phase's shape. Then, at the main paths' shapes, each
               kernel is held against its plain version once more and timed
               (CUDA-graph replay between CUDA events, median of repeats)
-              beside its bound, the plain version's time and one PyTorch
-              library call's. Every comparison is per row, relative to the
-              row's largest plain output.
+              beside its bound, the plain version's time, one PyTorch
+              library call's and the device µs of each CUDA kernel it
+              launches (GQA: also the wrapper's host µs per call); the GQA
+              kernels also at hd 128 (llama-3-8b's 32/8 heads) and the
+              prefill kernel at the mixed-step shape. Every comparison is
+              per row, relative to the row's largest plain output.
 3. forward  — one prefill and one decode step at full width, with the
               kernels and with the plain attention, same inputs; logits
               compared: llama-3.2-1b, then mla-8b-proxy.
@@ -64,6 +70,10 @@ MLA_GEOMS = {"mla-8b-proxy": (32, 512, 64, 128, 128), "test-mla-kernel": (4, 128
 REL_TOL = {torch.float32: 2**-14, torch.bfloat16: 2**-6}
 SERVE_LENGTHS = [16, 40, 100, 250, 500, 800, 1200, 1500]  # prompt tokens, BOS included
 SERVE_ENGINE = dict(num_pages=2048, max_batch_size=16)
+# A mixed step of the serve phases' shape, (start, real tokens) per row of a
+# 512-token bucket: a chunk after 1024 cached tokens, a whole chunk from 0,
+# a short last chunk, and 1-token decode rows (start = kv_len - 1).
+MIXED_SPANS = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
 
 
 def emit(obj: dict) -> None:
@@ -141,6 +151,20 @@ def device_us_by_kernel(fn, calls: int = 10) -> dict:
     return out
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` in µs: ``calls`` calls back to back
+    with no synchronisation between them (the launch queue holds them all,
+    so the device's time is not in the number), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 # -- phase 2: kernels ---------------------------------------------------------
 
 
@@ -191,18 +215,20 @@ def kernel_checks(dev) -> dict:
     errs = {f"{k}/{d}": 0.0 for k in ("paged_decode", "paged_prefill") for d in ("bfloat16", "float32")}
     bitwise = []
     for dtype in (torch.bfloat16, torch.float32):
-        for h, n_kv, hd in ((32, 8, 64), (32, 8, 128)):
+        for h, n_kv, hd in ((32, 8, 64), (32, 8, 128), (64, 8, 64)):
             scale = hd**-0.5
-            for ps in (16, 32):
+            # Pages of 12 and 24 tokens take the bf16 kernels' other paths:
+            # cp.async copies (no 8-row TMA box) and page lookups by division.
+            for ps in (16, 32, 12, 24) if dtype == torch.bfloat16 else (16, 32):
                 lengths = [1, 37, 300, 1000]
                 npp = -(-1000 // ps) + 2
-                for t in (1, 4):
+                for t in (1, 4, 8):
                     q, kc, vc, tb, pos, _ = _case(rng, dev, b=4, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
                                                   dtype=dtype, lengths=lengths, contiguous=False)
                     for ns in (1, 0):
                         got = pd.paged_decode_attention(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
                         want = pd.paged_decode_plain(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
-                        err = compare(f"decode {dtype} hd{hd} ps{ps} T{t} splits{ns}", got, want,
+                        err = compare(f"decode {dtype} heads {h}/{n_kv} hd{hd} ps{ps} T{t} splits{ns}", got, want,
                                       [(i, t) for i in range(4)], dtype)
                         key = f"paged_decode/{str(dtype).removeprefix('torch.')}"
                         errs[key] = max(errs[key], err)
@@ -215,8 +241,8 @@ def kernel_checks(dev) -> dict:
                                 same = bool(torch.equal(one[:, 0], got[:, j]))
                                 bitwise.append(same)
                                 if not same:
-                                    raise AssertionError(
-                                        f"T_q=1 decode differs from verify column {j} ({dtype} hd{hd} ps{ps} splits{ns})")
+                                    raise AssertionError(f"T_q=1 decode differs from verify column {j} ({dtype} "
+                                                         f"heads {h}/{n_kv} hd{hd} ps{ps} T{t} splits{ns})")
                 # Prefill: chunks continuing after a cached prefix (start > 0),
                 # a whole prompt from 0, and mixed 1-token decode rows.
                 t = 100
@@ -229,7 +255,7 @@ def kernel_checks(dev) -> dict:
                 pos = torch.from_numpy(posn).to(dev)
                 got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=scale)
                 want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=scale)
-                err = compare(f"prefill {dtype} hd{hd} ps{ps}", got, want,
+                err = compare(f"prefill {dtype} heads {h}/{n_kv} hd{hd} ps{ps}", got, want,
                               [(i, n) for i, (_, n) in enumerate(spans)], dtype)
                 key = f"paged_prefill/{str(dtype).removeprefix('torch.')}"
                 errs[key] = max(errs[key], err)
@@ -250,13 +276,10 @@ def mixed_step_check(dev, rng) -> float:
     from dynamo_tpu_torch.ops import paged_prefill as pp
 
     h, n_kv, hd, ps, t, npp = 32, 8, 64, 16, 512, 128
-    spans = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
+    spans = MIXED_SPANS
     q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
                                 dtype=torch.bfloat16, lengths=[s + n for s, n in spans], contiguous=True)
-    posn = np.zeros((len(spans), t), np.int32)
-    for i, (start, n) in enumerate(spans):
-        posn[i, :n] = np.arange(start, start + n)
-    pos = torch.from_numpy(posn).to(dev)
+    pos = torch.from_numpy(_spans(spans, t)).to(dev)
     got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=hd**-0.5)
     want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=hd**-0.5)
     return compare("prefill mixed step (serve shape)", got, want,
@@ -357,7 +380,7 @@ def mla_mixed_step_check(dev, rng) -> float:
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
-    spans = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
+    spans = MIXED_SPANS
     case = _mla_case(rng, dev, _spans(spans, 512), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=128,
                      dtype=torch.bfloat16)
     case = (*case[:4], case[4][0], case[5])
@@ -448,26 +471,28 @@ def mla_timings(dev) -> dict:
     return out
 
 
-def kernel_timings(dev) -> dict:
-    """Each kernel at the main path's shapes (llama-3.2-1b, bf16, 16-token
+def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
+    """paged_decode and paged_prefill at one GQA geometry (bf16, 16-token
     pages): decode at batch 8 over 2048-token contexts on 128-page tables
     (the serve phase's table width, so the same split plan), prefill of a
     512-token chunk after 1024 cached tokens. Before timing, each kernel's
-    output on the timed inputs is held against its plain version's."""
+    output on the timed inputs is held against its plain version's. Beside
+    the device times, the wrapper's host time per call (checks, ctypes,
+    tensor maps and the launch)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops import paged_decode as pd
     from dynamo_tpu_torch.ops import paged_prefill as pp
     from dynamo_tpu_torch.ops.attention import gather_pages
 
-    rng = torch.Generator(device=dev).manual_seed(1)
-    h, n_kv, hd, ps, dtype = 32, 8, 64, 16, torch.bfloat16
+    ps, dtype = 16, torch.bfloat16
     scale = hd**-0.5
+    geom = f"heads={h}/{n_kv} hd={hd} bf16 page={ps}"
     out = {}
 
-    # Decode: 4 layers' worth of distinct pages (4 x 33.6 MB > the 50 MB L2),
-    # cycled per launch, so each launch reads its K/V from HBM as a serving
-    # step does.
+    # Decode: 4 layers' worth of distinct pages (4 x 33.6 MB at hd 64 > the
+    # 50 MB L2), cycled per launch, so each launch reads its K/V from HBM as a
+    # serving step does.
     b, ctx, layers = 8, 2048, 4
     npp = ctx // ps
     q, kc, vc, tb, pos, _ = _case(rng, dev, b=b, t=1, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=dtype,
@@ -476,7 +501,7 @@ def kernel_timings(dev) -> dict:
     it = iter(range(10**9))
     kern = lambda: pd.paged_decode_attention(q, kc, vc, tbs[next(it) % layers], pos, scale=scale)
     plain = lambda: pd.paged_decode_plain(q, kc, vc, tbs[next(it) % layers], pos, scale=scale)
-    err = max(compare(f"decode timing inputs, layer {i}",
+    err = max(compare(f"decode timing inputs, {geom}, layer {i}",
                       pd.paged_decode_attention(q, kc, vc, tbs[i], pos, scale=scale),
                       pd.paged_decode_plain(q, kc, vc, tbs[i], pos, scale=scale), [(r, 1) for r in range(b)], dtype)
               for i in range(layers))
@@ -491,11 +516,13 @@ def kernel_timings(dev) -> dict:
     flops = 4 * b * h * ctx * hd
     out["paged_decode"] = dict(
         ms=time_ms(kern, iters=50), plain_ms=time_ms(plain, iters=5), library_ms=time_ms(lib, iters=50),
+        host_us_per_call=host_us(kern),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-        shape=f"B={b} ctx={ctx} heads=32/8 hd=64 bf16 page=16", max_abs_err=err,
-        splits=pd.split_plan(b, n_kv, npp, ps, 0, q.device),
+        shape=f"B={b} ctx={ctx} {geom}", max_abs_err=err,
+        splits=pd.decode_split_plan(b, n_kv, npp, ps, 0, q.device), device_us_by_kernel=device_us_by_kernel(kern),
     )
+    del q, kc, vc, kg, vg
 
     # Prefill: one 512-token chunk at positions 1024..1535.
     start, t = 1024, 512
@@ -506,7 +533,7 @@ def kernel_timings(dev) -> dict:
     tb0 = tb[0].contiguous()
     kern = lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=scale)
     plain = lambda: pp.paged_prefill_plain(q, kc, vc, tb0, pos, scale=scale)
-    err = compare("prefill timing inputs", kern(), plain(), [(0, t)], dtype)
+    err = compare(f"prefill timing inputs, {geom}", kern(), plain(), [(0, t)], dtype)
     kgp = gather_pages(kc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
     vgp = gather_pages(vc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
     qgp = q.permute(0, 2, 1, 3).contiguous()
@@ -519,9 +546,64 @@ def kernel_timings(dev) -> dict:
         ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=20),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-        shape=f"B=1 T={t} start={start} heads=32/8 hd=64 bf16 page=16", max_abs_err=err,
+        shape=f"B=1 T={t} start={start} {geom}", max_abs_err=err, host_us_per_call=host_us(kern),
+        device_us_by_kernel=device_us_by_kernel(kern, 5),
     )
-    emit({"phase": "kernel_timing", **out})
+    return out
+
+
+def mixed_step_timing(dev, rng) -> dict:
+    """paged_prefill at the serve's mixed-step shape (``mixed_step_check``'s
+    spans: llama-3.2-1b geometry, bf16, a batch of 8 in a 512-token bucket on
+    128-page tables, five of the rows 1-token decode rows). The library
+    yardstick is one SDPA call over each row's gathered K/V (its whole
+    128-page table, KV heads repeated to the query heads before timing) with
+    the boolean mask ``kpos <= qpos & kpos < kv_len``."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+    from dynamo_tpu_torch.ops.attention import gather_pages
+
+    h, n_kv, hd, ps, t, npp = 32, 8, 64, 16, 512, 128
+    spans = MIXED_SPANS
+    q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                dtype=torch.bfloat16, lengths=[s + n for s, n in spans], contiguous=True)
+    pos = torch.from_numpy(_spans(spans, t)).to(dev)
+    tb0 = tb[0].contiguous()
+    scale = hd**-0.5
+    kern = lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=scale)
+    plain = lambda: pp.paged_prefill_plain(q, kc, vc, tb0, pos, scale=scale)
+    err = compare("prefill mixed-step timing inputs", kern(), plain(), [(i, n) for i, (_, n) in enumerate(spans)],
+                  torch.bfloat16)
+    g = h // n_kv
+    kg = gather_pages(kc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+    vg = gather_pages(vc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+    qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, T, hd]
+    kpos = torch.arange(npp * ps, device=dev)
+    kv_len = pos.amax(dim=1) + 1
+    mask = ((kpos[None, None, :] <= pos[:, :, None]) & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+    lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    kv_lens = [s + n for s, n in spans]
+    pairs = sum(n * s + n * (n + 1) // 2 for s, n in spans)
+    nbytes = (sum(2 * kv * n_kv * hd * 2 for kv in kv_lens) + sum(2 * n * h * hd * 2 for _, n in spans)
+              + len(spans) * (npp * 4 + t * 4))
+    flops = 4 * pairs * h * hd
+    return dict(ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=20),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+                shape=f"B=8 T={t} spans={spans} heads={h}/{n_kv} hd={hd} bf16 page={ps}", max_abs_err=err,
+                device_us_by_kernel=device_us_by_kernel(kern, 5))
+
+
+def kernel_timings(dev) -> dict:
+    """Each GQA kernel at the main path's geometry (llama-3.2-1b: 32/8 heads,
+    hd 64) and at llama-3-8b's (32/8, hd 128), and the prefill kernel at the
+    serve's mixed-step shape. Returns the main geometry's entries."""
+    rng = torch.Generator(device=dev).manual_seed(1)
+    out = _gqa_timings(dev, rng, 32, 8, 64)
+    hd128 = _gqa_timings(dev, rng, 32, 8, 128)
+    emit({"phase": "kernel_timing", **out, "paged_prefill_mixed_step": mixed_step_timing(dev, rng),
+          "hd128": hd128})
     return out
 
 

@@ -1,0 +1,214 @@
+// Hopper-only building blocks (sm_90a): warpgroup matrix multiply (wgmma),
+// its shared-memory matrix descriptors, mbarriers and proxy fences.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
+
+#include <map>
+#include <mutex>
+#include <numeric>
+#include <tuple>
+
+#include "common.cuh"
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// An arrive-on that fires once every cp.async this thread issued before it
+// has landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The next phase of `bar` also waits for `bytes` of asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// ---- TMA ---------------------------------------------------------------------
+
+// One box of the 2D tensor map at (column c0, row c1) into shared memory,
+// completing `bytes` of `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Start fetching a tensor map's descriptor, so the first load that uses it
+// does not wait for it.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// A paged cache [P, ps, W] (bf16) as a 2D tensor map of P*ps rows of W
+// elements, boxes of `box_rows` rows x 64 columns (128 bytes) landing in the
+// 128-byte-swizzled layout. cuTensorMapEncodeTiled comes through the runtime's
+// driver entry point, so nothing links libcuda. The map is a pure function of
+// the arguments, and a serving step asks for the same few (each layer's K and
+// V) on every launch, so encoded maps are kept and reused. Returns false when
+// the driver has no such entry or refuses the map.
+inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows, int W, int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<Encode>(nullptr);
+    return reinterpret_cast<Encode>(fn);
+  }();
+  using Key = std::tuple<const void*, long long, int, int>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> kept;
+  const Key key{base, rows, W, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = kept.find(key);
+  if (it != kept.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)W * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (kept.size() >= 1024) kept.clear();  // caches reallocated many times over: start afresh
+  kept.emplace(key, *map);
+  return true;
+}
+
+// Rows per TMA box of a key walk in `span`-key pieces over pages of ps
+// tokens: every box lies in one page and lands 1024-byte aligned (8 rows of
+// 128 bytes), or 0 when the page size allows no such box (the kernels then
+// copy with cp.async).
+inline int tma_box_rows(int ps, int span) {
+  const int r = std::gcd(ps, span);
+  return r >= 8 ? r : 0;
+}
+
+// Shared-memory writes of the generic proxy (st.shared, cp.async) made
+// visible to the async proxy (wgmma operand reads).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Barrier `id` (1..15) over the first `count` threads of the block.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Descriptor of a bf16 operand tile in the 128-byte-swizzled layout: rows of
+// 64 elements (128 bytes), eight-row groups 1024 bytes apart, the tile
+// 1024-byte aligned (so the base offset is 0). Both the K-major form (Q, K:
+// the contraction runs along a row) and the MN-major form (V: along the
+// rows) read the eight-row group stride; neither spans a second 64-element
+// atom in its other extent here, so both offset fields carry 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)64 << 16) | ((uint64_t)64 << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins accumulator registers at this point of the program: their reads and
+// writes are not moved across the wgmma issue / wait around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of wgmma m64nNk16 (f32): warp w of the warpgroup holds
+// rows 16w + g (d[4j], d[4j+1]) and 16w + g + 8 (d[4j+2], d[4j+3]) at
+// columns 8j + 2*t4 (+1).
+
+#define DYN_WG_D32                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define DYN_WG_OUT32(d)                                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),        \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),           \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),         \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define DYN_WG_D64                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "   \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
+  "%62, %63}"
+#define DYN_WG_OUT64(d)                                                                                   \
+  DYN_WG_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),          \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),         \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),         \
+      "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], both K-major in shared memory
+// (the 128 rows of B are 16 eight-row groups 1024 bytes apart).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DYN_WG_D64 ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : DYN_WG_OUT64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (warp w: rows
+// 16w..16w+15 in the mma.sync A-fragment layout), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DYN_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : DYN_WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef DYN_WG_D32
+#undef DYN_WG_OUT32
+#undef DYN_WG_D64
+#undef DYN_WG_OUT64

@@ -8,31 +8,56 @@
 // ~4 flops per byte of bf16 K/V — far below the card's ~295 flops/byte
 // ridge, so the least time is bytes / 3.35 TB/s.
 //
-// Design against that bound:
-// - One block per (split, KV head, sequence). Its G*T_q query rows (GQA
-//   group x query tokens) read only that head's head_dim-wide strip at
-//   offset kv*head_dim of each page's [page_size, W] slab, so every K/V
-//   byte is read by exactly one block (the TPU kernel's block-diagonal
-//   eye(n_kv) staging, which spends n_kv times the flops, is gone).
+// Contracts of both kernels:
+// - A block's query rows (GQA group x query tokens, t-major) read only their
+//   KV head's head_dim-wide strip at offset kv*head_dim of each page's
+//   [page_size, W] slab (the TPU kernel's block-diagonal eye(n_kv) staging,
+//   which spends n_kv times the flops, is gone).
 // - Split-K over the sequence (Flash-Decoding): the split count is chosen
 //   from static shapes only (batch bucket, KV heads, table width — never
-//   runtime lengths), so there are enough blocks in flight to saturate HBM
-//   at small batch, and a row's float reduction order never depends on T_q
-//   or on the other rows: a T_q=1 decode is bit-identical to the same
-//   column inside a T_q=K+1 verify row, and num_splits=1 is bit-identical
-//   to the unsplit result.
-// - Each thread's arithmetic for a (row, key) score, a row's softmax stats
-//   (one warp, fixed shuffle tree) and a (row, dim) output element is the
-//   same code whatever the row count, which is what carries those
-//   bit-identities.
-// - Softmax is online in f32 with p masked explicitly (an all-masked block
+//   runtime lengths or T_q), so a row's float reduction order never depends
+//   on T_q or on the other rows: a T_q=1 decode is bit-identical to the same
+//   column inside a T_q=K+1 verify row.
+// - Softmax is online in f32 with p masked explicitly (an all-masked tile
 //   would otherwise give exp(s - m) = 1). Empty splits write (m=NEG_INF,
-//   l=0, acc=0), which the combine turns into exactly 0.
-// - K/V tiles stream into shared memory with cp.async, double-buffered:
-//   block i+1's pages are in flight while block i is reduced. A deeper
-//   TMA ring is later work.
+//   l=0, acc=0), which the merge turns into exactly 0. With one split a
+//   block writes acc / l itself, bit-identical to a one-split merge
+//   (alpha = exp(0) = 1); with more, the splits of a (sequence, KV head,
+//   row tile) form a thread block cluster and rank 0 merges their partials
+//   from distributed shared memory (cluster_merge): one launch, no global
+//   scratch. At most 8 splits, a cluster's portable size.
+// - Page lookups clamp to the row's last used page (and the table width), so
+//   a -1 sentinel in a table tail is never read.
+//
+// bf16 caches (the serving path): decode_mma_kernel, built around bytes in
+// flight.
+// - One block per (split, KV head x 16-row tile, sequence): the query rows
+//   are cut into m16 row tiles in the grid, held as mma.sync A fragments in
+//   registers for the whole walk, so neither registers nor shared memory
+//   grow with T_q.
+// - Each of the 4 warps owns a fixed 16-key slice of every 64-key tile and
+//   streams it itself: a kStages-deep ring per warp of TMA boxes (cp.async
+//   where the page size allows no 8-row box), from page ids staged in
+//   shared memory once per block, each slot completing its own mbarrier (no
+//   block barrier inside the walk).
+// - Scores and p.V are mma.sync m16n8k16 (K by ldmatrix, V by
+//   ldmatrix.trans, both from a 128-byte-swizzled layout); p enters p.V as a
+//   bf16 A fragment, rounded as the TPU kernel rounds it (pallas_paged.py:388).
+//   Each warp keeps its own online-softmax state and accumulators in
+//   registers; the four states merge once at the end in a fixed order.
+// - Every row's arithmetic (its key partition, shuffle trees, merge order)
+//   depends on static shapes only, which is what carries the bit-identities.
+// What bounds it at batch 8 x 2048 tokens (PERF.md): the walk's stream, then
+// start-up and the merge; of the knobs tried, only the split count
+// (ops/paged_decode.py decode_split_plan) moved it.
+// f32 caches, which exist to check the algorithm without bf16 rounding, run
+// a scalar-FMA kernel (decode_partials) whose rows all share one block.
 
-#include "common.cuh"
+#include <type_traits>
+
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -52,6 +77,37 @@ struct DecodeSmem {
   }
 };
 
+// Log-sum-exp merge of the split partials (pallas_paged.py:_lse_combine).
+// The S splits of a (sequence, KV head, row tile) run as one thread block
+// cluster; each leaves its partial (m [rows], l [rows], acc [rows][HD], f32)
+// in its own shared memory, and cluster rank 0 reads them all through
+// distributed shared memory and writes the output (rows [r0, r0 + nrows) of
+// KV head kvh). Fixed split order, the same arithmetic for every row. Every
+// rank returns only after rank 0 has read its partial.
+template <typename QT, int HD>
+__device__ void cluster_merge(const float* m, const float* l, const float* acc, QT* __restrict__ out, int b, int T,
+                              int H, int G, int kvh, int r0, int nrows) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  cluster.sync();  // every split's partial is in its shared memory
+  if (cluster.block_rank() == 0) {
+    for (int e = threadIdx.x; e < nrows * HD; e += blockDim.x) {
+      const int rr = e / HD, d = e - rr * HD, r = r0 + rr;
+      float mm = kNegInf;
+      for (int s = 0; s < S; ++s) mm = fmaxf(mm, cluster.map_shared_rank(m, s)[rr]);
+      float den = 0.f, num = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const float a = expf(cluster.map_shared_rank(m, s)[rr] - mm);
+        den += a * cluster.map_shared_rank(l, s)[rr];
+        num += a * cluster.map_shared_rank(acc, s)[rr * HD + d];
+      }
+      out[(((size_t)b * T + r / G) * H + kvh * G + r % G) * HD + d] = from_f32<QT>(num / den);
+    }
+  }
+  cluster.sync();  // rank 0 is done reading the other ranks' shared memory
+}
+
 template <typename CT, typename QT, int HD>
 __global__ void __launch_bounds__(kThreads) decode_partials(
     const QT* __restrict__ q,         // [B, T, H, HD]
@@ -59,9 +115,7 @@ __global__ void __launch_bounds__(kThreads) decode_partials(
     const CT* __restrict__ vc,        // [P, ps, W]
     const int* __restrict__ tables,   // [B, N]
     const int* __restrict__ positions,// [B, T]
-    float* __restrict__ acc_out,      // [B, S, T, H, HD] unnormalized
-    float* __restrict__ m_out,        // [B, S, T, H] running max
-    float* __restrict__ l_out,        // [B, S, T, H] normalizer
+    QT* __restrict__ out,             // [B, T, H, HD]
     int T, int H, int n_kv, int ps, int N, int S, int bps, float scale) {
   constexpr int kStride = DecodeSmem<CT, HD>::kStride;
   constexpr int VEC = CacheVec<CT>::N;
@@ -179,71 +233,384 @@ __global__ void __launch_bounds__(kThreads) decode_partials(
     __syncthreads();  // buffer i&1 is free for block i+2
   }
   __syncthreads();  // the staging above is visible even when no block was walked
-  for (int i = tid; i < R * HD; i += kThreads) {
-    const int r = i / HD, d = i - r * HD, t = r / G, g = r - t * G;
-    acc_out[((((size_t)b * S + sp) * T + t) * H + kvh * G + g) * HD + d] = accs[i];
+  if (S == 1) {
+    for (int i = tid; i < R * HD; i += kThreads) {
+      const int r = i / HD, d = i - r * HD, t = r / G, g = r - t * G;
+      out[(((size_t)b * T + t) * H + kvh * G + g) * HD + d] = from_f32<QT>(accs[i] / l_s[r]);
+    }
+    return;
   }
-  for (int r = tid; r < R; r += kThreads) {
-    const int t = r / G, g = r - t * G;
-    const size_t o = (((size_t)b * S + sp) * T + t) * H + kvh * G + g;
-    m_out[o] = m_s[r];
-    l_out[o] = l_s[r];
-  }
+  cluster_merge<QT, HD>(m_s, l_s, accs, out, b, T, H, G, kvh, 0, R);
 }
 
-// Log-sum-exp merge of the split partials (pallas_paged.py:_lse_combine).
-// With one split this is exactly acc / l: alpha = exp(0) = 1.
-template <typename QT, int HD>
-__global__ void __launch_bounds__(HD) decode_combine(
-    const float* __restrict__ acc, const float* __restrict__ m, const float* __restrict__ l,
-    QT* __restrict__ out, int S, int TH) {
-  const int row = blockIdx.x;  // b * TH + (t * H + h)
-  const int b = row / TH, th = row - b * TH;
-  const int d = threadIdx.x;
-  float mmax = kNegInf;
-  for (int s = 0; s < S; ++s) mmax = fmaxf(mmax, m[((size_t)b * S + s) * TH + th]);
-  float den = 0.f, num = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const size_t o = ((size_t)b * S + s) * TH + th;
-    const float a = expf(m[o] - mmax);
-    den += a * l[o];
-    num += acc[o * HD + d] * a;
+// ---------------------------------------------------------------------------
+// bf16 caches on the tensor cores, see the note at the top.
+
+constexpr int kStages = 4;     // ring depth (ops/paged_decode.py STAGES)
+constexpr int kRowTile = 16;   // query rows per block (ops/paged_decode.py ROW_TILE)
+constexpr int kWarpKeys = kBlockTokens / kWarps;  // 16 keys of each tile per warp
+static_assert(kWarpKeys == 16, "a warp's slice is one 16-deep k-step of p.V");
+
+// Shared memory, from a 1024-aligned base: the ring (kStages x [K | V] x
+// [warp][HD/64 atoms][16 keys][64], 128-byte swizzled as TMA writes it), the
+// 16 staged query rows (padded), one mbarrier per (stage, warp), the rows'
+// positions, then the page ids of the split's walk. The ring is reused for
+// the warps' final states. ops/paged_decode.py _smem_bytes mirrors bytes().
+template <int HD>
+struct MmaSmem {
+  static constexpr int kStageElems = 2 * kBlockTokens * HD;
+  static constexpr int kSliceBytes = 2 * kWarpKeys * HD * 2;  // one warp's K and V of a tile
+  static constexpr int kQStride = HD + 8;
+  static constexpr size_t kRingBytes = sizeof(__nv_bfloat16) * kStages * kStageElems;
+  static constexpr size_t kQBytes = sizeof(__nv_bfloat16) * kRowTile * kQStride;
+  static constexpr size_t kBarBytes = sizeof(uint64_t) * kStages * kWarps;
+  static size_t bytes(int npages) {
+    return 1024 + kRingBytes + kQBytes + kBarBytes + sizeof(int) * (size_t)(kRowTile + npages);
   }
-  out[(size_t)row * HD + d] = from_f32<QT>(num / den);
+  static_assert(sizeof(float) * (kWarps + 1) * kRowTile * (HD + 2) <= kRingBytes, "the merges reuse the ring");
+};
+
+// Element offset of 16-byte chunk c of key j inside a warp's [atoms][16][64] slice.
+__device__ __forceinline__ int slice_off(int c, int j) { return (c >> 3) * (kWarpKeys * 64) + j * 64 + ((c ^ j) & 7) * 8; }
+
+// Page ids a split of bps 64-key tiles can touch.
+__host__ __device__ inline int split_pages(int bps, int ps) { return (bps * kBlockTokens + ps - 1) / ps + 1; }
+
+template <typename QT, int HD>
+__global__ void __launch_bounds__(kThreads) decode_mma_kernel(
+    const QT* __restrict__ q, const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    const int* __restrict__ tables, const int* __restrict__ positions, QT* __restrict__ out,
+    int T, int H, int n_kv, int ps, int N, int S, int bps, int RT, float scale,
+    const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv, int box_rows) {
+  using L = MmaSmem<HD>;
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  constexpr int KSTEPS = HD / 16;
+  constexpr int NT = HD / 8;  // n8 tiles of the output
+  const int G = H / n_kv, R = T * G, W = n_kv * HD;
+  const int sp = blockIdx.x, kvh = blockIdx.y / RT, rt = blockIdx.y - kvh * RT, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kRingBytes + L::kQBytes);  // [stage][warp]
+  int* qpos = reinterpret_cast<int*>(full + kStages * kWarps);
+  int* pids = qpos + kRowTile;
+  if (tid == 32 && box_rows) {
+    tma_prefetch_map(&tmk);
+    tma_prefetch_map(&tmv);
+  }
+  if (tid == 0) {
+    // TMA: the warp's one expect_tx arrival; cp.async: its 32 lanes, each
+    // once its copies land.
+    for (int i = 0; i < kStages * kWarps; ++i) mbar_init(&full[i], box_rows ? 1 : 32);
+    mbar_init_fence();
+  }
+
+  // The split's page ids, staged with one coalesced load while the
+  // positions arrive: every entry the split's span can touch, clamped only to
+  // the table width (an entry past the row's last page is staged, never used).
+  const int first = sp * bps;
+  const int p0 = min(first * kBlockTokens / ps, N - 1);
+  const int np = min(split_pages(bps, ps), N - p0);
+  const int* trow = tables + (size_t)b * N;
+  for (int j = tid; j < np; j += kThreads) pids[j] = trow[p0 + j];
+  // Walk length: the row's farthest query token (max, not last: padding
+  // columns carry position 0).
+  const int* prow = positions + (size_t)b * T;
+  int mx = 0;
+  for (int t = 0; t < T; ++t) mx = max(mx, prow[t]);
+  const int length = mx + 1;
+  const int nb_total = (length + kBlockTokens - 1) / kBlockTokens;
+  const int nb = min(max(nb_total - first, 0), bps);
+  const int last_page = min((length - 1) / ps, N - 1);
+  // Queries pre-scaled in f32, then rounded to bf16 (the TPU kernel's
+  // staging, pallas_paged.py:483-491); rows past R are zero.
+  for (int e = tid; e < kRowTile * CPR; e += kThreads) {
+    const int rr = e / CPR, c = e - rr * CPR, r = rt * kRowTile + rr;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R) {
+      float f[8];
+      load8(q + (((size_t)b * T + r / G) * H + kvh * G + r % G) * HD + c * 8, f);
+      u = make_uint4(pack_bf16(f[0] * scale, f[1] * scale), pack_bf16(f[2] * scale, f[3] * scale),
+                     pack_bf16(f[4] * scale, f[5] * scale), pack_bf16(f[6] * scale, f[7] * scale));
+    }
+    *reinterpret_cast<uint4*>(qs + rr * L::kQStride + c * 8) = u;
+  }
+  if (tid < kRowTile) {
+    const int r = rt * kRowTile + tid;
+    qpos[tid] = r < R ? prow[r / G] : -1;  // a row past R attends to nothing
+  }
+  __syncthreads();
+
+  // This warp's 16-key slice of tile i into ring slot i % kStages, completing
+  // the slot's mbarrier of this warp. TMA: lane l loads box l (16 / box_rows
+  // boxes of box_rows keys per 64-column atom, K and V). cp.async: lane l
+  // copies 16-byte chunk l % CPR of keys l / CPR, + 32 / CPR, ...
+  constexpr int KPI = 32 / CPR;
+  const PageWalk pw(ps, last_page, p0);
+  const int cc = lane % CPR;
+  const size_t col = (size_t)kvh * HD + cc * 8;
+  const int nbox = box_rows ? (kWarpKeys / box_rows) * (HD / 64) : 0;
+  auto load_slice = [&](int i, auto pow2) {
+    constexpr bool P2 = decltype(pow2)::value;
+    __nv_bfloat16* ks = ring + (i % kStages) * L::kStageElems + warp * kWarpKeys * HD;
+    __nv_bfloat16* vs = ks + kBlockTokens * HD;
+    uint64_t* bar = &full[(i % kStages) * kWarps + warp];
+    const int kbase = (first + i) * kBlockTokens + warp * kWarpKeys;
+    if (box_rows) {
+      if (lane == 0) mbar_arrive_expect_tx(bar, L::kSliceBytes);
+      __syncwarp();
+      if (lane < nbox) {
+        const int a = lane % (HD / 64), j = (lane / (HD / 64)) * box_rows;
+        const int row = (int)pw.row<P2>(pids, kbase + j);
+        tma_load_2d(ks + a * (kWarpKeys * 64) + j * 64, &tmk, kvh * HD + a * 64, row, bar);
+        tma_load_2d(vs + a * (kWarpKeys * 64) + j * 64, &tmv, kvh * HD + a * 64, row, bar);
+      }
+    } else {
+#pragma unroll
+      for (int j0 = 0; j0 < kWarpKeys; j0 += KPI) {
+        const int j = j0 + lane / CPR;
+        const size_t off = pw.row<P2>(pids, kbase + j) * W + col;
+        cp_async16(ks + slice_off(cc, j), kc + off);
+        cp_async16(vs + slice_off(cc, j), vc + off);
+      }
+      mbar_arrive_cp_async(bar);
+    }
+  };
+  auto issue = [&](int i) {
+    if (pw.pow2) {
+      load_slice(i, Bool<true>());
+    } else {
+      load_slice(i, Bool<false>());
+    }
+  };
+  for (int i = 0; i < kStages - 1 && i < nb; ++i) issue(i);
+
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int c = kk * 16 + 2 * t4;
+    qa[kk][0] = ld32(qs + g * L::kQStride + c);
+    qa[kk][1] = ld32(qs + (g + 8) * L::kQStride + c);
+    qa[kk][2] = ld32(qs + g * L::kQStride + c + 8);
+    qa[kk][3] = ld32(qs + (g + 8) * L::kQStride + c + 8);
+  }
+  const int qp0 = qpos[g], qp1 = qpos[g + 8];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  // ldmatrix row addresses of this lane inside a warp slice: K (plain) for
+  // the score k-steps, V (.trans) for the p.V n-tile pairs.
+  const int kkey = (lane >> 4) * 8 + (lane & 7), kcol = (lane >> 3) & 1;
+  const int vkey = ((lane >> 3) & 1) * 8 + (lane & 7), vcol = lane >> 4;
+
+  for (int i = 0; i < nb; ++i) {
+    __syncwarp();  // every lane is done with the slot the next load overwrites
+    if (i + kStages - 1 < nb) issue(i + kStages - 1);
+    mbar_wait(&full[(i % kStages) * kWarps + warp], (i / kStages) & 1);
+    const __nv_bfloat16* ks = ring + (i % kStages) * L::kStageElems + warp * kWarpKeys * HD;
+    const __nv_bfloat16* vs = ks + kBlockTokens * HD;
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, ks + slice_off(2 * kk + kcol, kkey));
+      mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+      mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+    }
+    // Mask, then the online softmax of rows g (elements 0, 1) and g+8 (2, 3).
+    const int k0 = (first + i) * kBlockTokens + warp * kWarpKeys;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * n + 2 * t4 + e;
+        if (kpos > qp0) sc[n][e] = kNegInf;
+        if (kpos > qp1) sc[n][2 + e] = kNegInf;
+        mx0 = fmaxf(mx0, sc[n][e]);
+        mx1 = fmaxf(mx1, sc[n][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * n + 2 * t4 + e;
+        sc[n][e] = kpos <= qp0 ? __expf(sc[n][e] - mn0) : 0.f;
+        sc[n][2 + e] = kpos <= qp1 ? __expf(sc[n][2 + e] - mn1) : 0.f;
+        sum0 += sc[n][e];
+        sum1 += sc[n][2 + e];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 = a0 * l0 + sum0;
+    l1 = a1 * l1 + sum1;
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vs + slice_off(n + vcol, vkey));
+      o[n][0] *= a0;
+      o[n][1] *= a0;
+      o[n][2] *= a1;
+      o[n][3] *= a1;
+      o[n + 1][0] *= a0;
+      o[n + 1][1] *= a0;
+      o[n + 1][2] *= a1;
+      o[n + 1][3] *= a1;
+      mma_bf16(o[n], pa, vb[0], vb[1]);
+      mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring (all its loads were waited for): it now holds the warps' states
+
+  // Merge the four warps' states in a fixed order: ms/ls [warp][16], os
+  // [warp][16][HD]; with S > 1 into the block's partial bm/bl [16], bo
+  // [16][HD] for the cluster merge.
+  float* ms = reinterpret_cast<float*>(base);
+  float* ls = ms + kWarps * kRowTile;
+  float* os = ls + kWarps * kRowTile;
+  float* bm = os + kWarps * kRowTile * HD;
+  float* bl = bm + kRowTile;
+  float* bo = bl + kRowTile;
+  if (t4 == 0) {
+    ms[warp * kRowTile + g] = m0;
+    ms[warp * kRowTile + g + 8] = m1;
+    ls[warp * kRowTile + g] = l0;
+    ls[warp * kRowTile + g + 8] = l1;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float* o_r = os + (warp * kRowTile + g) * HD + 8 * n + 2 * t4;
+    o_r[0] = o[n][0];
+    o_r[1] = o[n][1];
+    o_r[8 * HD] = o[n][2];
+    o_r[8 * HD + 1] = o[n][3];
+  }
+  __syncthreads();
+  const int nrows = min(kRowTile, R - rt * kRowTile);
+  for (int e = tid; e < kRowTile * HD; e += kThreads) {
+    const int rr = e / HD, d = e - rr * HD, r = rt * kRowTile + rr;
+    if (rr >= nrows) break;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, ms[w * kRowTile + rr]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float a = expf(ms[w * kRowTile + rr] - mm);
+      den += a * ls[w * kRowTile + rr];
+      num += a * os[(w * kRowTile + rr) * HD + d];
+    }
+    if (S == 1) {
+      out[(((size_t)b * T + r / G) * H + kvh * G + r % G) * HD + d] = from_f32<QT>(num / den);
+    } else {
+      bo[rr * HD + d] = num;
+      if (d == 0) {
+        bm[rr] = mm;
+        bl[rr] = den;
+      }
+    }
+  }
+  if (S > 1) cluster_merge<QT, HD>(bm, bl, bo, out, b, T, H, G, kvh, rt * kRowTile, nrows);
+}
+
+// Raises a kernel's dynamic shared-memory limit once to the largest size
+// asked for, so a launch captured into a CUDA graph after a warm-up call
+// makes no attribute call.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
 }
 
 template <typename CT, typename QT, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* tables, const int* positions,
-                   float* acc, float* m, float* l, void* out, int B, int T, int H, int n_kv, int ps,
-                   int N, int S, int bps, float scale, cudaStream_t stream) {
-  const size_t smem = DecodeSmem<CT, HD>::bytes(T * (H / n_kv), T);
-  auto kern = decode_partials<CT, QT, HD>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const void* q, const void* k, const void* v, const int* tables, const int* positions, void* out,
+                   int B, int T, int H, int n_kv, int ps, int N, int P, int S, int bps, float scale,
+                   cudaStream_t stream) {
+  static size_t allowed = 48 * 1024;
+  // The S splits of a row tile are one cluster (x is the split index).
+  cudaLaunchAttribute cluster{};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
+    const int rt = (T * (H / n_kv) + kRowTile - 1) / kRowTile;
+    cfg.gridDim = dim3(S, n_kv * rt, B);
+    cfg.dynamicSmemBytes = MmaSmem<HD>::bytes(split_pages(bps, ps));
+    auto kern = decode_mma_kernel<QT, HD>;
+    cudaError_t e = allow_smem(kern, cfg.dynamicSmemBytes, allowed);
+    if (e != cudaSuccess) return e;
+    // K/V slices by TMA where the page size allows 8-row boxes, else
+    // cp.async. A tensor map the driver refuses is an error, never a silent
+    // switch to the cp.async path.
+    CUtensorMap tmk{}, tmv{};
+    const int box_rows = tma_box_rows(ps, kWarpKeys);
+    if (box_rows && !(encode_cache_map(&tmk, k, (long long)P * ps, n_kv * HD, box_rows) &&
+                      encode_cache_map(&tmv, v, (long long)P * ps, n_kv * HD, box_rows)))
+      return cudaErrorNotSupported;
+    e = cudaLaunchKernelEx(&cfg, kern, static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), tables, positions, static_cast<QT*>(out), T, H,
+                           n_kv, ps, N, S, bps, rt, scale, tmk, tmv, box_rows);
+    if (e != cudaSuccess) return e;
+  } else {
+    cfg.gridDim = dim3(S, n_kv, B);
+    cfg.dynamicSmemBytes = DecodeSmem<CT, HD>::bytes(T * (H / n_kv), T);
+    auto kern = decode_partials<CT, QT, HD>;
+    cudaError_t e = allow_smem(kern, cfg.dynamicSmemBytes, allowed);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&cfg, kern, static_cast<const QT*>(q), static_cast<const CT*>(k),
+                           static_cast<const CT*>(v), tables, positions, static_cast<QT*>(out), T, H, n_kv, ps, N,
+                           S, bps, scale);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(S, n_kv, B), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v), tables, positions,
-      acc, m, l, T, H, n_kv, ps, N, S, bps, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  decode_combine<QT, HD><<<B * T * H, HD, 0, stream>>>(acc, m, l, static_cast<QT*>(out), S, T * H);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the split partials and the combine on `stream`; returns the
-// cudaGetLastError() code (0 = launched). No synchronisation, no allocation.
+// Launches the decode kernel on `stream` (one launch: the S <= 8 splits of
+// a row tile form a thread block cluster that merges them); returns the
+// CUDA error code (0 = launched). No synchronisation, no allocation.
 extern "C" int dyn_paged_decode(const void* q, const void* k, const void* v, const int* tables,
-                                const int* positions, float* acc, float* m, float* l, void* out, int B,
-                                int T, int H, int n_kv, int head_dim, int ps, int N, int S, int bps,
-                                int cache_dtype, int q_dtype, float scale, void* stream) {
+                                const int* positions, void* out, int B, int T, int H, int n_kv, int head_dim, int ps,
+                                int N, int P, int S, int bps, int cache_dtype, int q_dtype, float scale,
+                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DYN_DECODE_CASE(CC, QC, HDV, CT, QT)                                                        \
-  if (cache_dtype == CC && q_dtype == QC && head_dim == HDV)                                        \
-    return (int)launch<CT, QT, HDV>(q, k, v, tables, positions, acc, m, l, out, B, T, H, n_kv, ps, N, \
-                                    S, bps, scale, st);
+  if (S < 1 || S > 8) return (int)cudaErrorInvalidValue;
+#define DYN_DECODE_CASE(CC, QC, HDV, CT, QT)                                                            \
+  if (cache_dtype == CC && q_dtype == QC && head_dim == HDV)                                            \
+    return (int)launch<CT, QT, HDV>(q, k, v, tables, positions, out, B, T, H, n_kv, ps, N, P, S, bps, scale, st);
   DYN_DECODE_CASE(1, 1, 64, __nv_bfloat16, __nv_bfloat16)
   DYN_DECODE_CASE(1, 1, 128, __nv_bfloat16, __nv_bfloat16)
   DYN_DECODE_CASE(1, 0, 64, __nv_bfloat16, float)

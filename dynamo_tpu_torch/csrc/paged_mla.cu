@@ -175,16 +175,6 @@ __device__ __forceinline__ void stage_queries(const QT* __restrict__ ql, const Q
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
 // One 16-deep k-step of a warp's scores: rows qa0/qa1 (+8) of the query
 // tile against the keys of two n-tiles (kb0, kb1), at lane offset c.
 __device__ __forceinline__ void score_step(float* acc0, float* acc1, const __nv_bfloat16* qa0,

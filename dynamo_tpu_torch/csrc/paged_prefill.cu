@@ -10,28 +10,47 @@
 // flops under the causal mask; a 512-token chunk is well above the card's
 // ridge, so the flop term bounds it.
 //
-// Design:
-// - One block per (query block, KV head, sequence). A query block holds
-//   TQ = 64 / G tokens x the G query heads of one KV head: 64 rows, t-major
-//   (row r is chunk token r / G, head r % G), so every block contracts only
-//   against its own head's strip — the useful flops only.
+// Contracts of both kernels:
+// - Query rows are t-major per KV head (row r is chunk token r / G, head
+//   r % G), so every block contracts only against its own head's strip.
 // - Causality needs no position tensor beyond the row's start: queries are
-//   contiguous, so row r sits at start + qi*TQ + r/G. kv_len = max(positions)+1
+//   contiguous, so row r sits at start + t0 + r/G. kv_len = max(positions)+1
 //   and start = positions[:, 0], read by the block itself.
-// - Causal early exit: the key walk stops at clip(start + (qi+1)*TQ, 1, kv_len);
+// - Causal early exit: the key walk stops at clip(start + t0 + TQ, 1, kv_len);
 //   a query block wholly past the row's span (the 1-token decode rows a
 //   mixed step carries, start = kv_len-1) does no work and writes zeros.
-// - The mask is kpos <= qpos and kpos < kv_len; rows with l == 0 write 0, not NaN.
-// - bf16 caches (the serving path) run on the tensor cores: mma.sync
-//   m16n8k16 with f32 accumulation, the online softmax on the accumulators
-//   in registers (prefill_mma_kernel). f32 caches, which exist to check the
-//   algorithm without bf16 rounding, run a register-tiled scalar-FMA kernel
-//   with the same block structure (prefill_kernel). wgmma/TMA pipelining is
-//   later work.
+// - The mask is kpos <= qpos and kpos < kv_len; rows with l == 0 write 0,
+//   not NaN. Page lookups clamp to the row's last used page, so a -1 table
+//   tail is never read.
+//
+// bf16 caches (the serving path): prefill_wgmma_kernel, built for Hopper's
+// tensor cores.
+// - 128 query rows per block (two consumer warpgroups of 64 rows) and one
+//   producer warp. The grid walks query blocks longest-first.
+// - S = Q.K^T is wgmma m64n128k16 (128-key tiles) with Q and K read from
+//   shared memory; O += P.V is wgmma m64n64k16 with P from registers,
+//   rounded to bf16 as the TPU kernel rounds it (pallas_prefill.py:210), and
+//   V read MN-major. Every tile sits in the 128-byte-swizzled layout (a
+//   64-column atom per 128-byte row; head_dim 128 is two atoms).
+// - The producer warp keeps a ring of K/V tiles full with TMA: boxes of
+//   whole-page row runs x 64 columns, from page ids the block staged in
+//   shared memory once, complete a stage's mbarrier; the consumers release
+//   a stage through a second mbarrier. Page sizes that allow no 8-row box
+//   fall back to cp.async into the same layout.
+// - The mask runs only on the key tiles that cross the warpgroup's first
+//   query position or kv_len; the softmax is exp2 (one SFU instruction) with
+//   log2(e) folded into the score step in f32 (the queries keep the TPU
+//   kernel's rounding: scaled in f32, rounded to bf16).
+// What bounds it at a 512-token chunk (PERF.md): the producer's walk (every
+// block streams its KV head's whole causal history from L2), then the
+// consumers' softmax and the two products, which the two warpgroups overlap
+// only with each other.
+// f32 caches, which exist to check the algorithm without bf16 rounding, run
+// a register-tiled scalar-FMA kernel (prefill_kernel) of 64-row blocks.
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -220,136 +239,240 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 caches: the same tiling on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate). Four warps, each owning 16 of the 64 query rows;
-// per 64-key tile a warp computes its 16x64 scores (Q fragments stay in
-// registers for the whole walk, K fragments are 32-bit shared loads), runs
-// the online softmax on the accumulators in registers (a row lives in one
-// quad of lanes), and feeds p — rounded to bf16 as the TPU kernel rounds it
-// (pallas_prefill.py:210) — straight from the score accumulators into the
-// p.V product, V fragments loaded with ldmatrix.trans.
+// bf16 caches on the tensor cores (wgmma), see the note at the top.
 
-constexpr int kMmaThreads = 128;
+constexpr int kWgRows = 64;                         // query rows of one consumer warpgroup (wgmma M)
+constexpr int kConsumers = 2;                       // consumer warpgroups
+constexpr int kBlockRows = kWgRows * kConsumers;    // 128 (ops/paged_prefill.py BLOCK_ROWS_BF16)
+constexpr int kProducerWarp = 4 * kConsumers;       // warp index of the producer
+constexpr int kWgThreads = 128 * kConsumers + 32;
+constexpr int kTileKeys = 128;                      // keys per ring stage (ops/paged_prefill.py TILE_KEYS)
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
+// Shared-memory layout (bytes from a 1024-aligned base): Q [CH][128 rows][64],
+// kStages x (K [CH][TK keys][64], V [CH][TK][64]), full/empty mbarriers, the
+// position scan, then the page ids of the walk (one per table entry at most).
+// ops/paged_prefill.py _smem_bytes mirrors bytes().
 template <int HD>
-struct MmaSmem {
-  static constexpr int kStride = HD + 8;  // bf16 row stride: 16-byte aligned, fragment loads conflict-free
-  // Q tile + two (K, V) tile buffers.
-  static constexpr size_t bytes() { return sizeof(__nv_bfloat16) * (size_t)5 * 64 * kStride + 2 * sizeof(int); }
+struct WgSmem {
+  static constexpr int CH = HD / 64;  // 64-column atoms per row
+  static constexpr int kStages = HD == 64 ? 4 : 2;  // ops/paged_prefill.py _stages
+  static constexpr int kQBytes = CH * kBlockRows * 128;
+  static constexpr int kHalf = CH * kTileKeys * 128;  // K (or V) of one stage
+  static constexpr int kStageBytes = 2 * kHalf;
+  static constexpr int kBar = kQBytes + kStages * kStageBytes;
+  static constexpr int kSpan = kBar + 2 * kStages * 8;
+  static constexpr int kPids = kSpan + 16;
+  static size_t bytes(int table_width) { return 1024 + kPids + sizeof(int) * (size_t)table_width; }
 };
 
+static_assert(kTileKeys == 128, "the score product is one wgmma m64n128k16 per 16-deep step");
+
 template <typename QT, int HD>
-__global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
+__global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
     const QT* __restrict__ q, const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
     const int* __restrict__ tables, const int* __restrict__ positions, QT* __restrict__ out,
-    int T, int H, int n_kv, int ps, int N, float scale) {
-  constexpr int S = MmaSmem<HD>::kStride;
-  constexpr int KSTEPS = HD / 16;  // k-steps of the score product
-  constexpr int NT = HD / 8;       // n-tiles of the output
-  const int G = H / n_kv, TQ = kRows / G, rows = TQ * G, W = n_kv * HD;
-  const int qi = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+    int T, int H, int n_kv, int ps, int N, float scale, const __grid_constant__ CUtensorMap tmk,
+    const __grid_constant__ CUtensorMap tmv, int box_rows) {
+  using L = WgSmem<HD>;
+  constexpr int CH = L::CH;
+  constexpr int kStages = L::kStages;
+  constexpr int CPR = HD / 8;          // 16-byte chunks per row
+  constexpr int NJ = kTileKeys / 8;    // n8 column groups of a score tile
+  constexpr int PK = kTileKeys / 16;   // 16-key steps of p.V
+  const int G = H / n_kv, TQ = kBlockRows / G, rows = TQ * G, W = n_kv * HD;
+  const int kvh = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;  // longest query blocks first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][S]
-  __nv_bfloat16* tiles = qs + 64 * S;                               // 2 x (K [64][S], V [64][S])
-  int* span = reinterpret_cast<int*>(tiles + 4 * 64 * S);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* empty = full + kStages;
+  int* span = reinterpret_cast<int*>(base + L::kSpan);
+  int* pids = reinterpret_cast<int*>(base + L::kPids);
 
   const int* prow = positions + (size_t)b * T;
-  if (tid == 0) span[0] = 0;
+  if (tid == 32 && box_rows) {
+    tma_prefetch_map(&tmk);
+    tma_prefetch_map(&tmv);
+  }
+  if (tid == 0) {
+    span[0] = 0;
+    for (int s = 0; s < kStages; ++s) {
+      // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes,
+      // each once its copies land.
+      mbar_init(&full[s], box_rows ? 1 : 32);
+      mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  int mx = 0;
-  for (int t = tid; t < T; t += kMmaThreads) mx = max(mx, prow[t]);
-  atomicMax(span, mx);
-  __syncthreads();
-  const int kv_len = max(span[0] + 1, 1);
   const int start = prow[0];
   const int t0 = qi * TQ;
+  int mx = 0;
+  for (int t = tid; t < T; t += kWgThreads) mx = max(mx, prow[t]);
+  {
+    // Page ids of every tile the walk can reach (kend <= start + t0 + TQ),
+    // staged while the position scan is in flight; an entry past the row's
+    // last page may be staged, and is never used.
+    const int* trow = tables + (size_t)b * N;
+    const int tiles = (max(start + t0 + TQ, 1) + kTileKeys - 1) / kTileKeys;
+    const int np = min(N, (tiles * kTileKeys - 1) / ps + 1);
+    for (int j = tid; j < np; j += kWgThreads) pids[j] = trow[j];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (lane == 0) atomicMax(span, mx);
+  __syncthreads();
+  const int kv_len = max(span[0] + 1, 1);
   const bool has_work = start + t0 < kv_len;
   const int kend = min(max(start + t0 + TQ, 1), kv_len);
-  const int nblocks = has_work ? (kend + kBlockTokens - 1) / kBlockTokens : 0;
+  const int ntiles = has_work ? (kend + kTileKeys - 1) / kTileKeys : 0;
   const int last_page = min((kv_len - 1) / ps, N - 1);
-  const int* trow = tables + (size_t)b * N;
-  auto start_tile = [&](int blk) {  // cp.async of key block blk into buffer blk&1
-    __nv_bfloat16* kt = tiles + (blk & 1) * 2 * 64 * S;
-    load_kv_tile<__nv_bfloat16, HD, kMmaThreads, kBlockTokens>(kc, vc, trow, kt, kt + 64 * S, S, S,
-                                                               blk * kBlockTokens, last_page, ps, W, kvh);
-    cp_async_commit();
-  };
-  if (nblocks > 0) start_tile(0);  // in flight while the queries are staged
-  for (int i = tid; i < kRows * HD; i += kMmaThreads) {
-    const int r = i / HD, d = i - r * HD, t = t0 + r / G;
-    float x = 0.f;
-    if (r < rows && t < T) x = to_f32(q[(((size_t)b * T + t) * H + kvh * G + r % G) * HD + d]) * scale;
-    qs[r * S + d] = __float2bfloat16(x);
-  }
-  __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const int qpos0 = start + t0 + r0 / G, qpos1 = start + t0 + (r0 + 8) / G;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * S + c);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * S + c);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * S + c + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * S + c + 8);
-  }
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const int k0 = blk * kBlockTokens;
-    // Double buffer: key block blk+1's copies fly while block blk is reduced.
-    if (blk + 1 < nblocks) {
-      start_tile(blk + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* ks = tiles + (blk & 1) * 2 * 64 * S;
-    const __nv_bfloat16* vs = ks + 64 * S;
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * S + kk * 16 + 2 * t4;
-        mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr), *reinterpret_cast<const uint32_t*>(kr + 8));
+  if (warp == kProducerWarp) {
+    if (ntiles == 0) return;
+    const PageWalk pw(ps, last_page);
+    // TMA: lane l loads box l of the tile's K and V (kTileKeys / box_rows
+    // boxes of box_rows keys per 64-column atom).
+    const int nbox = box_rows ? (kTileKeys / box_rows) * CH : 0;
+    auto tma_tile = [&](int i, auto pow2) {
+      const int s = i % kStages;
+      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + s * L::kStageBytes);
+      for (int e = lane; e < nbox; e += 32) {
+        const int a = e % CH, j = (e / CH) * box_rows;
+        const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
+        const int dst = a * (kTileKeys * 64) + j * 64;
+        tma_load_2d(ks + dst, &tmk, kvh * HD + a * 64, row, &full[s]);
+        tma_load_2d(ks + L::kHalf / 2 + dst, &tmv, kvh * HD + a * 64, row, &full[s]);
+      }
+    };
+    // cp.async: lane l copies 16-byte chunk c = l % CPR of keys l / CPR,
+    // + 32 / CPR, ... into the swizzled layout.
+    constexpr int KPI = 32 / CPR;  // keys per pass of the warp
+    const int c = lane % CPR;
+    const size_t col = (size_t)kvh * HD + c * 8;
+    const int dcol = (c >> 3) * (kTileKeys * 64);
+    auto copy_tile = [&](int i, auto pow2) {
+      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + (i % kStages) * L::kStageBytes);
+      __nv_bfloat16* vs = ks + L::kHalf / 2;
+#pragma unroll 8
+      for (int j0 = 0; j0 < kTileKeys; j0 += KPI) {
+        const int j = j0 + lane / CPR;
+        const size_t off = pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j) * W + col;
+        const int dst = dcol + j * 64 + swz128(c & 7, j);
+        cp_async16(ks + dst, kc + off);
+        cp_async16(vs + dst, vc + off);
+      }
+    };
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      if (box_rows) {
+        if (lane == 0) mbar_arrive_expect_tx(&full[s], L::kStageBytes);
+        __syncwarp();
+        if (pw.pow2) {
+          tma_tile(i, Bool<true>());
+        } else {
+          tma_tile(i, Bool<false>());
+        }
+      } else {
+        if (pw.pow2) {
+          copy_tile(i, Bool<true>());
+        } else {
+          copy_tile(i, Bool<false>());
+        }
+        mbar_arrive_cp_async(&full[s]);
       }
     }
-    // Mask, then the online softmax of rows r0 (elements 0,1) and r0+8 (2,3).
-    float mx0 = kNegInf, mx1 = kNegInf;
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns block rows [64 wg, 64 wg + 64) ----
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * kWgRows + wl * 16 + g;  // this thread's rows: r0 and r0 + 8
+  if (ntiles == 0) {  // wholly past the row's span: zeros
+    for (int e = tid; e < kBlockRows * HD; e += 128 * kConsumers) {
+      const int r = e / HD, d = e - r * HD, t = t0 + r / G;
+      if (r < rows && t < T) out[(((size_t)b * T + t) * H + kvh * G + r % G) * HD + d] = from_f32<QT>(0.f);
+    }
+    return;
+  }
+  // Queries: scaled in f32, rounded to bf16, swizzled.
+  for (int e = tid; e < kBlockRows * CPR; e += 128 * kConsumers) {
+    const int r = e / CPR, c = e - r * CPR, t = t0 + r / G;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows && t < T) {
+      float f[8];
+      load8(q + (((size_t)b * T + t) * H + kvh * G + r % G) * HD + c * 8, f);
+      u = make_uint4(pack_bf16(f[0] * scale, f[1] * scale), pack_bf16(f[2] * scale, f[3] * scale),
+                     pack_bf16(f[4] * scale, f[5] * scale), pack_bf16(f[6] * scale, f[7] * scale));
+    }
+    *reinterpret_cast<uint4*>(qs + (c >> 3) * (kBlockRows * 64) + r * 64 + swz128(c & 7, r)) = u;
+  }
+  fence_proxy_async();
+  named_bar_sync(1, 128 * kConsumers);
+
+  const int qbase = start + t0;
+  const int qpos0 = qbase + r0 / G, qpos1 = qbase + (r0 + 8) / G;
+  const int wg_first = qbase + (wg * kWgRows) / G;  // the warpgroup's smallest query position
+  const int wg_last = qbase + min(wg * kWgRows + kWgRows - 1, rows - 1) / G;
+  // Key tiles this warpgroup needs; the rest of the block's walk (the other
+  // warpgroup's causal tail) it only releases.
+  const int wg_tiles = wg_first < kv_len ? (min(wg_last + 1, kv_len) + kTileKeys - 1) / kTileKeys : 0;
+  const uint32_t q_addr = smem_u32(qs) + wg * kWgRows * 128;
+  const uint32_t ring = smem_u32(base + L::kQBytes);
+
+  float o[CH][32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int c = 0; c < CH; ++c)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + j * 8 + 2 * t4 + e;
-        if (!(kpos <= qpos0 && kpos < kv_len)) s[j][e] = kNegInf;
-        if (!(kpos <= qpos1 && kpos < kv_len)) s[j][2 + e] = kNegInf;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float sc[kTileKeys / 2] = {};
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's partial row sums
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    if (i >= wg_tiles) {  // the other warpgroup's tail: release only, once its loads landed
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    if (!box_rows) fence_proxy_async();  // cp.async writes are the generic proxy's
+    const uint32_t k_addr = ring + s * L::kStageBytes;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // 16-column step inside the 128-byte row
+      wgmma_m64n128k16_ss(sc, sw128_desc(q_addr + (kk >> 2) * (kBlockRows * 128) + off),
+                          sw128_desc(k_addr + (kk >> 2) * (kTileKeys * 128) + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // Mask only the tiles that cross the warpgroup's first query or kv_len.
+    const int k0 = i * kTileKeys;
+    if (k0 + kTileKeys - 1 > wg_first || k0 + kTileKeys > kv_len) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t4 + e;
+          if (kpos > qpos0 || kpos >= kv_len) sc[4 * j + e] = -INFINITY;
+          if (kpos > qpos1 || kpos >= kv_len) sc[4 * j + 2 + e] = -INFINITY;
+        }
       }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -357,55 +480,64 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + j * 8 + 2 * t4 + e;
-        s[j][e] = (kpos <= qpos0 && kpos < kv_len) ? expf(s[j][e] - mn0) : 0.f;
-        s[j][2 + e] = (kpos <= qpos1 && kpos < kv_len) ? expf(s[j][2 + e] - mn1) : 0.f;
-        sum0 += s[j][e];
-        sum1 += s[j][2 + e];
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    // A row with no key yet keeps m = -inf: subtract 0 so p = exp2(-inf) = 0.
+    const float ms0 = (mn0 == -INFINITY ? 0.f : mn0) * kLog2e;
+    const float ms1 = (mn1 == -INFINITY ? 0.f : mn1) * kLog2e;
+    const float a0 = fast_exp2(fmaf(m0, kLog2e, -ms0)), a1 = fast_exp2(fmaf(m1, kLog2e, -ms1));
     m0 = mn0;
     m1 = mn1;
-    l0 = a0 * l0 + sum0;
-    l1 = a1 * l1 + sum1;
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-    // o += p . V: 16 keys per k-step; p's A fragment is two score n-tiles.
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * S;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(vrow + n * 8));
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1)
-                     : "r"(addr));
-        mma_bf16(o[n], pa, b0, b1);
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = fast_exp2(fmaf(sc[4 * j + e], kLog2e, -ms0));
+        sc[4 * j + 2 + e] = fast_exp2(fmaf(sc[4 * j + 2 + e], kLog2e, -ms1));
+        sum0 += sc[4 * j + e];
+        sum1 += sc[4 * j + 2 + e];
       }
     }
-    __syncthreads();
+    l0 = a0 * l0 + sum0;
+    l1 = a1 * l1 + sum1;
+    uint32_t pa[PK][4];  // p as bf16 A fragments, one per 16-key step
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j] *= a0;
+        o[c][4 * j + 1] *= a0;
+        o[c][4 * j + 2] *= a1;
+        o[c][4 * j + 3] *= a1;
+      }
+      fence_regs(o[c]);
+    }
+    const uint32_t v_addr = k_addr + L::kHalf;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        wgmma_m64n64k16_rs_mn(o[c], pa[kk], sw128_desc(v_addr + c * (kTileKeys * 128) + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < CH; ++c) fence_regs(o[c]);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
+
   // Rows with no attendable key (l == 0) write 0, not NaN.
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
@@ -415,40 +547,60 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
     const float inv = l > 0.f ? 1.f / l : 0.f;
     QT* orow = out + (((size_t)b * T + t) * H + kvh * G + r % G) * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + 2 * t4;
-      orow[d] = from_f32<QT>(o[n][2 * half] * inv);
-      orow[d + 1] = from_f32<QT>(o[n][2 * half + 1] * inv);
-    }
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = c * 64 + 8 * j + 2 * t4;
+        orow[d] = from_f32<QT>(o[c][4 * j + 2 * half] * inv);
+        orow[d + 1] = from_f32<QT>(o[c][4 * j + 2 * half + 1] * inv);
+      }
   }
+}
+
+// Raises a kernel's dynamic shared-memory limit once to the largest size
+// asked for, so a launch captured into a CUDA graph after a warm-up call
+// makes no attribute call.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
 }
 
 template <typename CT, typename QT, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables, const int* positions,
-                   void* out, int B, int T, int H, int n_kv, int ps, int N, float scale, cudaStream_t stream) {
-  const int tq = kRows / (H / n_kv);
-  const dim3 grid((T + tq - 1) / tq, n_kv, B);
+                   void* out, int B, int T, int H, int n_kv, int ps, int N, int P, float scale, cudaStream_t stream) {
+  const int G = H / n_kv;
   if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
-    const size_t smem = MmaSmem<HD>::bytes();
-    auto kern = prefill_mma_kernel<QT, HD>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    kern<<<grid, kMmaThreads, smem, stream>>>(static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k),
-                                              static_cast<const __nv_bfloat16*>(v), tables, positions,
-                                              static_cast<QT*>(out), T, H, n_kv, ps, N, scale);
+    static size_t allowed = 48 * 1024;
+    const size_t smem = WgSmem<HD>::bytes(N);
+    auto kern = prefill_wgmma_kernel<QT, HD>;
+    // K/V tiles by TMA where the page size allows 8-row boxes, else
+    // cp.async. A tensor map the driver refuses is an error, never a silent
+    // switch to the cp.async path.
+    CUtensorMap tmk{}, tmv{};
+    const int box_rows = tma_box_rows(ps, kTileKeys);
+    if (box_rows && !(encode_cache_map(&tmk, k, (long long)P * ps, n_kv * HD, box_rows) &&
+                      encode_cache_map(&tmv, v, (long long)P * ps, n_kv * HD, box_rows)))
+      return cudaErrorNotSupported;
+    const cudaError_t e = allow_smem(kern, smem, allowed);
+    if (e != cudaSuccess) return e;
+    const int tq = kBlockRows / G;
+    kern<<<dim3(n_kv, (T + tq - 1) / tq, B), kWgThreads, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+        tables, positions, static_cast<QT*>(out), T, H, n_kv, ps, N, scale, tmk, tmv, box_rows);
     return cudaGetLastError();
   } else {
+    static size_t allowed = 48 * 1024;
     const size_t smem = PrefillSmem<CT, HD>::bytes();
     auto kern = prefill_kernel<CT, QT, HD>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    kern<<<grid, kThreads, smem, stream>>>(static_cast<const QT*>(q), static_cast<const CT*>(k),
-                                           static_cast<const CT*>(v), tables, positions, static_cast<QT*>(out), T,
-                                           H, n_kv, ps, N, scale);
+    const cudaError_t e = allow_smem(kern, smem, allowed);
+    if (e != cudaSuccess) return e;
+    const int tq = kRows / G;
+    kern<<<dim3((T + tq - 1) / tq, n_kv, B), kThreads, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v), tables, positions,
+        static_cast<QT*>(out), T, H, n_kv, ps, N, scale);
     return cudaGetLastError();
   }
 }
@@ -459,12 +611,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
 // code (0 = launched). No synchronisation, no allocation.
 extern "C" int dyn_paged_prefill(const void* q, const void* k, const void* v, const int* tables,
                                  const int* positions, void* out, int B, int T, int H, int n_kv,
-                                 int head_dim, int ps, int N, int cache_dtype, int q_dtype, float scale,
+                                 int head_dim, int ps, int N, int P, int cache_dtype, int q_dtype, float scale,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DYN_PREFILL_CASE(CC, QC, HDV, CT, QT)                                                         \
   if (cache_dtype == CC && q_dtype == QC && head_dim == HDV)                                          \
-    return (int)launch<CT, QT, HDV>(q, k, v, tables, positions, out, B, T, H, n_kv, ps, N, scale, st);
+    return (int)launch<CT, QT, HDV>(q, k, v, tables, positions, out, B, T, H, n_kv, ps, N, P, scale, st);
   DYN_PREFILL_CASE(1, 1, 64, __nv_bfloat16, __nv_bfloat16)
   DYN_PREFILL_CASE(1, 1, 128, __nv_bfloat16, __nv_bfloat16)
   DYN_PREFILL_CASE(1, 0, 64, __nv_bfloat16, float)

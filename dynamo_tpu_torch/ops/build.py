@@ -37,11 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, tuple[str, list]] = {
     "paged_decode": (
         "dyn_paged_decode",
-        [_P] * 9 + [_I] * 11 + [_F, _P],
+        [_P] * 6 + [_I] * 12 + [_F, _P],
     ),
     "paged_prefill": (
         "dyn_paged_prefill",
-        [_P] * 6 + [_I] * 9 + [_F, _P],
+        [_P] * 6 + [_I] * 10 + [_F, _P],
     ),
     "paged_mla": (
         "dyn_paged_mla",
@@ -50,7 +50,7 @@ SIGNATURES: dict[str, tuple[str, list]] = {
 }
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}  # name -> bound C entry point
 
 
 def _nvcc() -> str:
@@ -64,8 +64,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path of ``name``: a digest of its source, every shared
+    header in ``csrc/`` and the flags."""
     h = hashlib.sha256()
-    for src in (SRC_DIR / f"{name}.cu", SRC_DIR / "common.cuh"):
+    for src in (SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -105,19 +108,22 @@ def build(names=tuple(SIGNATURES)) -> dict:
 
 
 def load(name: str):
-    """The C entry point of kernel library ``name``, building it if needed."""
+    """The C entry point of kernel library ``name``, building it if needed;
+    bound once, then returned from a table (every launch asks for it)."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        fn = _fns.get(name)
+        if fn is None:
             target = _target(name)
             if not target.exists():
                 build((name,))
-            lib = ctypes.CDLL(str(target))
-            _libs[name] = lib
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(target)), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
     return fn
 
 

@@ -25,6 +25,9 @@ from dynamo_tpu_torch.ops import build
 from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
 
 BLOCK_TOKENS = 64  # keys per kernel iteration (csrc/paged_decode.cu kBlockTokens)
+STAGES = 4  # bf16 kernel's K/V ring depth (csrc/paged_decode.cu kStages)
+MAX_SPLITS = 8  # a thread block cluster's portable size: the splits of a row tile are one cluster
+ROW_TILE = 16  # bf16 kernel's query rows per block (csrc/paged_decode.cu kRowTile)
 MAX_VERIFY_T = 32  # query tokens per row the multi-query form takes
 SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
 HEAD_DIMS = (64, 128)
@@ -34,23 +37,36 @@ launches = 0  # kernel launches through paged_decode_attention (CUDA only)
 
 
 def _smem_bytes(t_q: int, group: int, head_dim: int, itemsize: int) -> int:
-    """Mirror of ``DecodeSmem::bytes`` in the kernel source."""
+    """Mirror of the kernel source's shared-memory layouts, without the
+    bf16 kernel's page ids (:func:`_page_id_bytes`). bf16 (``MmaSmem``):
+    alignment slack, the K/V ring, one 16-row query tile, the ring's
+    mbarriers and the tile's positions, whatever T_q. f32
+    (``DecodeSmem``): every row of the block's T_q x G in shared memory."""
+    if itemsize == 2:
+        return (1024 + 2 * STAGES * 2 * BLOCK_TOKENS * head_dim + 2 * ROW_TILE * (head_dim + 8)
+                + 8 * STAGES * 4 + 4 * ROW_TILE)
     rows = t_q * group
     vec = 16 // itemsize
     return (2 * itemsize * BLOCK_TOKENS * (2 * head_dim + vec)  # double-buffered K/V tiles
             + 4 * (2 * rows * head_dim + rows * BLOCK_TOKENS + 3 * rows) + 4 * t_q)
 
 
+def _page_id_bytes(blocks_per_split: int, page_size: int) -> int:
+    """The bf16 kernel's staged page ids of one split (``split_pages``)."""
+    return 4 * (-(-(blocks_per_split * BLOCK_TOKENS) // page_size) + 1)
+
+
 def decode_kernel_supported(n_heads: int, head_dim: int, width: int, t_q: int = 1, *,
                             q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups, bf16
-    or f32 queries and cache, and T_q within the shared-memory row budget."""
+    or f32 queries and cache, and T_q up to MAX_VERIFY_T within the
+    shared-memory budget (which only the f32 kernel's grows with T_q)."""
     if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
         return False
     n_kv = width // head_dim
     if n_heads % n_kv:
         return False
-    itemsize = torch.empty((), dtype=cache_dtype).element_size()
+    itemsize = cache_dtype.itemsize
     return t_q <= MAX_VERIFY_T and _smem_bytes(t_q, n_heads // n_kv, head_dim, itemsize) <= SMEM_BYTES
 
 
@@ -78,6 +94,20 @@ def split_plan(batch: int, n_kv: int, pages_per_seq: int, page_size: int, num_sp
     return splits, -(-max_blocks // splits)
 
 
+def decode_split_plan(batch: int, n_kv: int, pages_per_seq: int, page_size: int, num_splits: int,
+                      device: torch.device) -> tuple[int, int]:
+    """The GQA decode kernel's :func:`split_plan`: auto on the card is one
+    block of one row tile per SM, ``splits = max(1, SMs // (batch * n_kv))``:
+    a block past that adds start-up and merge latency but no bandwidth. At
+    most MAX_SPLITS, auto or asked for: a row tile's splits are one thread
+    block cluster. Static shapes only, never T_q: a T_q=1 decode and a
+    verify row split alike."""
+    if num_splits <= 0 and device.type == "cuda":
+        sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+        num_splits = max(1, sms // max(1, batch * n_kv))
+    return split_plan(batch, n_kv, pages_per_seq, page_size, min(num_splits, MAX_SPLITS), device)
+
+
 def lse_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """Merge split partials along dim 1: ``acc`` f32[B, S, ..., hd],
     ``m``/``l`` f32[B, S, ...]. An empty split (m=NEG_INF, l=0, acc=0) scales
@@ -92,13 +122,14 @@ def lse_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Te
 def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float,
                        num_splits: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gathered K/V, f32 scores of the
-    pre-scaled (cache-dtype) queries, per-split online-softmax partials with
-    p masked explicitly, then :func:`lse_combine`."""
+    pre-scaled (cache-dtype) queries, per-split softmax partials with p
+    masked explicitly and rounded to the cache dtype for p.V, then
+    :func:`lse_combine`."""
     b, t, h, hd = q.shape
     _, ps, w = k_cache.shape
     n_kv = w // hd
     g = h // n_kv
-    splits, bps = split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
+    splits, bps = decode_split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
     tables = block_tables.clamp(min=0)
     k = gather_pages(k_cache, tables, n_kv).float()  # [B, S, kv, hd]
     v = gather_pages(v_cache, tables, n_kv).float()
@@ -122,7 +153,9 @@ def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: f
         p = torch.where(mask[..., lo:hi], torch.exp(sl - m[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bkgts,bskd->bkgtd", p, v[:, lo:hi]))
+        # p rounded to the cache dtype before p.V, as the TPU kernel rounds
+        # it (pallas_paged.py:388); l sums the unrounded p.
+        accs.append(torch.einsum("bkgts,bskd->bkgtd", p.to(v_cache.dtype).float(), v[:, lo:hi]))
     out = lse_combine(torch.stack(accs, 1), torch.stack(ms, 1), torch.stack(ls, 1))  # [B, kv, g, T, hd]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
@@ -133,7 +166,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
 
     ``q [B, T_q, H, hd]``, caches ``[P, ps, n_kv*hd]``, ``block_tables
     i32[B, N]`` (-1 tails allowed), ``positions i32[B, T_q]`` (gappy rows
-    allowed). ``num_splits`` 0 = auto (:func:`split_plan`)."""
+    allowed). ``num_splits`` 0 = auto (:func:`decode_split_plan`)."""
     global launches
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_cache, v_cache, block_tables, positions,
@@ -145,15 +178,16 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
         raise NotImplementedError(f"paged_decode kernel does not take heads={h}, head_dim={hd}, width={w}, "
                          f"T_q={t}, q {q.dtype}, cache {k_cache.dtype}")
     n_kv = w // hd
-    splits, bps = split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
-    acc = torch.empty((b, splits, t, h, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, splits, t, h), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, splits, t, h), dtype=torch.float32, device=q.device)
+    splits, bps = decode_split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
+    if k_cache.dtype == torch.bfloat16 and (_smem_bytes(t, h // n_kv, hd, 2) + _page_id_bytes(bps, ps)
+                                           > SMEM_BYTES):
+        raise NotImplementedError(f"paged_decode kernel: the page ids of {bps} key blocks of {ps}-token pages "
+                                  "do not fit in shared memory")
     out = torch.empty_like(q)
     fn = build.load("paged_decode")
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-             positions.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-             b, t, h, n_kv, hd, ps, block_tables.shape[1], splits, bps,
+             positions.data_ptr(), out.data_ptr(),
+             b, t, h, n_kv, hd, ps, block_tables.shape[1], k_cache.shape[0], splits, bps,
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_decode", err)

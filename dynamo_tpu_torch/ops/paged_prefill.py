@@ -22,28 +22,50 @@ import torch
 from dynamo_tpu_torch.ops import build
 from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
 
-BLOCK_ROWS = 64  # query rows (token x head) per kernel block (csrc/paged_prefill.cu kRows)
+BLOCK_ROWS = 64  # query rows (token x head) per f32 kernel block (csrc/paged_prefill.cu kRows)
+BLOCK_ROWS_BF16 = 128  # per bf16 (wgmma) kernel block (csrc/paged_prefill.cu kBlockRows)
+TILE_KEYS = 128  # keys per bf16 kernel ring stage (csrc/paged_prefill.cu kTileKeys)
+SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0  # kernel launches through paged_prefill_attention (CUDA only)
 
 
-def prefill_kernel_supported(n_heads: int, head_dim: int, width: int, *,
-                             q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
+def _stages(head_dim: int) -> int:
+    """The bf16 kernel's K/V ring depth (``WgSmem::kStages``)."""
+    return 4 if head_dim == 64 else 2
+
+
+def _smem_bytes(head_dim: int, table_width: int) -> int:
+    """Mirror of ``WgSmem::bytes`` (the bf16 kernel) in the kernel source:
+    alignment slack, the 128-row query tile, the ring of K/V tiles of
+    TILE_KEYS keys (128 bytes per key and 64 columns, each), the mbarriers
+    and position scan, and one staged page id per table entry."""
+    atoms, stages = head_dim // 64, _stages(head_dim)
+    return (1024 + atoms * BLOCK_ROWS_BF16 * 128 + stages * 2 * atoms * TILE_KEYS * 128 + 16 * stages + 16
+            + 4 * table_width)
+
+
+def prefill_kernel_supported(n_heads: int, head_dim: int, width: int, *, q_dtype: torch.dtype,
+                             cache_dtype: torch.dtype, table_width: int = 0) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups of at
-    most BLOCK_ROWS heads, bf16 or f32 queries and cache. The chunk width is
-    unbounded (the grid tiles it)."""
+    most BLOCK_ROWS heads, bf16 or f32 queries and cache, and (bf16) a block
+    table of ``table_width`` pages whose ids fit in shared memory. The chunk
+    width is unbounded (the grid tiles it)."""
     if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
         return False
     n_kv = width // head_dim
+    if cache_dtype == torch.bfloat16 and _smem_bytes(head_dim, table_width) > SMEM_BYTES:
+        return False
     return n_heads % n_kv == 0 and n_heads // n_kv <= BLOCK_ROWS
 
 
 def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
     """Plain PyTorch version: gathered K/V, f32 scores of the pre-scaled
     (cache-dtype) queries, mask ``kpos <= qpos & kpos < kv_len``, softmax
-    with p masked explicitly and 0 for rows with no attendable key."""
+    with p masked explicitly (rounded to the cache dtype for p.V) and 0 for
+    rows with no attendable key."""
     b, t, h, hd = q.shape
     _, ps, w = k_cache.shape
     n_kv = w // hd
@@ -62,7 +84,9 @@ def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: 
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgts,bskd->bkgtd", p, v)
+    # p rounded to the cache dtype before p.V, as the TPU kernel rounds it
+    # (pallas_prefill.py:210); l sums the unrounded p.
+    acc = torch.einsum("bkgts,bskd->bkgtd", p.to(v_cache.dtype).float(), v)
     out = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
@@ -75,13 +99,15 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, sca
     build.check_paged_args(q, k_cache, v_cache, block_tables, positions)
     b, t, h, hd = q.shape
     _, ps, w = k_cache.shape
-    if not prefill_kernel_supported(h, hd, w, q_dtype=q.dtype, cache_dtype=k_cache.dtype):
+    if not prefill_kernel_supported(h, hd, w, q_dtype=q.dtype, cache_dtype=k_cache.dtype,
+                                    table_width=block_tables.shape[1]):
         raise NotImplementedError(f"paged_prefill kernel does not take heads={h}, head_dim={hd}, width={w}, "
-                         f"q {q.dtype}, cache {k_cache.dtype}")
+                                  f"q {q.dtype}, cache {k_cache.dtype}, {block_tables.shape[1]}-page tables")
     out = torch.empty_like(q)
     fn = build.load("paged_prefill")
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
              positions.data_ptr(), out.data_ptr(), b, t, h, w // hd, hd, ps, block_tables.shape[1],
+             k_cache.shape[0],
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_prefill", err)

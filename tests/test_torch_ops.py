@@ -163,6 +163,138 @@ def test_plain_versions_match_pallas_interpret():
     np.testing.assert_allclose(got[1, :2], want[1, :2], rtol=0, atol=ATOL)
 
 
+def _bf16_case(seed, *, b, t, ps, npp, positions):
+    """A bf16 paged case (8 heads over 2 KV heads, hd 64), rounded to bf16
+    once and handed to both sides."""
+    q, kc, vc, tables, pos = _paged_case(seed, b=b, t=t, h=8, n_kv=2, hd=64, ps=ps, npp=npp, positions=positions)
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kc, vc)] + [jnp.asarray(tables), jnp.asarray(pos)]
+    tt = [_t(a).to(torch.bfloat16) for a in (q, kc, vc)] + [_t(tables), _t(pos)]
+    return jx, tt
+
+
+# (kind, T, page size, table pages, positions, num_splits, exact). One-block cases: the
+# JAX kernel walks the whole history in one block (decode: <= 1024 keys and
+# one split; prefill: <= 512 keys), so it and the plain version compute the
+# same softmax from the same maximum and round the same p: bitwise equal.
+# Multi-block cases: the JAX kernel walks 1024-key (decode) or 512-key
+# (prefill) blocks with an online softmax and the plain version takes a
+# split at once, so p is rounded to bf16 against different running maxima:
+# each element of p moves by up to one bf16 ulp (2**-8 relative), and so does
+# the weighted sum; 2**-6 of the row's largest output is four such ulps.
+BF16_PARITY = {
+    "decode one block": ("decode", 1, 16, 8, [[100], [127]], 1, True),
+    "verify one block": ("decode", 4, 16, 8, [[3, 9, 60, 127], [0, 20, 21, 90]], 1, True),
+    "prefill one block": ("prefill", 8, 16, 8, [list(range(90, 98)), list(range(120, 128))], None, True),
+    "decode two splits": ("decode", 1, 64, 17, [[1050], [700]], 2, False),
+    "prefill two blocks": ("prefill", 8, 16, 40, [list(range(600, 608)), list(range(500, 508))], None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_PARITY))
+def test_plain_versions_match_pallas_interpret_bf16(case):
+    """bf16 caches through the Pallas kernels in interpret mode and the
+    port's plain versions: both round the softmax weights p to the cache
+    dtype before p.V (pallas_paged.py:388, pallas_prefill.py:210)."""
+    kind, t, ps, npp, pos, num_splits, exact = BF16_PARITY[case]
+    jx, tt = _bf16_case(13, b=2, t=t, ps=ps, npp=npp, positions=pos)
+    scale = 64**-0.5
+    if kind == "decode":
+        want = j_decode_kernel(*jx, scale=scale, interpret=True, num_splits=num_splits)
+        got = paged_decode.paged_decode_attention(*tt, scale=scale, num_splits=num_splits)
+    else:
+        want = j_prefill_kernel(*jx, scale=scale, interpret=True)
+        got = paged_prefill.paged_prefill_attention(*tt, scale=scale)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        for row in range(got.shape[0]):
+            for col in range(got.shape[1]):  # per query token, over its heads
+                g, w = got[row, col], want[row, col]
+                assert np.abs(g - w).max() <= 2**-6 * np.abs(w).max(), (row, col)
+
+
+def _pr2_decode_smem(t_q, group, head_dim, itemsize):
+    """The decode kernel's shared memory before the bf16 kernel kept its rows
+    in registers: every row of T_q x G in shared memory (both dtypes)."""
+    rows = t_q * group
+    return (2 * itemsize * 64 * (2 * head_dim + 16 // itemsize)
+            + 4 * (2 * rows * head_dim + rows * 64 + 3 * rows) + 4 * t_q)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_decode_predicate_keeps_every_shape_and_mirrors_the_kernel(cache_dtype):
+    """decode_kernel_supported accepts every (T_q <= 32, G in {4, 8}, hd in
+    {64, 128}) shape the earlier mirror accepted, refuses T_q > 32 and any
+    layout over 227 KB, and the bf16 layout does not grow with T_q."""
+    itemsize = torch.empty((), dtype=cache_dtype).element_size()
+    for hd in (64, 128):
+        for group in (4, 8):
+            for t_q in range(1, paged_decode.MAX_VERIFY_T + 1):
+                for q_dtype in (torch.bfloat16, torch.float32):
+                    ok = paged_decode.decode_kernel_supported(8 * group, hd, 8 * hd, t_q, q_dtype=q_dtype,
+                                                              cache_dtype=cache_dtype)
+                    smem = paged_decode._smem_bytes(t_q, group, hd, itemsize)
+                    assert ok == (smem <= paged_decode.SMEM_BYTES)
+                    if _pr2_decode_smem(t_q, group, hd, itemsize) <= paged_decode.SMEM_BYTES:
+                        assert ok, (t_q, group, hd)
+            assert not paged_decode.decode_kernel_supported(8 * group, hd, 8 * hd, paged_decode.MAX_VERIFY_T + 1,
+                                                            q_dtype=cache_dtype, cache_dtype=cache_dtype)
+    if cache_dtype == torch.bfloat16:
+        # 1 KB alignment slack, a ring of 4 x 64-key K/V stages, one 16-row query tile,
+        # 16 mbarriers and 16 positions: 69,056 bytes at hd 64, whatever T_q.
+        assert {paged_decode._smem_bytes(t, 8, 64, 2) for t in (1, 32)} == {
+            1024 + 4 * 2 * 64 * 64 * 2 + 2 * 16 * 72 + 8 * 16 + 4 * 16}
+        # The page ids of a split ride on top: 16-token pages, 7 key blocks -> 29 ids.
+        assert paged_decode._page_id_bytes(7, 16) == 4 * 29
+    else:
+        # The f32 kernel keeps rows in shared memory: 32 x 8 rows at hd 128 is over 227 KB.
+        assert paged_decode._smem_bytes(32, 8, 128, 4) > paged_decode.SMEM_BYTES
+        assert not paged_decode.decode_kernel_supported(64, 128, 1024, 32, q_dtype=cache_dtype,
+                                                        cache_dtype=cache_dtype)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_prefill_predicate_mirrors_the_kernel(cache_dtype):
+    """prefill_kernel_supported takes the shapes it took before and, for the
+    bf16 (wgmma) kernel, gates on its shared memory: 1 KB of alignment slack,
+    a 128-row query tile (16 KB per 64 columns), a ring of 128-key K/V
+    stages (32 KB per 64 columns each; 4 at hd 64, 2 at hd 128), barriers,
+    and one page id per table entry."""
+    assert paged_prefill._smem_bytes(64, 128) == 1024 + 16384 + 4 * 32768 + 64 + 16 + 4 * 128
+    assert paged_prefill._smem_bytes(128, 0) == 1024 + 2 * 16384 + 2 * 2 * 32768 + 32 + 16
+    kw = dict(q_dtype=torch.bfloat16, cache_dtype=cache_dtype)
+    for hd in (64, 128):
+        for group in (1, 4, 8, 64):
+            assert paged_prefill.prefill_kernel_supported(8 * group, hd, 8 * hd, **kw)
+            assert paged_prefill.prefill_kernel_supported(8 * group, hd, 8 * hd, table_width=8192, **kw)
+        assert not paged_prefill.prefill_kernel_supported(8 * 65, hd, 8 * hd, **kw)
+    # A table whose page ids overflow 227 KB next to the hd-128 tiles.
+    huge = (paged_prefill.SMEM_BYTES - paged_prefill._smem_bytes(128, 0)) // 4 + 1
+    assert paged_prefill.prefill_kernel_supported(32, 128, 1024, table_width=huge, **kw) == (
+        cache_dtype == torch.float32)
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each library's ctypes argument list mirrors its ``extern "C"`` entry
+    point in ``csrc/`` (pointers c_void_p, ints c_int, floats c_float), so
+    ctypes never passes an argument in the wrong slot or width."""
+    import ctypes
+    import re
+
+    fn_name, argtypes = build.SIGNATURES[name]
+    src = (build.SRC_DIR / f"{name}.cu").read_text()
+    params = re.search(r'extern "C" int ' + fn_name + r"\((.*?)\)\s*\{", src, re.S).group(1)
+    want = []
+    for param in params.split(","):
+        decl = param.strip()
+        want.append(ctypes.c_void_p if "*" in decl else ctypes.c_float if decl.startswith("float") else ctypes.c_int)
+    assert argtypes == want
+
+
 def test_lse_combine_with_empty_splits_matches_jax():
     rng = np.random.default_rng(6)
     acc = rng.standard_normal((2, 4, 3, 8)).astype(np.float32)

@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the serve mix lives there)
 
 FAMILIES = (  # kernel name fragment -> family, first match wins
-    ("decode_partials", "attention: paged_decode"), ("decode_combine", "attention: paged_decode"),
+    ("decode_partials", "attention: paged_decode"), ("decode_mma", "attention: paged_decode"),
     ("mla_", "attention: paged_mla"),
     ("prefill", "attention: paged_prefill"), ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
     ("sm90_xmma", "matmul"), ("nvjet", "matmul"), ("index", "gather/scatter"), ("elementwise", "elementwise"),
