@@ -13,21 +13,26 @@ Phases, one JSON line each; any failure exits non-zero:
               (64/8, hd 64) geometries, bf16 also on pages of 12 (no TMA
               box, page lookups by division) and 24 (TMA, division), decode
               also at T_q 8 (two and four 16-row tiles). MLA
-              (paged_mla, phase "kernels_mla"): the mla-8b-proxy (32 heads,
-              latent 512, rope 64) and test-mla-kernel (4 heads, latent 128,
-              rope 64) geometries. Each in bf16 and f32, pages of 16 and 32:
-              ragged lengths, -1 table tails, num_splits 1 and auto, T_q 1
-              and 4, prefill chunks with start > 0 and mixed 1-token rows;
-              the bitwise T_q=1 / verify-column check; a mixed step at each
-              serve phase's shape. Then, at the main paths' shapes, each
-              kernel is held against its plain version once more and timed
-              (CUDA-graph replay between CUDA events, median of repeats)
-              beside its bound, the plain version's time, one PyTorch
-              library call's and the device µs of each CUDA kernel it
-              launches (GQA: also the wrapper's host µs per call); the GQA
-              kernels also at hd 128 (llama-3-8b's 32/8 heads) and the
-              prefill kernel at the mixed-step shape. Every comparison is
-              per row, relative to the row's largest plain output.
+              (paged_mla, phase "kernels_mla", ``mla_kernel_checks``): the
+              mla-8b-proxy (32 heads, latent 512, rope 64) and
+              test-mla-kernel (4 heads, latent 128, rope 64) geometries in
+              bf16 and f32, bf16 also on pages of 8 (the 8-row TMA box) and
+              4 (cp.async), and ``MLA_PATHS``, the bf16 kernel's other
+              paths (ropes of 32, 80, 128 and 512 lanes, a rope stream
+              narrower than a box, f32 queries on bf16 pages): ragged
+              lengths, -1 table tails, splits 1, 2 and auto, gappy T_q 1, 4,
+              8 (and 20 at 4 heads), prefill chunks with start > 0 and mixed
+              1-token rows; the bitwise T_q=1 / verify-column check; a mixed
+              step at each serve phase's shape. Then, at the main paths'
+              shapes, each kernel is held against its plain version once
+              more and timed (CUDA-graph replay between CUDA events, median
+              of repeats) beside its bound, the plain version's time, one
+              PyTorch library call's (MLA: ``folded_sdpa``, its backend
+              named), the device µs of each CUDA kernel it launches and the
+              wrapper's host µs per call; the GQA kernels also at hd 128
+              (llama-3-8b's 32/8 heads), both prefill kernels also at the
+              serve's mixed-step shape. Every comparison is per row,
+              relative to the row's largest plain output.
 3. forward  — one prefill and one decode step at full width, with the
               kernels and with the plain attention, same inputs; logits
               compared: llama-3.2-1b, then mla-8b-proxy.
@@ -286,16 +291,17 @@ def mixed_step_check(dev, rng) -> float:
                    [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16)
 
 
-def _mla_case(rng, dev, pos: np.ndarray, *, h, r_kv, dr, r_width, ps, npp, dtype, layers=1):
+def _mla_case(rng, dev, pos: np.ndarray, *, h, r_kv, dr, r_width, ps, npp, dtype, layers=1, q_dtype=None):
     """Random latent / rope pages (the rope stream's tail past ``dr`` zero, as
-    the writers leave it), queries, and tables with -1 tails."""
+    the writers leave it), queries (``q_dtype``, else the caches' dtype), and
+    tables with -1 tails."""
     b, t = pos.shape
     pages = layers * b * npp + 1
     c = torch.randn((pages, ps, r_kv), generator=rng, device=dev).to(dtype)
     r = torch.zeros((pages, ps, r_width), device=dev, dtype=dtype)
     r[..., :dr] = torch.randn((pages, ps, dr), generator=rng, device=dev).to(dtype)
-    q_lat = torch.randn((b, t, h, r_kv), generator=rng, device=dev).to(dtype)
-    q_rope = torch.randn((b, t, h, dr), generator=rng, device=dev).to(dtype)
+    q_lat = torch.randn((b, t, h, r_kv), generator=rng, device=dev).to(q_dtype or dtype)
+    q_rope = torch.randn((b, t, h, dr), generator=rng, device=dev).to(q_dtype or dtype)
     tables = _tables(rng, dev, pos, layers=layers, npp=npp, ps=ps)
     return q_lat, q_rope, c, r, tables, torch.from_numpy(pos).to(dev)
 
@@ -308,13 +314,36 @@ def _spans(spans, t: int) -> np.ndarray:
     return pos
 
 
+# bf16-cache geometries outside the serving ones, each reaching a path of the
+# bf16 kernel that MLA_GEOMS does not: heads, latent, rope lanes, rope stream
+# width, nope dim, query dtype. A rope of other than 64 lanes takes the looped
+# score product; one that is not whole 64-lane boxes, or f32 queries, stages
+# the queries from registers; more than nine 64-lane atoms a row take 32-key
+# stages; a rope stream narrower than a box copies with cp.async.
+MLA_PATHS = {
+    "rope-128 (32-key stages)": (32, 512, 128, 128, 128, torch.bfloat16),
+    "rope-32 of 128": (32, 512, 32, 128, 128, torch.bfloat16),
+    "rope-80 of 128 (32-key stages)": (32, 512, 80, 128, 128, torch.bfloat16),
+    "latent-128 rope-32 of 128": (4, 128, 32, 128, 32, torch.bfloat16),
+    "latent-128 rope-128": (4, 128, 128, 128, 32, torch.bfloat16),
+    "latent-128 rope-512 (32-key stages)": (4, 128, 512, 512, 32, torch.bfloat16),
+    "latent-128 rope-32 of 32 (cp.async)": (4, 128, 32, 32, 32, torch.bfloat16),
+    "mla-8b-proxy f32 queries": (32, 512, 64, 128, 128, torch.float32),
+    "test-mla-kernel f32 queries": (4, 128, 64, 128, 32, torch.float32),
+}
+
+
 def mla_kernel_checks(dev) -> dict:
     """paged_mla against its plain version at the MLA_GEOMS geometries, bf16
-    and f32, pages of 16 and 32: gappy T_q 1 and 4 rows at ragged lengths
-    (splits 1 and auto) with the bitwise T_q=1 / verify-column check, and
-    prefill chunks after a cached prefix beside 1-token rows; then a 512-token
-    chunk after 1024 cached tokens (both dtypes) and a mixed step at the serve
-    phase's shape. Returns the max errors by dtype."""
+    and f32: gappy T_q 1, 4 and 8 rows at ragged lengths (at 4 heads also
+    T_q 20, two 64-row tiles), splits 1, 2 and auto, with the bitwise T_q=1 /
+    verify-column check wherever the two share a split plan; prefill chunks
+    after a cached prefix beside 1-token rows. bf16 pages of 16 and 32 (TMA
+    boxes of 16 and 32 rows), 8 (the 8-row box) and 4 (no box: cp.async);
+    f32 pages of 16 and 32. The same at the MLA_PATHS geometries on bf16
+    pages of 16, T_q 1 and 4 (at 4 heads also 20). Then a 512-token chunk
+    after 1024 cached tokens (both dtypes) and a mixed step at the serve
+    phase's shape. Returns the max errors by cache dtype."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     rng = torch.Generator(device=dev).manual_seed(10)
@@ -328,37 +357,45 @@ def mla_kernel_checks(dev) -> dict:
         errs[key] = max(errs[key], compare(name, got, want, list(enumerate(real)), dtype))
         return got
 
+    # (name, geometry, cache dtype, query dtype, page sizes, T_q list)
+    runs = []
     for dtype in (torch.bfloat16, torch.float32):
-        for geom, (h, r_kv, dr, r_width, dn) in MLA_GEOMS.items():
-            scale = (dn + dr) ** -0.5
-            dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype)
-            for ps in (16, 32):
-                lengths = [1, 37, 300, 1000]
-                npp = -(-1000 // ps) + 2
-                for t in (1, 4):
-                    pos = _positions(lengths, t, contiguous=False)
-                    real = [min(t, n) for n in lengths]
-                    q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
-                    for ns in (1, 0):
-                        tag = f"mla {geom} {dtype} ps{ps} T{t} splits{ns}"
-                        got = check(tag, (q_lat, q_rope, c, r, tb[0], posd), real, dtype, scale, ns)
-                        if t == 1:
-                            continue
-                        # A T_q=1 decode of each verify column must equal that column bitwise.
-                        for j in range(t):
-                            one = pm.paged_mla(q_lat[:, j:j + 1].contiguous(), q_rope[:, j:j + 1].contiguous(), c, r,
-                                               tb[0], posd[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
-                            for i in range(len(lengths)):
-                                if j < real[i]:
-                                    bitwise.append(bool(torch.equal(one[i, 0], got[i, j])))
-                                    if not bitwise[-1]:
-                                        raise AssertionError(f"T_q=1 decode differs from verify column {j} of row "
-                                                             f"{i} ({tag})")
-                spans = [(900, 100), (0, 77), (499, 1), (650, 1)]
-                pos = _spans(spans, 100)
-                case = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
-                check(f"mla chunk {geom} {dtype} ps{ps}", (*case[:4], case[4][0], case[5]), [n for _, n in spans],
-                      dtype, scale)
+        for geom, (h, *dims) in MLA_GEOMS.items():
+            runs.append((geom, (h, *dims), dtype, dtype, (16, 32, 8, 4) if dtype == torch.bfloat16 else (16, 32),
+                         (1, 4, 8, 20) if h == 4 else (1, 4, 8)))
+    for geom, (h, *dims, q_dtype) in MLA_PATHS.items():
+        runs.append((geom, (h, *dims), torch.bfloat16, q_dtype, (16,), (1, 4, 20) if h == 4 else (1, 4)))
+    for geom, (h, r_kv, dr, r_width, dn), dtype, q_dtype, page_sizes, t_list in runs:
+        scale = (dn + dr) ** -0.5
+        dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype, q_dtype=q_dtype)
+        for ps in page_sizes:
+            lengths = [1, 37, 300, 1000]
+            npp = -(-1000 // ps) + 2
+            for t in t_list:
+                pos = _positions(lengths, t, contiguous=False)
+                real = [min(t, n) for n in lengths]
+                q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+                for ns in (1, 2, 0):
+                    tag = f"mla {geom} {dtype} ps{ps} T{t} splits{ns}"
+                    got = check(tag, (q_lat, q_rope, c, r, tb[0], posd), real, dtype, scale, ns)
+                    if t == 1 or (ns == 0 and t > pm.MAX_SPLIT_T):
+                        continue  # auto plans split a T_q=1 row and a row of more than 8 differently
+                    # A T_q=1 decode of each verify column must equal that column bitwise.
+                    for j in range(t):
+                        one = pm.paged_mla(q_lat[:, j:j + 1].contiguous(), q_rope[:, j:j + 1].contiguous(), c, r,
+                                           tb[0], posd[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
+                        for i in range(len(lengths)):
+                            if j < real[i]:
+                                bitwise.append(bool(torch.equal(one[i, 0], got[i, j])))
+                                if not bitwise[-1]:
+                                    raise AssertionError(f"T_q=1 decode differs from verify column {j} of row "
+                                                         f"{i} ({tag})")
+            spans = [(900, 100), (0, 77), (499, 1), (650, 1)]
+            pos = _spans(spans, 100)
+            case = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+            check(f"mla chunk {geom} {dtype} ps{ps}", (*case[:4], case[4][0], case[5]), [n for _, n in spans],
+                  dtype, scale)
+    for dtype in (torch.bfloat16, torch.float32):
         # The main path's prefill shape: one 512-token chunk after 1024 cached tokens.
         h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
         pos = _spans([(1024, 512)], 512)
@@ -369,6 +406,8 @@ def mla_kernel_checks(dev) -> dict:
           "tolerance": {"float32": f"{REL_TOL[torch.float32]} * max|plain| per row",
                         "bfloat16": f"{REL_TOL[torch.bfloat16]} * max|plain| per row"},
           "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    if len(bitwise) < 208:
+        raise AssertionError(f"only {len(bitwise)} bitwise verify columns were checked")
     return errs
 
 
@@ -390,33 +429,57 @@ def mla_mixed_step_check(dev, rng) -> float:
                    torch.bfloat16)
 
 
+def folded_sdpa(q_lat, q_rope, kg, vg, mask, scale):
+    """The MLA yardstick: one SDPA call with the heads folded into the query
+    rows (MLA is MQA): q ``[B, 1, T*H, r_kv + dr]`` (row t*H + h) against the
+    gathered keys ``kg [B, 1, S, r_kv + dr]`` and values ``vg [B, 1, S,
+    r_kv]``, with a boolean per-row horizon mask ``[B, 1, T*H, S]`` or none.
+    The first backend of flash, memory-efficient, cuDNN and math that takes
+    these widths is pinned with ``sdpa_kernel``; a backend that refuses them
+    raises before it launches anything. Returns (call, backend name). Timed
+    only as a yardstick: the port never calls it."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, t, h, _ = q_lat.shape
+    qf = torch.cat([q_lat, q_rope], dim=-1).reshape(b, 1, t * h, -1).contiguous()
+    refusals = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask, scale=scale)
+        try:
+            with warnings.catch_warnings():  # a refusing backend warns why, then raises
+                warnings.simplefilter("ignore", UserWarning)
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            refusals.append(f"{backend.name}: {str(exc).splitlines()[0][:120]}")
+            continue
+        return call, backend.name
+    raise RuntimeError(f"no SDPA backend takes the folded MLA shapes: {refusals}")
+
+
 def mla_timings(dev) -> dict:
     """paged_mla at the MLA main path's shapes (mla-8b-proxy, bf16, 16-token
     pages): decode at batch 8 over 2048-token contexts on 128-page tables
-    (the serve phase's table width, so the same split plan), and a 512-token
-    chunk after 1024 cached tokens; each held against its plain version on
-    the timed inputs first. The library yardstick is one SDPA call on
-    pre-gathered keys [c; r[:dr]] and values c (one shared KV head)."""
-    import torch.nn.functional as F
-
+    (the serve phase's table width, so the same split plan), a 512-token
+    chunk after 1024 cached tokens, and the serve's mixed step
+    (``mla_mixed_step_timing``); each held against its plain version on the
+    timed inputs first. The library yardstick is ``folded_sdpa``: no mask at
+    full-context decode, the per-row horizon mask at prefill and the mixed
+    step. Beside the device times, the wrapper's host µs per call. At T > 1
+    the walk facts are computed once beforehand, as the forward computes them
+    once per step for all its layers."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     rng = torch.Generator(device=dev).manual_seed(11)
     h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
     ps, dtype, scale = 16, torch.bfloat16, (dn + dr) ** -0.5
     dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype)
-
-    def gathered(c, r, tb):
-        idx = tb.clamp(min=0).reshape(-1).long()
-        b, s = tb.shape[0], tb.shape[1] * ps
-        cg = c[idx].reshape(b, 1, s, r_kv)
-        return torch.cat([cg, r[idx].reshape(b, 1, s, r_width)[..., :dr]], dim=-1).contiguous(), cg.contiguous()
-
-    def entry(kern, plain, lib, nbytes, flops, iters, **extra):
-        return dict(ms=time_ms(kern, iters=iters), plain_ms=time_ms(plain, iters=3),
-                    library_ms=time_ms(lib, iters=iters),
-                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", **extra)
 
     out = {}
     # Decode: 4 layers' worth of distinct pages (4 x 21 MB > the 50 MB L2),
@@ -431,21 +494,20 @@ def mla_timings(dev) -> dict:
                       pm.paged_mla(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
                       pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
                       [(row, 1) for row in range(b)], dtype) for i in range(layers))
-    kv = [gathered(c, r, tbs[i]) for i in range(layers)]
-    qg = torch.cat([q_lat, q_rope], dim=-1).permute(0, 2, 1, 3).contiguous()  # [B, H, 1, r_kv + dr]
+    kv = [_mla_gathered(c, r, tbs[i], dr) for i in range(layers)]
+    libs = [folded_sdpa(q_lat, q_rope, kv[i][0], kv[i][1], None, scale) for i in range(layers)]
     nbytes = (b * ctx * (r_kv + dr) * 2  # latent + rope lanes, read once
               + b * h * (r_kv + dr) * 2 + b * h * r_kv * 4  # queries in, f32 latent out
               + b * npp * 4 + b * 4)  # tables, positions
     flops = 2 * b * h * ctx * (r_kv + dr) + 2 * b * h * ctx * r_kv
-    out["decode"] = entry(
-        lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
-        lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
-        lambda: (lambda i: F.scaled_dot_product_attention(qg, kv[i][0], kv[i][1], scale=scale, enable_gqa=True))(
-            next(it) % layers),
-        nbytes, flops, 50, shape=f"B={b} ctx={ctx} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
-        max_abs_err=err, splits=pm.mla_split_plan(b, 1, npp, ps, 0, dev),
-        device_us_by_kernel=device_us_by_kernel(
-            lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale)))
+    kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale)
+    out["decode"] = _mla_entry(
+        kern, lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
+        lambda: libs[next(it) % layers][0](), nbytes, flops, 50,
+        shape=f"B={b} ctx={ctx} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
+        max_abs_err=err, splits=pm.mla_split_plan(b, 1, npp, ps, 0, dev), library_backend=libs[0][1],
+        device_us_by_kernel=device_us_by_kernel(kern), host_us_per_call=host_us(kern))
+    del q_lat, q_rope, c, r, kv, libs
 
     # Prefill: one 512-token chunk at positions 1024..1535.
     start, t = 1024, 512
@@ -454,21 +516,77 @@ def mla_timings(dev) -> dict:
     pos = _spans([(start, t)], t)
     q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
     tb0 = tb[0].contiguous()
-    kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale)
+    walk = pm.walk_facts(posd)
+    kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk)
     plain = lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tb0, posd, scale=scale)
     err = compare("mla prefill timing inputs", kern(), plain(), [(0, t)], dtype)
-    kg, vg = gathered(c, r, tb0)
-    qg = torch.cat([q_lat, q_rope], dim=-1).permute(0, 2, 1, 3).contiguous()  # [1, H, T, r_kv + dr]
-    causal = torch.arange(kv_len, device=dev)[None, :] <= (start + torch.arange(t, device=dev))[:, None]
-    lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=causal, scale=scale, enable_gqa=True)
+    kg, vg = _mla_gathered(c, r, tb0, dr)
+    lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, kv_len), scale)
     pairs = t * start + t * (t + 1) // 2  # causal (query, key) pairs
     nbytes = kv_len * (r_kv + dr) * 2 + t * h * (r_kv + dr) * 2 + t * h * r_kv * 4 + npp * 4 + t * 4
     flops = 2 * h * pairs * (r_kv + dr) + 2 * h * pairs * r_kv
-    out["prefill"] = entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err,
-                           shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
-                           device_us_by_kernel=device_us_by_kernel(kern, 5))
+    out["prefill"] = _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
+                                shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 "
+                                      f"page={ps}",
+                                device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
+    del q_lat, q_rope, c, r, kg, vg, lib
+    out["mixed_step"] = mla_mixed_step_timing(dev, rng)
     emit({"phase": "kernel_timing_mla", **out})
     return out
+
+
+def _mla_gathered(c, r, tb, dr):
+    """Each row's whole table gathered: keys ``[c; r[:dr]]`` ``[B, 1, S, r_kv
+    + dr]`` and values ``c`` ``[B, 1, S, r_kv]``, one shared KV head."""
+    idx = tb.clamp(min=0).reshape(-1).long()
+    b, s = tb.shape[0], tb.shape[1] * c.shape[1]
+    cg = c[idx].reshape(b, 1, s, c.shape[2])
+    rg = r[idx].reshape(b, 1, s, r.shape[2])[..., :dr]
+    return torch.cat([cg, rg], dim=-1).contiguous(), cg.contiguous()
+
+
+def _mla_horizon_mask(pos, h, s):
+    """Boolean ``[B, 1, T*H, S]``: folded row t*H + h sees keys kpos <= pos[b, t]."""
+    kpos = torch.arange(s, device=pos.device)
+    mask = kpos[None, None, :] <= pos[:, :, None]  # [B, T, S]
+    return mask[:, :, None, :].expand(-1, -1, h, -1).reshape(pos.shape[0], 1, -1, s).contiguous()
+
+
+def _mla_entry(kern, plain, lib, nbytes, flops, iters, **extra):
+    return dict(ms=time_ms(kern, iters=iters), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=iters),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", **extra)
+
+
+def mla_mixed_step_timing(dev, rng) -> dict:
+    """paged_mla at the serve's mixed-step shape (``mla_mixed_step_check``'s
+    spans: mla-8b-proxy geometry, bf16, a batch of 8 in a 512-token bucket on
+    128-page tables, five of the rows 1-token decode rows), held against its
+    plain version first. The yardstick is ``folded_sdpa`` over each row's
+    whole table with the per-row horizon mask."""
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+    ps, t, npp, scale = 16, 512, 128, (dn + dr) ** -0.5
+    spans = MIXED_SPANS
+    q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, _spans(spans, t), h=h, r_kv=r_kv, dr=dr, r_width=r_width,
+                                             ps=ps, npp=npp, dtype=torch.bfloat16)
+    tb0 = tb[0].contiguous()
+    walk = pm.walk_facts(posd)
+    kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk)
+    plain = lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tb0, posd, scale=scale)
+    err = compare("mla mixed-step timing inputs", kern(), plain(), [(i, n) for i, (_, n) in enumerate(spans)],
+                  torch.bfloat16)
+    kg, vg = _mla_gathered(c, r, tb0, dr)
+    lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, npp * ps), scale)
+    pairs = sum(n * s + n * (n + 1) // 2 for s, n in spans)
+    nbytes = (sum((s + n) * (r_kv + dr) * 2 for s, n in spans)  # each row's latents + rope lanes, read once
+              + sum(n * h * ((r_kv + dr) * 2 + r_kv * 4) for _, n in spans)  # real queries in, f32 latent out
+              + len(spans) * (npp * 4 + t * 4))  # tables, positions
+    flops = 2 * h * pairs * (r_kv + dr) + 2 * h * pairs * r_kv
+    return _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
+                      shape=f"B=8 T={t} spans={spans} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
+                      device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
 
 
 def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
@@ -790,13 +908,15 @@ def main() -> int:
               for name, log in built["ptxas"].items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs,
           "nvcc_max_spill_store_bytes": spills})
+    if spills.get("paged_mla", 0):  # its consumers' registers are budgeted by setmaxnreg: a spill is a regression
+        raise AssertionError(f"paged_mla spills registers: {spills['paged_mla']} bytes of spill stores")
 
     errs = kernel_checks(dev)
     mla_errs = mla_kernel_checks(dev)
     errs.update({f"paged_mla/{k}": e for k, e in mla_errs.items()})
     timing = kernel_timings(dev)
-    # The kernels line carries paged_mla's decode time; its prefill time is on
-    # the kernel_timing_mla line.
+    # The kernels line carries paged_mla's decode time; its prefill and
+    # mixed-step times are on the kernel_timing_mla line.
     timing["paged_mla"] = mla_timings(dev)["decode"]
     launches = {}
     for model in (MODEL, MLA_MODEL):

@@ -23,6 +23,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import init_mla_params, mla_attention, mla_cache_widths
 from dynamo_tpu_torch.ops.attention import paged_attention, paged_attention_reference, write_kv
 from dynamo_tpu_torch.ops.norm import rms_norm
+from dynamo_tpu_torch.ops.paged_mla import walk_facts
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_attention_factor, rope_frequencies
 
 Params = dict
@@ -178,13 +179,16 @@ def forward(
     layer_ids = torch.arange(nl, device=dev, dtype=torch.int32)
     tables_all = (block_tables[None] + (layer_ids * npages)[:, None, None]).contiguous()
     slots_all = slot_mapping.long()[None] + (layer_ids.long() * (npages * ps))[:, None, None]
+    # Where each row's MLA walk ends depends on the positions only: one
+    # reduction per step, shared by every layer's kernel launch.
+    walk = walk_facts(positions) if mla and attn_impl is None and t > 1 else None
     lp = params["layers"]
     for li in range(nl):
         h = rms_norm(x, lp["attn_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
         if mla:
             attn_out, _, _ = mla_attention(
                 {k: v[li] for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
-                inv_freq, attn_mscale=attn_mscale, impl=attn_impl,
+                inv_freq, attn_mscale=attn_mscale, impl=attn_impl, walk=walk,
             )
             x = x + attn_out
             h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)

@@ -91,6 +91,7 @@ def mla_attention(
     inv_freq: torch.Tensor,  # [qk_rope_head_dim // 2]
     attn_mscale: float = 1.0,  # YaRN temperature (mscale^2), folded into the scale
     impl: str | None = None,  # None: paged_mla (kernel on the card); "reference": gather formulation
+    walk: tuple[torch.Tensor, torch.Tensor] | None = None,  # paged_mla's walk_facts(positions), once per step
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One MLA layer: returns (attn_out [B, T, D], c_cache, r_cache), the
     caches being the same tensors, written through before attention."""
@@ -118,7 +119,7 @@ def mla_attention(
         out_lat = _gather_attention(q_lat, q_rope, c_cache, r_cache, block_tables, positions, scale)
     elif impl is None:
         out_lat = paged_mla(q_lat.contiguous(), q_rope.contiguous(), c_cache, r_cache, block_tables, positions,
-                            scale=scale)  # f32 [B, T, H, r_kv]
+                            scale=scale, walk=walk)  # f32 [B, T, H, r_kv]
     else:
         raise ValueError(f"unknown impl {impl!r} (want None or 'reference')")
     out = torch.einsum("bthr,rhv->bthv", out_lat.to(h.dtype), lp["w_uv"])  # [B, T, H, dv]

@@ -45,7 +45,7 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     ),
     "paged_mla": (
         "dyn_paged_mla",
-        [_P] * 10 + [_I] * 12 + [_F, _P],
+        [_P] * 9 + [_I] * 13 + [_F, _P],
     ),
 }
 

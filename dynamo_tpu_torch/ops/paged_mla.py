@@ -4,9 +4,9 @@ its plain PyTorch version.
 Replaces ``dynamo_tpu/ops/pallas_mla.py:_mla_decode_kernel`` (launched at
 ``:291`` by ``mla_paged_decode``) and its host-side combine. Kernel source:
 ``csrc/paged_mla.cu``, whose header note gives the bound (the shared latent
-stream's bytes at decode, operations at long prefill chunks: every query
-head reads the same stream, ~60 operations a byte at 32 heads, so bf16 runs
-on the tensor cores) and what the design does about it.
+stream's bytes at decode, operations at prefill chunks and mixed steps) and
+what the Hopper design does about it (64-row tiles on wgmma, a TMA ring,
+splits merged inside a thread block cluster).
 
 Both versions compute the same function. MLA in the absorbed form is
 multi-query attention: per (sequence, query token, head) the scores are
@@ -20,7 +20,9 @@ its staging. The key walk is cut into split-K partials whose boundaries come
 from static shapes only, merged by a log-sum-exp combine. Every T runs in
 the kernel: decode, gappy verify rows, prefill chunks, mixed steps. Outputs
 at a row's padding columns (tokens after the one holding the row's largest
-position) are unspecified; the engine never reads them.
+position) are unspecified; the engine never reads them. The kernel learns
+where a row's walk ends from :func:`walk_facts`, computed once per step on
+the device: the forward passes it to every layer's call.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and takes the
 plain version only for tensors on the CPU.
@@ -32,10 +34,12 @@ import torch
 
 from dynamo_tpu_torch.ops import build
 from dynamo_tpu_torch.ops.attention import NEG_INF
-from dynamo_tpu_torch.ops.paged_decode import SMEM_BYTES, _sm_count, lse_combine, split_plan
+from dynamo_tpu_torch.ops.paged_decode import MAX_SPLITS, SMEM_BYTES, _sm_count, lse_combine, split_plan
 
-BLOCK_TOKENS = 64  # keys per split block and bf16 key tile (csrc/paged_mla.cu kBlockTokens)
-ROW_TILE = 32  # query rows (token x head) per kernel block (csrc/paged_mla.cu kRows)
+BLOCK_TOKENS = 64  # keys per split block (csrc/paged_mla.cu kBlockTokens)
+ROW_TILE = 64  # query rows (token x head) per bf16 kernel block (csrc/paged_mla.cu kRows)
+STAGES = 2  # bf16 kernel's key ring depth (csrc/paged_mla.cu kStages)
+F32_ROW_TILE = 32  # query rows per f32 kernel block (csrc/paged_mla.cu kF32Rows)
 F32_KEYS = 32  # key sub-tile of the f32 kernel (csrc/paged_mla.cu kF32Keys)
 MAX_SPLIT_T = 8  # longest row whose auto plan splits the key walk
 LATENT_DIMS = (128, 512)
@@ -44,22 +48,45 @@ DTYPES = (torch.bfloat16, torch.float32)
 launches = 0  # kernel launches through paged_mla (CUDA only)
 
 
+def _row_atoms(r_kv: int, dr: int) -> int:
+    """64-lane atoms of a bf16 key row in shared memory: latent, then rope."""
+    return r_kv // 64 + -(-dr // 64)
+
+
+def _wg_smem_bytes(r_kv: int, dr: int, keys: int) -> int:
+    """Mirror of ``WgLayout::bytes`` (bf16 kernel): alignment slack, the Q
+    tile, the ring of ``keys``-key stages, the p tile, the ring's and the Q
+    tile's mbarriers, the row exchange, the rows' positions and the (m, l)
+    partial."""
+    na = _row_atoms(r_kv, dr)
+    return (1024 + na * ROW_TILE * 128 + STAGES * na * keys * 128 + ROW_TILE * 128 + (2 * STAGES + 1) * 8
+            + 4 * 2 * ROW_TILE + 4 * ROW_TILE + 4 * 2 * ROW_TILE)
+
+
+def _tile_keys(r_kv: int, dr: int) -> int:
+    """Keys per ring stage of the bf16 kernel: 64 where they fit the shared
+    memory, else 32 (rows of more than nine atoms)."""
+    return 64 if _wg_smem_bytes(r_kv, dr, 64) <= SMEM_BYTES else 32
+
+
 def _smem_bytes(r_kv: int, dr: int, itemsize: int) -> int:
-    """Mirror of ``mma_smem_bytes`` / ``f32_smem_bytes`` in the kernel source."""
-    if itemsize == 2:  # Q tile + double-buffered c|r tiles, f32 scores, bf16 p, stats
-        return (2 * (ROW_TILE + 2 * BLOCK_TOKENS) * (r_kv + dr + 8) + 4 * ROW_TILE * (BLOCK_TOKENS + 1)
-                + 2 * ROW_TILE * (BLOCK_TOKENS + 8) + 4 * 3 * ROW_TILE + 4 * (ROW_TILE + 4))
-    return (4 * ((ROW_TILE + F32_KEYS) * (r_kv + dr + 4) + ROW_TILE * (F32_KEYS + 1) + 3 * ROW_TILE)
-            + 4 * (ROW_TILE + 4))
+    """Mirror of the kernel source's shared memory: ``WgLayout`` (bf16) or
+    ``f32_smem_bytes`` (the query tile, a key sub-tile, scores, stats and
+    positions)."""
+    if itemsize == 2:
+        return _wg_smem_bytes(r_kv, dr, _tile_keys(r_kv, dr))
+    return (4 * ((F32_ROW_TILE + F32_KEYS) * (r_kv + dr + 4) + F32_ROW_TILE * (F32_KEYS + 1) + 3 * F32_ROW_TILE)
+            + 4 * F32_ROW_TILE)
 
 
 def paged_mla_supported(n_heads: int, r_kv: int, r_width: int, dr: int, page_size: int, *,
                         q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
     """Shapes the kernel takes: latent width 128 or 512, a rope width ``dr``
     that is a multiple of 16 within the cache's ``r_width`` (whose rows are
-    16-byte aligned), pages of a power of 2 tokens, at least 2 (a 64-key
-    tile spans at most 32 pages), bf16 or f32 queries and caches, and the
-    shared-memory tiles within the block's budget. Any head count and any T."""
+    16-byte aligned), pages of a power of 2 tokens, at least 2 (a 32-key
+    sub-tile of the f32 kernel spans at most 16 pages), bf16 or f32 queries
+    and caches, and the shared-memory tiles within the block's budget. Any
+    head count and any T."""
     if r_kv not in LATENT_DIMS or q_dtype not in DTYPES or cache_dtype not in DTYPES or n_heads < 1:
         return False
     if page_size < 2 or page_size & (page_size - 1):
@@ -70,24 +97,34 @@ def paged_mla_supported(n_heads: int, r_kv: int, r_width: int, dr: int, page_siz
     return _smem_bytes(r_kv, dr, itemsize) <= SMEM_BYTES
 
 
+def walk_facts(positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's largest position (int32 ``[B]``: its walk length less 1 and
+    its last page) and the first token holding it (int64 ``[B]``: the tokens
+    past it are padding), in one reduction on the positions' device. Any
+    token holding the max would be a safe answer (a later one only costs
+    padding work); ``torch.max`` gives the first."""
+    return torch.max(positions, dim=1)
+
+
 def mla_split_plan(batch: int, t_q: int, pages_per_seq: int, page_size: int, num_splits: int,
                    device: torch.device) -> tuple[int, int]:
     """(num_splits, key blocks per split) from static shapes only.
 
-    ``num_splits > 0`` is taken as given (clamped to the block count). Auto
+    ``num_splits > 0`` is taken as given (clamped to the block count and to
+    MAX_SPLITS: a row tile's splits are one thread block cluster). Auto
     (``<= 0``): rows of up to ``MAX_SPLIT_T`` tokens (decode, verify) split
-    the walk so the batch fills one wave of blocks over the SMs (at 32 heads
-    a token is one row tile, and a block holds one SM's shared memory);
-    longer rows walk unsplit, their row tiles fill the card already. On the
-    CPU auto is 1. A T_q = 1 decode and a verify row of a few tokens share
-    one plan, which their bitwise equality needs."""
+    the walk toward one block per SM over the batch (at 32 heads a token's
+    rows fit one row tile), at most MAX_SPLITS; longer rows walk unsplit,
+    their row tiles fill the card already. On the CPU auto is 1. A T_q = 1
+    decode and a verify row of a few tokens share one plan, which their
+    bitwise equality needs."""
     if num_splits <= 0:
         if t_q > MAX_SPLIT_T:
             num_splits = 1
         elif device.type == "cuda":
             sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
             num_splits = max(1, sms // max(1, batch))
-    return split_plan(batch, 1, pages_per_seq, page_size, num_splits, device)
+    return split_plan(batch, 1, pages_per_seq, page_size, min(num_splits, MAX_SPLITS), device)
 
 
 def paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale: float,
@@ -157,13 +194,15 @@ def check_mla_args(q_lat, q_rope, c_cache, r_cache, block_tables, positions) -> 
 
 
 def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale: float,
-              num_splits: int = 0) -> torch.Tensor:
+              num_splits: int = 0, walk: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """Paged MLA attention; returns f32 ``[B, T, H, r_kv]`` in latent space.
 
     ``q_lat [B, T, H, r_kv]``, ``q_rope [B, T, H, dr]`` (unpadded), caches
     ``[P, ps, r_kv]`` / ``[P, ps, r_width]``, ``block_tables i32[B, N]``
     (-1 tails allowed), ``positions i32[B, T]`` (any layout: causality is
-    per query token). ``num_splits`` 0 = auto (:func:`mla_split_plan`)."""
+    per query token). ``num_splits`` 0 = auto (:func:`mla_split_plan`).
+    ``walk``: ``walk_facts(positions)``, for a caller that runs several
+    layers on one step's positions; computed here when not given."""
     global launches
     if q_lat.device.type == "cpu":
         return paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions,
@@ -176,16 +215,16 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
         raise NotImplementedError(f"paged_mla kernel does not take heads={h}, r_kv={r_kv}, rope {dr} of "
                                   f"{r_width}, page size {ps}, q {q_lat.dtype}, cache {c_cache.dtype}")
     splits, bps = mla_split_plan(b, t, block_tables.shape[1], ps, num_splits, q_lat.device)
+    # A single-token row's walk facts are its one position: the kernel reads it.
+    if t == 1:
+        walk = (None, None)
+    elif walk is None:
+        walk = walk_facts(positions)
     out = torch.empty((b, t, h, r_kv), dtype=torch.float32, device=q_lat.device)
-    acc = m = l = None
-    if splits > 1:
-        acc = torch.empty((b, splits, t * h, r_kv), dtype=torch.float32, device=q_lat.device)
-        m = torch.empty((b, splits, t * h), dtype=torch.float32, device=q_lat.device)
-        l = torch.empty((b, splits, t * h), dtype=torch.float32, device=q_lat.device)
     fn = build.load("paged_mla")
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(), r_cache.data_ptr(), block_tables.data_ptr(),
-             positions.data_ptr(), *(x.data_ptr() if x is not None else None for x in (acc, m, l)), out.data_ptr(),
-             b, t, h, r_kv, dr, r_width, ps, block_tables.shape[1], splits, bps,
+             positions.data_ptr(), *(x.data_ptr() if x is not None else None for x in walk), out.data_ptr(),
+             b, t, h, r_kv, dr, r_width, ps, block_tables.shape[1], c_cache.shape[0], splits, bps,
              build.DTYPE_CODES[c_cache.dtype], build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
     build.check_launch("paged_mla", err)
     launches += 1

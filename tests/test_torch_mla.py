@@ -105,20 +105,122 @@ def test_plain_version_matches_pallas_interpret_and_gather(kind):
 
 def test_split_plan_is_static_and_the_predicate_mirrors_the_kernel():
     cpu = torch.device("cpu")
-    # Explicit splits clamp to the 64-key blocks of the table; auto is 1 on the CPU.
+    # Explicit splits clamp to the 64-key blocks of the table and to a
+    # cluster's portable size; auto is 1 on the CPU.
     assert paged_mla.mla_split_plan(8, 1, 128, 16, 5, cpu) == (5, 7)
-    assert paged_mla.mla_split_plan(8, 4, 128, 16, 50, cpu) == (32, 1)
+    assert paged_mla.mla_split_plan(8, 4, 128, 16, 50, cpu) == (paged_mla.MAX_SPLITS, 4)
     assert paged_mla.mla_split_plan(8, 512, 128, 16, 0, cpu) == (1, 32)
     kw = dict(q_dtype=torch.bfloat16, cache_dtype=torch.bfloat16)
     assert paged_mla.paged_mla_supported(32, 512, 128, 64, 16, **kw)  # mla-8b-proxy
     assert paged_mla.paged_mla_supported(4, 128, 128, 64, 32, q_dtype=torch.float32, cache_dtype=torch.float32)
     assert paged_mla.paged_mla_supported(128, 512, 128, 128, 16, **kw)
+    assert paged_mla.paged_mla_supported(32, 512, 256, 256, 16, **kw)  # 32-key stages
     assert not paged_mla.paged_mla_supported(4, 24, 128, 8, 16, **kw)  # test-tiny-mla: latent off the kernel's widths
     assert not paged_mla.paged_mla_supported(32, 512, 64, 128, 16, **kw)  # rope wider than its stream
     assert not paged_mla.paged_mla_supported(32, 512, 128, 40, 16, **kw)  # rope not a multiple of 16
     assert not paged_mla.paged_mla_supported(32, 512, 128, 64, 1, **kw)  # a tile would span 64 pages
     assert not paged_mla.paged_mla_supported(32, 512, 128, 64, 24, **kw)  # not a power of 2
-    assert not paged_mla.paged_mla_supported(32, 512, 256, 256, 16, **kw)  # tiles past the shared memory
+    assert not paged_mla.paged_mla_supported(32, 512, 512, 512, 16, **kw)  # tiles past the shared memory
+    # The bf16 layout: mla-8b-proxy's 64-key stages fill the block's budget to
+    # within a kilobyte; a rope of 128 lanes takes 32-key stages.
+    assert paged_mla._tile_keys(512, 64) == 64 and paged_mla._tile_keys(512, 128) == 32
+    assert paged_mla._smem_bytes(512, 64, 2) == 1024 + 73728 + 147456 + 8192 + 40 + 512 + 256 + 512 <= 232448
+
+
+def _earlier_smem_bytes(r_kv, dr, itemsize):
+    """The shared memory of the kernel the redesign replaced (32-row tiles,
+    two 64-key cp.async buffers): the geometries it took must stay taken."""
+    if itemsize == 2:
+        return 2 * 160 * (r_kv + dr + 8) + 4 * 32 * 65 + 2 * 32 * 72 + 4 * 3 * 32 + 4 * 36
+    return 4 * (64 * (r_kv + dr + 4) + 32 * 33 + 3 * 32) + 4 * 36
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_predicate_keeps_every_geometry_the_previous_kernel_took(dtype):
+    """Every (latent, rope, rope stream, page size) the earlier kernel took is
+    still taken: its predicate, with its shared-memory formula, over a grid."""
+    kw = dict(q_dtype=dtype, cache_dtype=dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    taken = 0
+    for r_kv in (64, 128, 256, 512):
+        for dr in range(16, 513, 16):
+            for r_width in (dr, 128, 256, 512):
+                for ps in (1, 2, 4, 8, 16, 24, 64, 256):
+                    before = (r_kv in (128, 512) and ps >= 2 and not ps & (ps - 1) and dr <= r_width
+                              and (r_width * itemsize) % 16 == 0
+                              and _earlier_smem_bytes(r_kv, dr, itemsize) <= paged_mla.SMEM_BYTES)
+                    if before:
+                        taken += 1
+                        assert paged_mla.paged_mla_supported(32, r_kv, r_width, dr, ps, **kw), (r_kv, dr, r_width, ps)
+    assert taken > 100
+
+
+def test_walk_facts_give_each_rows_walk_end_and_first_padding_token():
+    """walk_facts against numpy: max(positions) + 1 is the row's walk length,
+    and the first token holding the max marks the padding after it (ties on
+    all-zero and repeated-max rows resolve to the first)."""
+    pos = np.array([[5, 6, 7, 0, 0], [0, 0, 0, 0, 0], [3, 9, 10, 30, 0], [40, 0, 0, 0, 0], [4, 4, 4, 0, 0],
+                    [100, 101, 102, 103, 104]], np.int32)
+    walk_max, walk_first = paged_mla.walk_facts(_t(pos))
+    assert walk_max.dtype == torch.int32 and walk_first.dtype == torch.int64
+    np.testing.assert_array_equal(walk_max.numpy() + 1, pos.max(axis=1) + 1)
+    np.testing.assert_array_equal(walk_first.numpy(), [2, 0, 3, 0, 0, 4])
+    np.testing.assert_array_equal(walk_first.numpy(), np.argmax(pos == pos.max(axis=1, keepdims=True), axis=1))
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_forward_computes_the_walk_facts_once_for_every_layer(monkeypatch, t):
+    """The walk facts depend on the step's positions only: the forward
+    reduces them once and hands the same pair to every layer's paged_mla
+    call (none at T = 1, whose walk is its one position)."""
+    cfg = PRESETS["test-tiny-mla"]
+    reductions, walks = [], []
+    real_walk_facts, real_paged_mla = tllama.walk_facts, tmla.paged_mla
+
+    def counted(positions):
+        reductions.append(real_walk_facts(positions))
+        return reductions[-1]
+
+    def recorded(*args, walk=None, **kw):
+        walks.append(walk)
+        return real_paged_mla(*args, walk=walk, **kw)
+
+    monkeypatch.setattr(tllama, "walk_facts", counted)
+    monkeypatch.setattr(tmla, "paged_mla", recorded)
+    params = tllama.init_params(cfg, 0, device="cpu")
+    ps, b = 4, 2
+    kc, vc = tllama.init_kv_cache(cfg, 8, ps, device="cpu")
+    pos = np.tile(np.arange(5 - t, 5, dtype=np.int32), (b, 1))
+    tables = np.array([[1, 2], [3, 4]], np.int32)
+    slots = (tables[np.arange(b)[:, None], pos // ps] * ps + pos % ps).astype(np.int32)
+    tokens = np.ones((b, t), np.int32)
+    tllama.forward(params, cfg, _t(tokens), _t(pos), kc, vc, _t(tables), _t(slots), _t(np.full(b, t - 1, np.int32)))
+    assert len(walks) == cfg.num_layers
+    if t == 1:
+        assert reductions == [] and all(w is None for w in walks)
+    else:
+        assert len(reductions) == 1 and all(w is reductions[0] for w in walks)
+        np.testing.assert_array_equal(reductions[0][0].numpy(), pos.max(axis=1))
+
+
+@pytest.mark.parametrize("kind", sorted(CASES))
+def test_plain_version_matches_pallas_interpret_bf16(kind):
+    """The same cases on bf16 caches and queries, one split on both sides:
+    the plain version rounds q and p where the Pallas kernel (interpret mode)
+    does, so only f32 summation order differs (well under 1e-5 on O(1)
+    outputs)."""
+    t, positions = CASES[kind]
+    arrays = _mla_case(7, t=t, positions=positions)
+    q_lat, q_rope, c, r = (jnp.asarray(x).astype(jnp.bfloat16) for x in arrays[:4])
+    tables, pos = arrays[4:]
+    scale = (32 + DR) ** -0.5
+    q_rope_padded = jnp.pad(q_rope, ((0, 0), (0, 0), (0, 0), (0, R_WIDTH - DR)))
+    want = np.asarray(j_mla_kernel(q_lat, q_rope_padded, c, r, jnp.asarray(tables), jnp.asarray(pos), scale=scale,
+                                   interpret=True, num_splits=1))
+    args = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16) for x in (q_lat, q_rope, c, r)]
+    got = paged_mla.paged_mla(*args, _t(tables), _t(pos), scale=scale, num_splits=1)
+    assert got.dtype == torch.float32 and got.shape == (len(positions), t, HEADS, R_KV)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("fault", ["int64 positions", "strided q_rope", "latent width", "rope dtype", "misaligned"])
