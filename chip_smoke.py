@@ -43,6 +43,23 @@ Phases, one JSON line each; any failure exits non-zero:
               attention must have run in a kernel, and a mixed step must
               occur. llama-3.2-1b (paged_decode, paged_prefill), then, after
               it is freed, mla-8b-proxy (paged_mla).
+5. http     — ``launch.run_local``: two llama-3.2-1b workers (same seed
+              as phase 4) behind the KV router and the OpenAI frontend on
+              a free port. /v1/models, /health and /metrics; phase 4's mix
+              as 8 concurrent streamed completions over aiohttp (every
+              stream ends with [DONE], finish "length", 32 tokens; both
+              kernels launch, every step's attention in a kernel, a mixed
+              step in a worker); two bursts, the second sent once the
+              router sees the first's worker busy, so both workers must
+              step while the first decodes; a 100-token prompt sent twice,
+              the repeat routed to the worker holding its blocks with >= 32
+              cached tokens; one greedy body alone on a cold worker, whose
+              tokens (each position's logprob and top-5 alternatives,
+              bitwise) and text must equal a cold in-process service's;
+              one worker closed while the other serves a request, which
+              must finish. Reports HTTP tok/s, TTFT and ITL (SSE arrival
+              times) beside phase 4's, and one uncached request's times
+              alone on the warm server, over HTTP and in-process.
 
 Then the kernels line, the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
@@ -840,8 +857,8 @@ async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
 
 
 async def serve(model: str) -> dict:
-    """Serve the mix on ``model``; returns the launches of its kernels
-    (``SERVE_KERNELS``) over the timed requests."""
+    """Serve the mix on ``model``; returns the phase's record, which holds the
+    launches of its kernels (``SERVE_KERNELS``) over the timed requests."""
     kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[model]}
     t0 = time.perf_counter()
     service, pipeline = await build_serving(model)
@@ -878,13 +895,345 @@ async def serve(model: str) -> dict:
         raise AssertionError("no mixed prefill+decode step occurred")
     out_tokens = sum(len(r["tokens"]) for r in results)
     ttfts = sorted(r["ttft_s"] for r in results)
-    emit({"phase": "serve", "model": model, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
-          "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
-          "output_tokens_per_s": out_tokens / wall, "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts),
-                                                              "max": ttfts[-1]},
-          "engine_build_s": build_s, "kernel_launches": launches,
-          "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch})
-    return launches
+    record = {"phase": "serve", "model": model, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
+              "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
+              "output_tokens_per_s": out_tokens / wall,
+              "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts), "max": ttfts[-1]},
+              "engine_build_s": build_s, "kernel_launches": launches,
+              "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch}
+    emit(record)
+    return record
+
+
+# -- phase 5: http --------------------------------------------------------------
+
+HTTP_WORKERS = 2
+CLOSE_TOKENS = 256  # the request that outlives the other worker's close()
+
+
+async def stream_completion(session, base: str, body: dict, first_chunk: asyncio.Event | None = None) -> dict:
+    """One streamed ``/v1/completions`` request with usage: the arrival time
+    of each SSE chunk after sending, the text, finish reason and usage, the
+    legacy logprobs (``token_logprobs``, ``top_logprobs``) where the body
+    asked for them, and whether the stream ended with ``[DONE]``. Sets
+    ``first_chunk``, if given, when the first chunk arrives."""
+    sent = time.perf_counter()
+    arrivals, text, finish, usage, done = [], [], None, None, False
+    token_logprobs, top_logprobs = [], []
+    body = {**body, "stream": True, "stream_options": {"include_usage": True}}
+    async with session.post(base + "/v1/completions", json=body) as r:
+        if r.status != 200:
+            raise AssertionError(f"HTTP {r.status}: {await r.text()}")
+        async for line in r.content:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                done = True
+                continue
+            if done:
+                raise AssertionError("an SSE chunk after [DONE]")
+            doc = json.loads(payload)
+            if "error" in doc:
+                raise AssertionError(f"error event in the stream: {doc}")
+            arrivals.append(time.perf_counter() - sent)
+            if first_chunk is not None:
+                first_chunk.set()
+            choice = doc["choices"][0]
+            text.append(choice["text"])
+            if choice.get("logprobs"):
+                token_logprobs += choice["logprobs"]["token_logprobs"]
+                top_logprobs += choice["logprobs"]["top_logprobs"]
+            finish = choice["finish_reason"] or finish
+            usage = doc.get("usage") or usage
+    return {"arrivals": arrivals, "text": "".join(text), "finish": finish, "usage": usage, "done": done,
+            "total_s": time.perf_counter() - sent, "sent_at": sent, "token_logprobs": token_logprobs, "top_logprobs": top_logprobs}
+
+
+async def http_get(session, base: str, path: str):
+    async with session.get(base + path) as r:
+        if r.status != 200:
+            raise AssertionError(f"GET {path}: HTTP {r.status}")
+        return await (r.json() if r.content_type == "application/json" else r.text())
+
+
+def _metric_sum(text: str, family: str) -> tuple[float, float]:
+    """(sum, count) of a histogram family in Prometheus text."""
+    vals = {}
+    for line in text.splitlines():
+        for suffix in ("_sum", "_count"):
+            if line.startswith(family + suffix + "{") or line.startswith(family + suffix + " "):
+                vals[suffix] = vals.get(suffix, 0.0) + float(line.rsplit(" ", 1)[1])
+    return vals.get("_sum", 0.0), vals.get("_count", 0.0)
+
+
+def token_mismatch(http: dict, entries: list[dict], n: int) -> str | None:
+    """Why an HTTP stream's tokens are not those of an in-process run of the
+    same body, or None. ``http`` is a ``stream_completion`` result,
+    ``entries`` the run's ``BackendOutput.logprobs``, ``n`` the tokens both
+    must hold. Random weights over llama's 128256 ids behind the byte
+    tokenizer give almost no token text, so the text cannot tell two token
+    streams apart: each position's logprob and its top alternatives' must
+    be bitwise the in-process run's (JSON carries a float exactly)."""
+    got = http["token_logprobs"]
+    if len(entries) != n or len(got) != n or len(http["top_logprobs"]) != n:
+        return f"{len(got)} HTTP and {len(entries)} in-process logprob positions, want {n}"
+    want = [e["logprob"] for e in entries]
+    if got != want:
+        i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        return f"position {i}: HTTP logprob {got[i]!r} != in-process {want[i]!r}"
+    for i, (top, e) in enumerate(zip(http["top_logprobs"], entries)):
+        if sorted(top.values()) != sorted(t[1] for t in e["top"]):
+            return f"position {i}: HTTP top logprobs {top} != in-process {e['top']}"
+    return None
+
+
+def logprob_diff(a: list[float], b: list[float]) -> float | None:
+    """Max |a - b| over positions, None when the lengths differ."""
+    return max((abs(x - y) for x, y in zip(a, b)), default=0.0) if len(a) == len(b) else None
+
+
+async def until(probe, what: str, timeout: float = 10.0):
+    """Poll ``probe`` every 10 ms until it returns something true; return it.
+    Raises naming ``what`` after ``timeout`` seconds."""
+    for _ in range(int(timeout / 0.01)):
+        got = probe()
+        if got:
+            return got
+        await asyncio.sleep(0.01)
+    raise AssertionError(f"{what}: not seen within {timeout} s")
+
+
+async def serve_http(in_process: dict) -> dict:
+    """``run_local`` of MODEL on the card (HTTP_WORKERS workers behind the KV
+    router, the OpenAI frontend on a free port, the seed of phase 4): the
+    plain routes; phase 4's mix as concurrent streamed completions; a window
+    in which both workers step at once; a repeat prompt routed to the worker
+    holding its blocks; one greedy body on a cold worker whose tokens must
+    be a cold in-process service's; one uncached request alone on the warm
+    server, timed over HTTP and in-process; and one worker closed while the
+    other serves."""
+    import aiohttp
+
+    from dynamo_tpu_torch.launch import run_local, shutdown
+    from dynamo_tpu_torch.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+    from dynamo_tpu_torch.tracing import SPANS
+
+    kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[MODEL]}
+    rng = np.random.default_rng(5)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", dtype=np.uint8)
+    greedy = {"model": MODEL, "max_tokens": 32, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+    # Bodies whose tokens are compared ask for the 5 best alternatives'
+    # logprobs of every position (see token_mismatch).
+    cold_body = {**greedy, "prompt": bytes(rng.choice(letters, 299)).decode(), "logprobs": 5}
+    alone_body = {**cold_body, "prompt": bytes(rng.choice(letters, 299)).decode()}
+    wrng = np.random.default_rng(6)
+    long_bodies = [{**greedy, "prompt": bytes(wrng.choice(letters, 299)).decode(), "max_tokens": 160}
+                   for _ in range(4)]
+    short_bodies = [{**greedy, "prompt": bytes(wrng.choice(letters, 299)).decode()} for _ in range(4)]
+    t0 = time.perf_counter()
+    handles = await run_local(MODEL, port=0, num_workers=HTTP_WORKERS, router_mode="kv", device="cuda",
+                              **SERVE_ENGINE)
+    build_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{handles['port']}"
+    cores = [svc.core for svc in handles["services"]]
+
+    def counts() -> list[tuple[dict, int, int]]:
+        return [(dict(c.attn_dispatch_counts), c.mixed_steps, c.metrics().prompt_tokens_total) for c in cores]
+
+    def since(before: list[tuple[dict, int, int]]) -> tuple[dict, list[int], list[int], list[int]]:
+        """Attention dispatches (all workers), and per worker the steps,
+        mixed steps and prompt tokens since ``before``."""
+        dispatch, steps, mixed, prompt_tokens = {}, [], [], []
+        for core, (d0, m0, p0) in zip(cores, before):
+            for (p, k), n in core.attn_dispatch_counts.items():
+                dispatch[f"{p}/{k}"] = dispatch.get(f"{p}/{k}", 0) + n - d0.get((p, k), 0)
+            steps.append(sum(core.attn_dispatch_counts.values()) - sum(d0.values()))
+            mixed.append(core.mixed_steps - m0)
+            prompt_tokens.append(core.metrics().prompt_tokens_total - p0)
+        return dispatch, steps, mixed, prompt_tokens
+
+    try:
+        async with aiohttp.ClientSession() as session:
+            models = await http_get(session, base, "/v1/models")
+            if [m["id"] for m in models["data"]] != [MODEL]:
+                raise AssertionError(f"/v1/models lists {models}")
+            health = await http_get(session, base, "/health")
+            if health["status"] != "healthy":
+                raise AssertionError(f"/health says {health}")
+            if "dynamo_frontend_requests_total" not in await http_get(session, base, "/metrics"):
+                raise AssertionError("/metrics holds no dynamo_frontend families")
+
+            # Both workers are cold: the router sends this to one of them.
+            cold = await stream_completion(session, base, cold_body)
+            await stream_completion(session, base, {"model": MODEL, "prompt": "w" * 600, "max_tokens": 4,
+                                                    "temperature": 0.0, "nvext": {"ignore_eos": True}})
+
+            # Phase 4's mix, concurrent and streamed. Counters go to 0 just
+            # before it and are read just after.
+            bodies = serve_bodies(np.random.default_rng(3), MODEL)
+            before = counts()
+            queue0 = _metric_sum(await http_get(session, base, "/metrics"), "dynamo_frontend_request_queue_seconds")
+            for mod in kernels.values():
+                mod.launches = 0
+            start = time.perf_counter()
+            results = await asyncio.gather(*(stream_completion(session, base, b) for b in bodies))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = {name: mod.launches for name, mod in kernels.items()}
+            dispatch, _, mixed, prompt_tokens = since(before)
+            queue1 = _metric_sum(await http_get(session, base, "/metrics"), "dynamo_frontend_request_queue_seconds")
+
+            # Both workers at once. The router reads load from metrics each
+            # worker publishes every 0.5 s, so a burst lands on one worker;
+            # once the router sees that worker's pages in use, a second
+            # burst goes to the other while the first still decodes.
+            entry = handles["http"].manager.get(MODEL)
+            indexer, aggregator = entry.aux[0].indexer, entry.aux[1]
+            await until(lambda: len(snap := aggregator.snapshot()) == HTTP_WORKERS
+                        and all(m.kv_active_blocks == 0 for m in snap.values()), "both workers idle to the router")
+            window0 = counts()
+            first_burst = [asyncio.ensure_future(stream_completion(session, base, b)) for b in long_bodies]
+            busy = await until(lambda: [w for w, m in aggregator.snapshot().items() if m.kv_active_blocks > 0],
+                               "the first burst's worker busy to the router")
+            steps0 = since(window0)[1]
+            second_burst = [asyncio.ensure_future(stream_completion(session, base, b)) for b in short_bodies]
+            await asyncio.wait(first_burst, return_when=asyncio.FIRST_COMPLETED)
+            steps1 = since(window0)[1]
+            bursts = await asyncio.gather(*first_burst, *second_burst)
+            both_dispatch, _, both_mixed, both_prompt_tokens = since(window0)
+
+            # KV-aware routing: a prompt of 6 full pages, then the same again.
+            kv_body = {**greedy, "prompt": bytes(rng.choice(letters, 99)).decode(), "max_tokens": 8, "logprobs": 5}
+            hashes = compute_block_hashes(ByteTokenizer().encode(kv_body["prompt"], add_bos=True), 16)
+            first = await stream_completion(session, base, {**kv_body, "request_id": "kv-first"})
+            held = await until(lambda: {w: n for w, n in indexer.find_matches(hashes).scores.items() if n >= 3},
+                               "the prompt's blocks in the router's indexer")
+            if len(held) != 1:
+                raise AssertionError(f"the router's indexer holds the prompt's blocks on {held}")
+            (hot,) = held
+            hot_core = next(c for c in cores if c.config.worker_id == hot)
+            hits0 = hot_core.allocator.stats().hits
+            repeat = await stream_completion(session, base, {**kv_body, "request_id": "kv-repeat"})
+            decisions = [s for s in SPANS.query(request_id="kv-repeat") if s["name"] == "router_decision"]
+            cached = ((repeat["usage"] or {}).get("prompt_tokens_details") or {}).get("cached_tokens", 0)
+            # One uncached request alone on the warm, idle server.
+            alone = await stream_completion(session, base, alone_body)
+
+            # close() of one worker must not stall the other: the worker
+            # holding the KV prompt serves it again, and once its first
+            # token is out the other worker closes.
+            other = next(s for s in handles["services"] if s.core is not hot_core)
+            streaming = asyncio.Event()
+            during = asyncio.ensure_future(stream_completion(
+                session, base, {**kv_body, "max_tokens": CLOSE_TOKENS, "request_id": "kv-close"}, streaming))
+            await asyncio.wait_for(streaming.wait(), 60)
+            close_t0 = time.perf_counter()
+            await other.close()
+            close_t1 = time.perf_counter()
+            during = await asyncio.wait_for(during, 60)
+    finally:
+        await shutdown(handles)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for body, r in zip(bodies + long_bodies + short_bodies + [{**kv_body, "max_tokens": CLOSE_TOKENS}],
+                       results + bursts + [during]):
+        n_out = (r["usage"] or {}).get("completion_tokens")
+        if not r["done"] or r["finish"] != "length" or n_out != body["max_tokens"]:
+            raise AssertionError(f"stream of {len(body['prompt']) + 1} prompt tokens: [DONE] {r['done']}, "
+                                 f"finish {r['finish']}, {n_out} of {body['max_tokens']} completion tokens")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the HTTP path never launched: {launches}")
+    off_kernel = {k: n for k, n in (dispatch | both_dispatch).items() if n and not k.endswith("/kernel")}
+    if off_kernel:
+        raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
+    if max(mixed) <= 0:
+        raise AssertionError("no mixed prefill+decode step occurred in either worker")
+    stepped = [b - a for a, b in zip(steps0, steps1)]
+    if min(stepped) <= 0 or min(both_prompt_tokens) <= 0:
+        raise AssertionError(f"not both workers stepped while the first burst decoded: steps {stepped}, "
+                             f"prompt tokens {both_prompt_tokens}")
+    if [d["worker"] for d in decisions] != [f"{hot:x}"]:
+        raise AssertionError(f"the repeat prompt was routed by {decisions}, not to worker {hot:x}")
+    if hot_core.allocator.stats().hits <= hits0 or cached < 32:
+        raise AssertionError(f"the repeat prompt hit {cached} cached tokens")
+    during_at = [during["sent_at"] + a for a in during["arrivals"]]
+    if during_at[-1] <= close_t1:
+        raise AssertionError(f"the request on the worker that stays ended before the other's close() returned "
+                             f"({close_t1 - close_t0:.3f} s): nothing overlapped")
+
+    # The cold body alone through build_pipeline on a cold service of the
+    # same seed, for its tokens; then, the service warm, the alone body,
+    # timed beside the HTTP request's (one uncached request on a warm, idle
+    # server each: the per-request cost of HTTP, the router, the runtime
+    # hop, SSE).
+    service, pipeline = await build_serving(MODEL)
+    try:
+        from dynamo_tpu_torch.runtime.engine import Context
+
+        async def timed(body: dict) -> tuple[float, float, str, list[dict]]:
+            sent, ttft, pieces, entries = time.perf_counter(), None, [], []
+            async for out in pipeline.generate(dict(body), Context()):
+                if out.token_ids and ttft is None:
+                    ttft = time.perf_counter() - sent
+                pieces.append(out.text)
+                entries += out.logprobs or []
+            return ttft, time.perf_counter() - sent, "".join(pieces), entries
+
+        _, _, in_text, in_entries = await timed(cold_body)
+        in_ttft, in_total, in_alone_text, in_alone_entries = await timed(alone_body)
+    finally:
+        await service.close()
+    wrong = token_mismatch(cold, in_entries, 32)
+    if wrong or cold["text"] != in_text or cold["finish"] != "length":
+        raise AssertionError(f"the cold HTTP request's tokens are not the in-process run's: {wrong}; "
+                             f"text {cold['text']!r} vs {in_text!r}")
+
+    out_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+    ttfts = sorted(r["arrivals"][0] for r in results)
+    gaps = sorted(b - a for r in results for a, b in zip(r["arrivals"], r["arrivals"][1:]))
+    pct = lambda q: gaps[min(len(gaps) - 1, int(q * len(gaps)))]  # noqa: E731
+    q_sum, q_count = queue1[0] - queue0[0], queue1[1] - queue0[1]
+    record = {
+        "phase": "http", "model": MODEL, "workers": HTTP_WORKERS, "router_mode": "kv", "requests": len(results),
+        "prompt_tokens": SERVE_LENGTHS, "output_tokens": out_tokens, "wall_s": wall,
+        "output_tokens_per_s": out_tokens / wall,
+        "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts), "max": ttfts[-1]},
+        "itl_s": {"p50": pct(0.50), "p99": pct(0.99)},
+        "frontend_queue_s_mean": q_sum / q_count if q_count else None,
+        "in_process": {"output_tokens_per_s": in_process["output_tokens_per_s"], "ttft_s": in_process["ttft_s"],
+                       "wall_s": in_process["wall_s"]},
+        "http_minus_in_process": {"wall_s": wall - in_process["wall_s"],
+                                  "ttft_median_s": statistics.median(ttfts) - in_process["ttft_s"]["median"]},
+        "stack_build_s": build_s, "kernel_launches": launches, "engine_steps": sum(dispatch.values()),
+        "attn_dispatch_steps": dispatch, "mixed_steps_per_worker": mixed,
+        "prompt_tokens_per_worker": prompt_tokens,
+        "both_workers": {"first_burst_worker": [f"{w:x}" for w in busy], "steps_per_worker_in_window": stepped,
+                         "prompt_tokens_per_worker": both_prompt_tokens, "mixed_steps_per_worker": both_mixed,
+                         "engine_steps": sum(both_dispatch.values())},
+        "kv_routing": {"hot_worker": f"{hot:x}", "blocks_held": held[hot], "repeat_routed_to": decisions[0]["worker"],
+                       "cached_tokens": cached,
+                       "repeat_logprobs_equal": repeat["token_logprobs"] == first["token_logprobs"],
+                       "repeat_logprobs_max_abs_diff": logprob_diff(repeat["token_logprobs"],
+                                                                    first["token_logprobs"])},
+        "cold_tokens_equal_in_process": True,
+        "one_request_alone": {"prompt_tokens": len(alone_body["prompt"]) + 1, "output_tokens": 32,
+                              "http_ttft_s": alone["arrivals"][0], "http_total_s": alone["total_s"],
+                              "in_process_ttft_s": in_ttft, "in_process_total_s": in_total,
+                              "tokens_equal": token_mismatch(alone, in_alone_entries, 32) is None,
+                              "logprobs_max_abs_diff": logprob_diff(
+                                  alone["token_logprobs"], [e["logprob"] for e in in_alone_entries])},
+        "close_while_other_serves": {
+            "close_s": close_t1 - close_t0, "tokens": CLOSE_TOKENS,
+            "chunks_during_close": sum(close_t0 <= t <= close_t1 for t in during_at),
+            "gap_s": {"median": statistics.median(b - a for a, b in zip(during_at, during_at[1:])),
+                      "max": max(b - a for a, b in zip(during_at, during_at[1:]))}},
+    }
+    emit(record)
+    return record
 
 
 def main() -> int:
@@ -918,15 +1267,19 @@ def main() -> int:
     # The kernels line carries paged_mla's decode time; its prefill and
     # mixed-step times are on the kernel_timing_mla line.
     timing["paged_mla"] = mla_timings(dev)["decode"]
-    launches = {}
+    launches, served = {}, {}
     for model in (MODEL, MLA_MODEL):
         forward_check(dev, model)
         gc.collect()
         torch.cuda.empty_cache()
     for model in (MODEL, MLA_MODEL):  # each model's service is freed before the next is built
-        launches.update(asyncio.run(serve(model)))
+        served[model] = asyncio.run(serve(model))
+        launches.update(served[model]["kernel_launches"])
         gc.collect()
         torch.cuda.empty_cache()
+    asyncio.run(serve_http(served[MODEL]))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     replaces = {
         "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",

@@ -36,6 +36,7 @@ class TorchEngineService(AsyncEngine[Any, dict]):
         self._loop_task: asyncio.Task | None = None
         self._wake = asyncio.Event()
         self._closed = False
+        self.aux: list = []  # companion tasks (metrics publisher, ...) closed with us
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -49,6 +50,9 @@ class TorchEngineService(AsyncEngine[Any, dict]):
     async def close(self) -> None:
         self._closed = True
         self._wake.set()
+        for a in self.aux:
+            await a.close()
+        self.aux = []
         if self._loop_task is not None:
             self._loop_task.cancel()
             try:

@@ -1,19 +1,36 @@
-"""Entry points of the port: build an engine service for a preset, and the
-OpenAI request pipeline in front of it.
+"""Entry points of the port: build an engine service for a preset, serve it on
+the discovery runtime, and serve the OpenAI HTTP frontend in front of it
+(the counterpart of ``dynamo_tpu/launch.py``'s single-process path).
 
-:func:`build_engine_service` is the counterpart of
-``dynamo_tpu/launch.py:build_engine_service`` restricted to presets with
-random-init (seeded) or bridged parameters; :func:`build_pipeline` returns
-the ``OpenAIPreprocessor(Backend(service, tokenizer))`` chain the JAX
-frontend's model manager builds. Serving it over HTTP with the discovery
-runtime and the router in front is not ported yet.
+- :func:`build_engine_service` — the counterpart of
+  ``dynamo_tpu/launch.py:build_engine_service`` restricted to presets with
+  random-init (seeded) or bridged parameters.
+- :func:`build_pipeline` — the ``OpenAIPreprocessor(Backend(service,
+  tokenizer))`` chain over one service, in-process, with no runtime.
+- :func:`serve_worker` — one engine on a runtime endpoint with its KV event
+  stream and load metrics, and its ModelDeploymentCard published
+  (lease-bound) so frontends discover it.
+- :func:`serve_frontend` — ModelManager + ModelWatcher + OpenAI HttpService.
+- :func:`run_local` — N workers and the frontend in one process over the
+  in-memory runtime, round-robin, random or KV-routed.
+- CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
+  --router-mode kv --http-port 8080`` (``--platform cpu`` runs on the CPU).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Not ported yet: the multi-process roles (``--role``, the TCP store and
+transport), disaggregated prefill workers, the ``text`` and ``batch:``
+inputs, checkpoint directories, the worker telemetry plane, and the JAX
+build's other engine options. The command line refuses each of those
+options by name.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import logging
+from typing import Any
 
 import torch
 
@@ -22,10 +39,19 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.core import EngineConfig, EngineCore
 from dynamo_tpu_torch.engine.runner import TorchModelRunner
 from dynamo_tpu_torch.engine.service import TorchEngineService
+from dynamo_tpu_torch.frontend.http import HttpService
+from dynamo_tpu_torch.frontend.metrics import FrontendMetrics
+from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelWatcher
+from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import PRESETS
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventBroadcaster
+from dynamo_tpu_torch.router.metrics import WorkerMetricsPublisher
+from dynamo_tpu_torch.runtime.component import DistributedRuntime
 from dynamo_tpu_torch.tokenizer import BaseTokenizer, ByteTokenizer
+
+logger = logging.getLogger(__name__)
 
 CONTEXT_LENGTH_CAP = 4096  # the JAX build's preset card: min(max_position, 4096)
 
@@ -87,3 +113,219 @@ def build_pipeline(
         default_max_tokens=max(1, min(context_length // 2, 4096)),
     )
 
+
+def preset_card(model: str, config: EngineConfig, *, router_mode: str = "round_robin") -> ModelDeploymentCard:
+    """The card a worker of preset ``model`` publishes: the JAX build's preset
+    card (byte tokenizer, no chat template), with the served engine's
+    context length, page size and EOS ids."""
+    return ModelDeploymentCard(
+        name=model,
+        tokenizer="byte",
+        context_length=config.max_seq_len,
+        kv_page_size=config.page_size,
+        eos_token_ids=list(config.eos_token_ids),
+        router_mode=router_mode,
+    )
+
+
+async def serve_worker(
+    runtime: DistributedRuntime,
+    model: str,
+    *,
+    lease=None,
+    router_mode: str = "round_robin",
+    device: str | torch.device = "cuda",
+    params: dict | None = None,
+    seed: int = 0,
+    cache_dtype: torch.dtype | None = None,
+    **engine_kw: Any,
+) -> TorchEngineService:
+    """Serve the engine + KV event stream + metrics and publish the model card.
+
+    The allocator emits KV events from the executor thread that runs each
+    engine step; the broadcaster, bound to this loop, hands them over with
+    ``call_soon_threadsafe``. ``lease`` gives the worker its own instance
+    identity (several workers on one runtime); the primary lease otherwise.
+    """
+    broadcaster = KvEventBroadcaster()
+    broadcaster.bind_loop(asyncio.get_running_loop())
+    service = await build_engine_service(
+        model, device=device, params=params, seed=seed, cache_dtype=cache_dtype,
+        on_kv_event=broadcaster.publish, **engine_kw,
+    )
+    broadcaster.bind_snapshot(service.core.allocator.cache_snapshot)
+    card = preset_card(model, service.core.config, router_mode=router_mode)
+    ns, comp, ep = card.endpoint
+    component = runtime.namespace(ns).component(comp)
+    instance = await component.endpoint(ep).serve(service, metadata={"model": card.name}, lease=lease)
+    await component.endpoint(KV_EVENTS_ENDPOINT).serve(broadcaster, metadata={"model": card.name}, lease=lease)
+    # The aggregator keys load metrics by this id, and the router picks it.
+    service.core.config.worker_id = instance.lease_id
+
+    def snapshot():
+        m = service.metrics()
+        m.worker_id = instance.lease_id
+        return m
+
+    publisher = await WorkerMetricsPublisher(
+        runtime, ns, comp, instance.lease_id, snapshot, interval=0.5, lease=lease
+    ).start()
+    service.aux.append(publisher)  # closed with the service
+    card_lease = lease or await runtime.primary_lease()
+    await runtime.store.put(card.instance_key(instance.lease_id), card.to_bytes(), lease_id=card_lease.id)
+    logger.info("worker serving %s as instance %x", card.name, instance.lease_id)
+    return service
+
+
+async def serve_frontend(
+    runtime: DistributedRuntime,
+    *,
+    host: str = "0.0.0.0",
+    port: int = 8080,
+    clear_kv_hook=None,
+) -> tuple[HttpService, ModelWatcher, int]:
+    manager = ModelManager()
+    watcher = await ModelWatcher(runtime, manager).start()
+    service = HttpService(manager, metrics=FrontendMetrics(), clear_kv_hook=clear_kv_hook)
+    actual_port = await service.start(host, port)
+    return service, watcher, actual_port
+
+
+async def run_local(
+    preset: str = "test-tiny",
+    *,
+    host: str = "127.0.0.1",
+    port: int = 8080,
+    num_workers: int = 1,
+    router_mode: str = "round_robin",
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+    params: dict | None = None,
+    cache_dtype: torch.dtype | None = None,
+    **engine_kw: Any,
+) -> dict[str, Any]:
+    """Single-process serving: ``num_workers`` workers + the frontend.
+
+    Every worker takes the same ``params``, or random-inits from the same
+    ``seed``, as the JAX build's workers do. Raises without a GPU unless
+    ``device="cpu"``, before anything is started."""
+    resolve_device(device)
+    if router_mode not in ("round_robin", "random", "kv"):
+        raise ValueError(f"unknown router mode {router_mode!r} (want round_robin, random or kv)")
+    runtime = DistributedRuntime.detached()
+    services: list[TorchEngineService] = []
+    for _ in range(num_workers):
+        # Each worker needs its own lease/instance: secondary leases per worker.
+        lease = await runtime.secondary_lease() if num_workers > 1 else None
+        services.append(await serve_worker(
+            runtime, preset, lease=lease, router_mode=router_mode, device=device, params=params,
+            seed=seed, cache_dtype=cache_dtype, **engine_kw,
+        ))
+
+    def clear(core: EngineCore) -> int:
+        # Steps run in the executor under step_lock: clearing under it cannot
+        # interleave with a step's page allocation.
+        with core.step_lock:
+            return core.allocator.clear_cache()
+
+    async def clear_all() -> int:
+        loop = asyncio.get_running_loop()
+        return sum([await loop.run_in_executor(None, clear, s.core) for s in services])
+
+    http, watcher, actual_port = await serve_frontend(runtime, host=host, port=port, clear_kv_hook=clear_all)
+    return {
+        "runtime": runtime,
+        "services": services,
+        "http": http,
+        "watcher": watcher,
+        "port": actual_port,
+    }
+
+
+async def shutdown(handles: dict[str, Any]) -> None:
+    """Tear down a :func:`run_local` stack: the frontend, the watcher, the
+    frontend's models (their clients and router subscriptions), every
+    worker, then the runtime; each step isolated, in one shielded task, so a
+    Ctrl-C arriving during teardown cannot skip the later closes."""
+    manager = handles["http"].manager
+
+    async def _teardown() -> None:
+        for closer in (
+            handles["http"].stop,
+            handles["watcher"].close,
+            *(lambda name=name: manager.remove(name) for name in manager.names()),
+            *(svc.close for svc in handles["services"]),
+            handles["runtime"].close,
+        ):
+            try:
+                await closer()
+            except Exception:
+                logger.exception("teardown step %r failed", closer)
+
+    task = asyncio.ensure_future(_teardown())
+    try:
+        await asyncio.shield(task)
+    except asyncio.CancelledError:
+        if not task.done():
+            await asyncio.wait([task])
+        raise
+
+
+async def _amain(args: argparse.Namespace, *, device: str | torch.device = "cuda", seed: int = 0,
+                 params: dict | None = None) -> None:
+    handles = await run_local(
+        args.model,
+        host=args.host,
+        port=args.http_port,
+        num_workers=args.workers,
+        router_mode=args.router_mode,
+        device=args.platform or device,
+        seed=seed,
+        params=params,
+        num_pages=args.num_pages,
+        max_batch_size=args.max_batch_size,
+    )
+    logger.info("serving %s on port %d", args.model, handles["port"])
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await shutdown(handles)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX launcher's options that the port takes, with its names and
+    defaults (``--platform`` picks the port's device instead of a JAX
+    platform)."""
+    parser = argparse.ArgumentParser(description="dynamo-tpu launcher (PyTorch/CUDA port)", allow_abbrev=False)
+    parser.add_argument("--model", default="test-tiny", help=f"model preset ({', '.join(PRESETS)})")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--http-port", type=int, default=8080)
+    parser.add_argument("--workers", type=int, default=1)
+    parser.add_argument("--num-pages", type=int, default=512)
+    parser.add_argument("--max-batch-size", type=int, default=64)
+    parser.add_argument("--router-mode", default="round_robin", choices=["round_robin", "random", "kv"])
+    parser.add_argument("--role", default="local", choices=["local"],
+                        help="only 'local' (workers and frontend in this process) is ported")
+    parser.add_argument("--input", default="http", choices=["http"], help="only 'http' is ported")
+    parser.add_argument("--platform", default=None, choices=["cuda", "cpu"],
+                        help="device to serve on (default: the card)")
+    return parser
+
+
+def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda", seed: int = 0,
+         params: dict | None = None) -> None:
+    """``python -m dynamo_tpu_torch.launch``: serve until interrupted.
+
+    An option of the JAX launcher that the port does not take yet (``--mesh``,
+    ``--store``, ``--prefill-workers``, ...) is refused by name, never
+    ignored. ``device``, ``seed`` and ``params`` are for callers in Python."""
+    parser = build_parser()
+    args, unknown = parser.parse_known_args(argv)
+    if unknown:
+        parser.error(f"not supported by dynamo_tpu_torch yet: {' '.join(unknown)}")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    asyncio.run(_amain(args, device=device, seed=seed, params=params))
+
+
+if __name__ == "__main__":
+    main()

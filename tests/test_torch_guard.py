@@ -68,3 +68,21 @@ def test_runner_on_the_card_refuses_a_geometry_the_kernels_do_not_take(monkeypat
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(NotImplementedError, match="head_dim=16"):
         TorchModelRunner(PRESETS["test-tiny"], {}, num_pages=4, page_size=4, device="cuda")
+
+
+def test_serving_entry_points_default_to_the_card_and_refuse_without_one(monkeypatch, capsys):
+    """run_local and the command line serve on the card unless asked for the
+    CPU, and fail before anything is started without one."""
+    from dynamo_tpu_torch import launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(launch.run_local("test-tiny", port=0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--model", "test-tiny", "--http-port", "0"])
+    with pytest.raises(SystemExit):  # a JAX launcher option the port does not take is refused, not ignored
+        launch.main(["--model", "test-tiny", "--mesh", "auto", "--platform", "cpu"])
+    assert "not supported by dynamo_tpu_torch yet: --mesh auto" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        launch.main(["--role", "frontend", "--platform", "cpu"])
+    assert "--role" in capsys.readouterr().err
