@@ -3,10 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits non-zero:
+Phases, one JSON line each (with ``t_s``, seconds since the start); any
+failure exits non-zero:
 
 1. build    — compile every CUDA kernel of the serving paths from ``csrc/``,
               one nvcc per source, all started together.
+   fp8_casts, sampling — the fp8 cache write (``to_fp8_like_jax``) on
+              the card bitwise the CPU's over all 65,536 bf16 patterns, the
+              kernels' on-chip e4m3 -> bf16 conversion over all 256 codes;
+              seeded sampling's threefry words, Gumbel noise and tokens on
+              the card against the CPU's draw.
 2. kernels  — hold each kernel against its plain PyTorch version. GQA
               (paged_decode, paged_prefill): the llama-3.2-1b (32/8 heads,
               hd 64), llama-3-8b (32/8, hd 128) and a GQA group of 8
@@ -32,17 +38,27 @@ Phases, one JSON line each; any failure exits non-zero:
               wrapper's host µs per call; the GQA kernels also at hd 128
               (llama-3-8b's 32/8 heads), both prefill kernels also at the
               serve's mixed-step shape. Every comparison is per row,
-              relative to the row's largest plain output.
+              relative to the row's largest plain output. The fp8 forms
+              (phases "kernels_fp8", "kernels_mla_fp8") the same way on
+              fp8 caches with bf16 and f32 queries (``fp8_kernel_checks``,
+              ``fp8_mla_kernel_checks``), and timed beside bf16, with no
+              library yardstick (none attends over fp8 K/V).
 3. forward  — one prefill and one decode step at full width, with the
-              kernels and with the plain attention, same inputs; logits
-              compared: llama-3.2-1b, then mla-8b-proxy.
-4. serve    — ``build_engine_service`` (random init, bf16) behind
+              kernels and with plain attention, same inputs; logits
+              compared: llama-3.2-1b, then mla-8b-proxy, each on a bf16 and
+              an fp8 cache; plain attention is the gather reference but
+              for mla-8b-proxy on fp8, where it is the kernels' plain
+              versions.
+4. serve    — ``build_engine_service`` (random init, bf16 weights) behind
               ``build_pipeline``: 8 concurrent OpenAI completion requests,
               prompts of 16..1500 tokens, 32 tokens each; the model's
               kernels' launch counts must be > 0, every engine step's
               attention must have run in a kernel, and a mixed step must
               occur. llama-3.2-1b (paged_decode, paged_prefill), then, after
-              it is freed, mla-8b-proxy (paged_mla).
+              it is freed, mla-8b-proxy (paged_mla); each on a bf16 and an
+              fp8 cache (launch counts ``<kernel>_fp8``). Every draw the
+              card makes for the mix's seeded request is replayed on the
+              CPU (``record_draws``, ``replay_draws``): tokens equal.
 5. http     — ``launch.run_local``: two llama-3.2-1b workers (same seed
               as phase 4) behind the KV router and the OpenAI frontend on
               a free port. /v1/models, /health and /metrics; phase 4's mix
@@ -68,6 +84,7 @@ Then the kernels line, the card's name and power limit, and the last line
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import importlib
 import json
@@ -82,6 +99,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+FP8 = torch.float8_e4m3fn  # the fp8 KV cache (launch --kv-cache-dtype fp8)
 MODEL = "llama-3.2-1b"
 MLA_MODEL = "mla-8b-proxy"
 SERVE_KERNELS = {MODEL: ("paged_decode", "paged_prefill"), MLA_MODEL: ("paged_mla",)}
@@ -98,8 +116,12 @@ SERVE_ENGINE = dict(num_pages=2048, max_batch_size=16)
 MIXED_SPANS = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, rows, dtype: torch.dtype) -> float:
@@ -217,13 +239,23 @@ def _tables(rng, dev, pos: np.ndarray, *, layers: int, npp: int, ps: int) -> tor
     return tables
 
 
-def _case(rng, dev, *, b, t, h, n_kv, hd, ps, npp, dtype, lengths, contiguous, layers=1):
-    """Random paged caches + tables with -1 tails past each row's used pages."""
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``; to fp8 as the port's cache writes cast (JAX's cast)."""
+    if dtype == FP8:
+        from dynamo_tpu_torch.ops.attention import to_fp8_like_jax
+
+        return to_fp8_like_jax(x)
+    return x.to(dtype)
+
+
+def _case(rng, dev, *, b, t, h, n_kv, hd, ps, npp, dtype, lengths, contiguous, layers=1, q_dtype=None):
+    """Random paged caches (``dtype``) + queries (``q_dtype``, else ``dtype``)
+    + tables with -1 tails past each row's used pages."""
     w = n_kv * hd
     pages = layers * b * npp + 1
-    kc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
-    vc = torch.randn((pages, ps, w), generator=rng, device=dev).to(dtype)
-    q = torch.randn((b, t, h, hd), generator=rng, device=dev).to(dtype)
+    kc = _cast(torch.randn((pages, ps, w), generator=rng, device=dev), dtype)
+    vc = _cast(torch.randn((pages, ps, w), generator=rng, device=dev), dtype)
+    q = torch.randn((b, t, h, hd), generator=rng, device=dev).to(q_dtype or dtype)
     pos = _positions(lengths, t, contiguous)
     tb = _tables(rng, dev, pos, layers=layers, npp=npp, ps=ps)
     return q, kc, vc, tb, torch.from_numpy(pos).to(dev), pos
@@ -289,9 +321,9 @@ def kernel_checks(dev) -> dict:
     return errs
 
 
-def mixed_step_check(dev, rng) -> float:
+def mixed_step_check(dev, rng, cache: torch.dtype = torch.bfloat16) -> float:
     """The prefill kernel at a mixed step of the serve phase: llama-3.2-1b
-    geometry in bf16, 16-token pages, a batch of 8 on 128-page tables, the
+    geometry with bf16 queries on a ``cache`` cache, 16-token pages, a batch of 8 on 128-page tables, the
     step's 512-token bucket holding a chunk after 1024 cached tokens, a
     whole 512-token chunk from 0, a short last chunk, and 1-token decode rows
     (start = kv_len - 1) of up to 1531 tokens."""
@@ -300,11 +332,12 @@ def mixed_step_check(dev, rng) -> float:
     h, n_kv, hd, ps, t, npp = 32, 8, 64, 16, 512, 128
     spans = MIXED_SPANS
     q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
-                                dtype=torch.bfloat16, lengths=[s + n for s, n in spans], contiguous=True)
+                                dtype=cache, lengths=[s + n for s, n in spans], contiguous=True,
+                                q_dtype=torch.bfloat16)
     pos = torch.from_numpy(_spans(spans, t)).to(dev)
     got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=hd**-0.5)
     want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=hd**-0.5)
-    return compare("prefill mixed step (serve shape)", got, want,
+    return compare(f"prefill mixed step (serve shape, {cache} cache)", got, want,
                    [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16)
 
 
@@ -314,9 +347,10 @@ def _mla_case(rng, dev, pos: np.ndarray, *, h, r_kv, dr, r_width, ps, npp, dtype
     tables with -1 tails."""
     b, t = pos.shape
     pages = layers * b * npp + 1
-    c = torch.randn((pages, ps, r_kv), generator=rng, device=dev).to(dtype)
-    r = torch.zeros((pages, ps, r_width), device=dev, dtype=dtype)
-    r[..., :dr] = torch.randn((pages, ps, dr), generator=rng, device=dev).to(dtype)
+    c = _cast(torch.randn((pages, ps, r_kv), generator=rng, device=dev), dtype)
+    r = torch.zeros((pages, ps, r_width), device=dev)
+    r[..., :dr] = torch.randn((pages, ps, dr), generator=rng, device=dev)
+    r = _cast(r, dtype)
     q_lat = torch.randn((b, t, h, r_kv), generator=rng, device=dev).to(q_dtype or dtype)
     q_rope = torch.randn((b, t, h, dr), generator=rng, device=dev).to(q_dtype or dtype)
     tables = _tables(rng, dev, pos, layers=layers, npp=npp, ps=ps)
@@ -428,9 +462,9 @@ def mla_kernel_checks(dev) -> dict:
     return errs
 
 
-def mla_mixed_step_check(dev, rng) -> float:
+def mla_mixed_step_check(dev, rng, cache: torch.dtype = torch.bfloat16) -> float:
     """paged_mla at a mixed step of the MLA serve phase: mla-8b-proxy
-    geometry in bf16, 16-token pages, a batch of 8 on 128-page tables, the
+    geometry with bf16 queries on a ``cache`` cache, 16-token pages, a batch of 8 on 128-page tables, the
     512-token bucket holding a chunk after 1024 cached tokens, a whole chunk
     from 0, a short last chunk and 1-token decode rows of up to 1531 tokens."""
     from dynamo_tpu_torch.ops import paged_mla as pm
@@ -438,12 +472,12 @@ def mla_mixed_step_check(dev, rng) -> float:
     h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
     spans = MIXED_SPANS
     case = _mla_case(rng, dev, _spans(spans, 512), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=128,
-                     dtype=torch.bfloat16)
+                     dtype=cache, q_dtype=torch.bfloat16)
     case = (*case[:4], case[4][0], case[5])
     got = pm.paged_mla(*case, scale=(dn + dr) ** -0.5)
     want = pm.paged_mla_plain(*case, scale=(dn + dr) ** -0.5)
-    return compare("mla mixed step (serve shape)", got, want, [(i, n) for i, (_, n) in enumerate(spans)],
-                   torch.bfloat16)
+    return compare(f"mla mixed step (serve shape, {cache} cache)", got, want,
+                   [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16)
 
 
 def folded_sdpa(q_lat, q_rope, kg, vg, mask, scale):
@@ -480,23 +514,25 @@ def folded_sdpa(q_lat, q_rope, kg, vg, mask, scale):
     raise RuntimeError(f"no SDPA backend takes the folded MLA shapes: {refusals}")
 
 
-def mla_timings(dev) -> dict:
-    """paged_mla at the MLA main path's shapes (mla-8b-proxy, bf16, 16-token
-    pages): decode at batch 8 over 2048-token contexts on 128-page tables
+def mla_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
+    """paged_mla at the MLA main path's shapes (mla-8b-proxy, bf16 queries on
+    a ``cache`` cache, 16-token pages): decode at batch 8 over 2048-token contexts on 128-page tables
     (the serve phase's table width, so the same split plan), a 512-token
     chunk after 1024 cached tokens, and the serve's mixed step
     (``mla_mixed_step_timing``); each held against its plain version on the
     timed inputs first. The library yardstick is ``folded_sdpa``: no mask at
     full-context decode, the per-row horizon mask at prefill and the mixed
-    step. Beside the device times, the wrapper's host µs per call. At T > 1
-    the walk facts are computed once beforehand, as the forward computes them
+    step; an fp8 cache has none (no PyTorch call attends over fp8 latents).
+    Beside the device times, the wrapper's host µs per call. At T > 1 the
+    walk facts are computed once beforehand, as the forward computes them
     once per step for all its layers."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     rng = torch.Generator(device=dev).manual_seed(11)
     h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
     ps, dtype, scale = 16, torch.bfloat16, (dn + dr) ** -0.5
-    dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=dtype)
+    dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=cache, q_dtype=dtype)
+    isz, tag = cache.itemsize, str(cache).removeprefix("torch.")
 
     out = {}
     # Decode: 4 layers' worth of distinct pages (4 x 21 MB > the 50 MB L2),
@@ -511,18 +547,19 @@ def mla_timings(dev) -> dict:
                       pm.paged_mla(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
                       pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[i], posd, scale=scale),
                       [(row, 1) for row in range(b)], dtype) for i in range(layers))
-    kv = [_mla_gathered(c, r, tbs[i], dr) for i in range(layers)]
-    libs = [folded_sdpa(q_lat, q_rope, kv[i][0], kv[i][1], None, scale) for i in range(layers)]
-    nbytes = (b * ctx * (r_kv + dr) * 2  # latent + rope lanes, read once
+    kv = [_mla_gathered(c, r, tbs[i], dr) for i in range(layers)] if cache == dtype else []
+    libs = [folded_sdpa(q_lat, q_rope, kv[i][0], kv[i][1], None, scale) for i in range(len(kv))]
+    nbytes = (b * ctx * (r_kv + dr) * isz  # latent + rope lanes, read once
               + b * h * (r_kv + dr) * 2 + b * h * r_kv * 4  # queries in, f32 latent out
               + b * npp * 4 + b * 4)  # tables, positions
     flops = 2 * b * h * ctx * (r_kv + dr) + 2 * b * h * ctx * r_kv
     kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale)
     out["decode"] = _mla_entry(
         kern, lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tbs[next(it) % layers], posd, scale=scale),
-        lambda: libs[next(it) % layers][0](), nbytes, flops, 50,
-        shape=f"B={b} ctx={ctx} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
-        max_abs_err=err, splits=pm.mla_split_plan(b, 1, npp, ps, 0, dev), library_backend=libs[0][1],
+        (lambda: libs[next(it) % layers][0]()) if libs else None, nbytes, flops, 50,
+        shape=f"B={b} ctx={ctx} heads={h} r_kv={r_kv} rope={dr}/{r_width} {tag} page={ps}",
+        max_abs_err=err, splits=pm.mla_split_plan(b, 1, npp, ps, 0, dev),
+        library_backend=libs[0][1] if libs else None,
         device_us_by_kernel=device_us_by_kernel(kern), host_us_per_call=host_us(kern))
     del q_lat, q_rope, c, r, kv, libs
 
@@ -537,18 +574,20 @@ def mla_timings(dev) -> dict:
     kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk)
     plain = lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tb0, posd, scale=scale)
     err = compare("mla prefill timing inputs", kern(), plain(), [(0, t)], dtype)
-    kg, vg = _mla_gathered(c, r, tb0, dr)
-    lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, kv_len), scale)
+    lib, backend = None, None
+    if cache == dtype:
+        kg, vg = _mla_gathered(c, r, tb0, dr)
+        lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, kv_len), scale)
     pairs = t * start + t * (t + 1) // 2  # causal (query, key) pairs
-    nbytes = kv_len * (r_kv + dr) * 2 + t * h * (r_kv + dr) * 2 + t * h * r_kv * 4 + npp * 4 + t * 4
+    nbytes = kv_len * (r_kv + dr) * isz + t * h * (r_kv + dr) * 2 + t * h * r_kv * 4 + npp * 4 + t * 4
     flops = 2 * h * pairs * (r_kv + dr) + 2 * h * pairs * r_kv
     out["prefill"] = _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
-                                shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 "
+                                shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} {tag} "
                                       f"page={ps}",
                                 device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
-    del q_lat, q_rope, c, r, kg, vg, lib
-    out["mixed_step"] = mla_mixed_step_timing(dev, rng)
-    emit({"phase": "kernel_timing_mla", **out})
+    del q_lat, q_rope, c, r, lib
+    out["mixed_step"] = mla_mixed_step_timing(dev, rng, cache)
+    emit({"phase": "kernel_timing_mla" if cache == dtype else f"kernel_timing_mla_{tag}", **out})
     return out
 
 
@@ -570,45 +609,51 @@ def _mla_horizon_mask(pos, h, s):
 
 
 def _mla_entry(kern, plain, lib, nbytes, flops, iters, **extra):
-    return dict(ms=time_ms(kern, iters=iters), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=iters),
+    return dict(ms=time_ms(kern, iters=iters), plain_ms=time_ms(plain, iters=3),
+                library_ms=time_ms(lib, iters=iters) if lib is not None else None,
                 bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", **extra)
 
 
-def mla_mixed_step_timing(dev, rng) -> dict:
+def mla_mixed_step_timing(dev, rng, cache: torch.dtype = torch.bfloat16) -> dict:
     """paged_mla at the serve's mixed-step shape (``mla_mixed_step_check``'s
-    spans: mla-8b-proxy geometry, bf16, a batch of 8 in a 512-token bucket on
-    128-page tables, five of the rows 1-token decode rows), held against its
-    plain version first. The yardstick is ``folded_sdpa`` over each row's
-    whole table with the per-row horizon mask."""
+    spans: mla-8b-proxy geometry, bf16 queries on a ``cache`` cache, a batch
+    of 8 in a 512-token bucket on 128-page tables, five of the rows 1-token
+    decode rows), held against its plain version first. The yardstick (bf16
+    caches only) is ``folded_sdpa`` over each row's whole table with the
+    per-row horizon mask."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
     ps, t, npp, scale = 16, 512, 128, (dn + dr) ** -0.5
     spans = MIXED_SPANS
     q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, _spans(spans, t), h=h, r_kv=r_kv, dr=dr, r_width=r_width,
-                                             ps=ps, npp=npp, dtype=torch.bfloat16)
+                                             ps=ps, npp=npp, dtype=cache, q_dtype=torch.bfloat16)
     tb0 = tb[0].contiguous()
     walk = pm.walk_facts(posd)
     kern = lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk)
     plain = lambda: pm.paged_mla_plain(q_lat, q_rope, c, r, tb0, posd, scale=scale)
     err = compare("mla mixed-step timing inputs", kern(), plain(), [(i, n) for i, (_, n) in enumerate(spans)],
                   torch.bfloat16)
-    kg, vg = _mla_gathered(c, r, tb0, dr)
-    lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, npp * ps), scale)
+    lib, backend = None, None
+    if cache == torch.bfloat16:
+        kg, vg = _mla_gathered(c, r, tb0, dr)
+        lib, backend = folded_sdpa(q_lat, q_rope, kg, vg, _mla_horizon_mask(posd, h, npp * ps), scale)
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in spans)
-    nbytes = (sum((s + n) * (r_kv + dr) * 2 for s, n in spans)  # each row's latents + rope lanes, read once
+    nbytes = (sum((s + n) * (r_kv + dr) * cache.itemsize for s, n in spans)  # each row's latents + rope lanes, once
               + sum(n * h * ((r_kv + dr) * 2 + r_kv * 4) for _, n in spans)  # real queries in, f32 latent out
               + len(spans) * (npp * 4 + t * 4))  # tables, positions
     flops = 2 * h * pairs * (r_kv + dr) + 2 * h * pairs * r_kv
     return _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
-                      shape=f"B=8 T={t} spans={spans} heads={h} r_kv={r_kv} rope={dr}/{r_width} bf16 page={ps}",
+                      shape=f"B=8 T={t} spans={spans} heads={h} r_kv={r_kv} rope={dr}/{r_width} "
+                            f"{str(cache).removeprefix('torch.')} page={ps}",
                       device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
 
 
-def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
-    """paged_decode and paged_prefill at one GQA geometry (bf16, 16-token
-    pages): decode at batch 8 over 2048-token contexts on 128-page tables
+def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int, cache: torch.dtype = torch.bfloat16) -> dict:
+    """paged_decode and paged_prefill at one GQA geometry (bf16 queries on a
+    ``cache`` cache, 16-token pages; the SDPA yardstick for bf16 caches
+    only: no PyTorch call attends over fp8 K/V): decode at batch 8 over 2048-token contexts on 128-page tables
     (the serve phase's table width, so the same split plan), prefill of a
     512-token chunk after 1024 cached tokens. Before timing, each kernel's
     output on the timed inputs is held against its plain version's. Beside
@@ -622,7 +667,8 @@ def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
 
     ps, dtype = 16, torch.bfloat16
     scale = hd**-0.5
-    geom = f"heads={h}/{n_kv} hd={hd} bf16 page={ps}"
+    isz = cache.itemsize
+    geom = f"heads={h}/{n_kv} hd={hd} {str(cache).removeprefix('torch.')} page={ps}"
     out = {}
 
     # Decode: 4 layers' worth of distinct pages (4 x 33.6 MB at hd 64 > the
@@ -630,8 +676,8 @@ def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
     # serving step does.
     b, ctx, layers = 8, 2048, 4
     npp = ctx // ps
-    q, kc, vc, tb, pos, _ = _case(rng, dev, b=b, t=1, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=dtype,
-                                  lengths=[ctx] * b, contiguous=True, layers=layers)
+    q, kc, vc, tb, pos, _ = _case(rng, dev, b=b, t=1, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=cache,
+                                  lengths=[ctx] * b, contiguous=True, layers=layers, q_dtype=dtype)
     tbs = [tb[i].contiguous() for i in range(layers)]
     it = iter(range(10**9))
     kern = lambda: pd.paged_decode_attention(q, kc, vc, tbs[next(it) % layers], pos, scale=scale)
@@ -640,45 +686,51 @@ def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
                       pd.paged_decode_attention(q, kc, vc, tbs[i], pos, scale=scale),
                       pd.paged_decode_plain(q, kc, vc, tbs[i], pos, scale=scale), [(r, 1) for r in range(b)], dtype)
               for i in range(layers))
-    kg = [gather_pages(kc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
-    vg = [gather_pages(vc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
-    qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, 1, hd]
-    lib = lambda: (lambda i: F.scaled_dot_product_attention(qg, kg[i], vg[i], scale=scale, enable_gqa=True))(
-        next(it) % layers)
-    nbytes = (2 * b * ctx * n_kv * hd * 2  # K and V strips, read once
+    lib = None
+    if cache == dtype:
+        kg = [gather_pages(kc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
+        vg = [gather_pages(vc, tbs[i], n_kv).permute(0, 2, 1, 3).contiguous() for i in range(layers)]
+        qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, 1, hd]
+        lib = lambda: (lambda i: F.scaled_dot_product_attention(qg, kg[i], vg[i], scale=scale, enable_gqa=True))(
+            next(it) % layers)
+    nbytes = (2 * b * ctx * n_kv * hd * isz  # K and V strips, read once
               + 2 * b * h * hd * 2  # q in, out
               + b * npp * 4 + b * 4)  # tables, positions
     flops = 4 * b * h * ctx * hd
     out["paged_decode"] = dict(
-        ms=time_ms(kern, iters=50), plain_ms=time_ms(plain, iters=5), library_ms=time_ms(lib, iters=50),
+        ms=time_ms(kern, iters=50), plain_ms=time_ms(plain, iters=5),
+        library_ms=time_ms(lib, iters=50) if lib else None,
         host_us_per_call=host_us(kern),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
         shape=f"B={b} ctx={ctx} {geom}", max_abs_err=err,
         splits=pd.decode_split_plan(b, n_kv, npp, ps, 0, q.device), device_us_by_kernel=device_us_by_kernel(kern),
     )
-    del q, kc, vc, kg, vg
+    del q, kc, vc, lib
 
     # Prefill: one 512-token chunk at positions 1024..1535.
     start, t = 1024, 512
     kv_len = start + t
     npp = kv_len // ps
-    q, kc, vc, tb, pos, _ = _case(rng, dev, b=1, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=dtype,
-                                  lengths=[kv_len], contiguous=True)
+    q, kc, vc, tb, pos, _ = _case(rng, dev, b=1, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=cache,
+                                  lengths=[kv_len], contiguous=True, q_dtype=dtype)
     tb0 = tb[0].contiguous()
     kern = lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=scale)
     plain = lambda: pp.paged_prefill_plain(q, kc, vc, tb0, pos, scale=scale)
     err = compare(f"prefill timing inputs, {geom}", kern(), plain(), [(0, t)], dtype)
-    kgp = gather_pages(kc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
-    vgp = gather_pages(vc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
-    qgp = q.permute(0, 2, 1, 3).contiguous()
-    causal = (torch.arange(kv_len, device=dev)[None, :] <= (start + torch.arange(t, device=dev))[:, None])
-    lib = lambda: F.scaled_dot_product_attention(qgp, kgp, vgp, attn_mask=causal, scale=scale, enable_gqa=True)
+    lib = None
+    if cache == dtype:
+        kgp = gather_pages(kc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
+        vgp = gather_pages(vc, tb0, n_kv).permute(0, 2, 1, 3).contiguous()
+        qgp = q.permute(0, 2, 1, 3).contiguous()
+        causal = (torch.arange(kv_len, device=dev)[None, :] <= (start + torch.arange(t, device=dev))[:, None])
+        lib = lambda: F.scaled_dot_product_attention(qgp, kgp, vgp, attn_mask=causal, scale=scale, enable_gqa=True)
     pairs = t * start + t * (t + 1) // 2  # causal (query, key) pairs
-    nbytes = 2 * kv_len * n_kv * hd * 2 + 2 * t * h * hd * 2 + npp * 4 + t * 4
+    nbytes = 2 * kv_len * n_kv * hd * isz + 2 * t * h * hd * 2 + npp * 4 + t * 4
     flops = 4 * pairs * h * hd
     out["paged_prefill"] = dict(
-        ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=20),
+        ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3),
+        library_ms=time_ms(lib, iters=20) if lib else None,
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
         shape=f"B=1 T={t} start={start} {geom}", max_abs_err=err, host_us_per_call=host_us(kern),
@@ -687,11 +739,11 @@ def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int) -> dict:
     return out
 
 
-def mixed_step_timing(dev, rng) -> dict:
+def mixed_step_timing(dev, rng, cache: torch.dtype = torch.bfloat16) -> dict:
     """paged_prefill at the serve's mixed-step shape (``mixed_step_check``'s
-    spans: llama-3.2-1b geometry, bf16, a batch of 8 in a 512-token bucket on
-    128-page tables, five of the rows 1-token decode rows). The library
-    yardstick is one SDPA call over each row's gathered K/V (its whole
+    spans: llama-3.2-1b geometry, bf16 queries on a ``cache`` cache, a batch
+    of 8 in a 512-token bucket on 128-page tables, five of the rows 1-token
+    decode rows). The library yardstick (bf16 caches only) is one SDPA call over each row's gathered K/V (its whole
     128-page table, KV heads repeated to the query heads before timing) with
     the boolean mask ``kpos <= qpos & kpos < kv_len``."""
     import torch.nn.functional as F
@@ -702,7 +754,8 @@ def mixed_step_timing(dev, rng) -> dict:
     h, n_kv, hd, ps, t, npp = 32, 8, 64, 16, 512, 128
     spans = MIXED_SPANS
     q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
-                                dtype=torch.bfloat16, lengths=[s + n for s, n in spans], contiguous=True)
+                                dtype=cache, lengths=[s + n for s, n in spans], contiguous=True,
+                                q_dtype=torch.bfloat16)
     pos = torch.from_numpy(_spans(spans, t)).to(dev)
     tb0 = tb[0].contiguous()
     scale = hd**-0.5
@@ -710,52 +763,271 @@ def mixed_step_timing(dev, rng) -> dict:
     plain = lambda: pp.paged_prefill_plain(q, kc, vc, tb0, pos, scale=scale)
     err = compare("prefill mixed-step timing inputs", kern(), plain(), [(i, n) for i, (_, n) in enumerate(spans)],
                   torch.bfloat16)
-    g = h // n_kv
-    kg = gather_pages(kc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
-    vg = gather_pages(vc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
-    qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, T, hd]
-    kpos = torch.arange(npp * ps, device=dev)
-    kv_len = pos.amax(dim=1) + 1
-    mask = ((kpos[None, None, :] <= pos[:, :, None]) & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
-    lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    lib = None
+    if cache == torch.bfloat16:
+        g = h // n_kv
+        kg = gather_pages(kc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+        vg = gather_pages(vc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+        qg = q.permute(0, 2, 1, 3).contiguous()  # [B, H, T, hd]
+        kpos = torch.arange(npp * ps, device=dev)
+        kv_len = pos.amax(dim=1) + 1
+        mask = ((kpos[None, None, :] <= pos[:, :, None]) & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+        lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
     kv_lens = [s + n for s, n in spans]
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in spans)
-    nbytes = (sum(2 * kv * n_kv * hd * 2 for kv in kv_lens) + sum(2 * n * h * hd * 2 for _, n in spans)
+    nbytes = (sum(2 * kv * n_kv * hd * cache.itemsize for kv in kv_lens) + sum(2 * n * h * hd * 2 for _, n in spans)
               + len(spans) * (npp * 4 + t * 4))
     flops = 4 * pairs * h * hd
-    return dict(ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3), library_ms=time_ms(lib, iters=20),
+    return dict(ms=time_ms(kern, iters=20), plain_ms=time_ms(plain, iters=3),
+                library_ms=time_ms(lib, iters=20) if lib else None,
                 bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-                shape=f"B=8 T={t} spans={spans} heads={h}/{n_kv} hd={hd} bf16 page={ps}", max_abs_err=err,
+                shape=f"B=8 T={t} spans={spans} heads={h}/{n_kv} hd={hd} {str(cache).removeprefix('torch.')} "
+                      f"page={ps}", max_abs_err=err, host_us_per_call=host_us(kern),
                 device_us_by_kernel=device_us_by_kernel(kern, 5))
 
 
-def kernel_timings(dev) -> dict:
+def kernel_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
     """Each GQA kernel at the main path's geometry (llama-3.2-1b: 32/8 heads,
     hd 64) and at llama-3-8b's (32/8, hd 128), and the prefill kernel at the
-    serve's mixed-step shape. Returns the main geometry's entries."""
+    serve's mixed-step shape, on a ``cache`` cache. Returns the main
+    geometry's entries."""
     rng = torch.Generator(device=dev).manual_seed(1)
-    out = _gqa_timings(dev, rng, 32, 8, 64)
-    hd128 = _gqa_timings(dev, rng, 32, 8, 128)
-    emit({"phase": "kernel_timing", **out, "paged_prefill_mixed_step": mixed_step_timing(dev, rng),
-          "hd128": hd128})
+    out = _gqa_timings(dev, rng, 32, 8, 64, cache)
+    hd128 = _gqa_timings(dev, rng, 32, 8, 128, cache)
+    tag = str(cache).removeprefix("torch.")
+    emit({"phase": "kernel_timing" if cache == torch.bfloat16 else f"kernel_timing_{tag}", **out,
+          "paged_prefill_mixed_step": mixed_step_timing(dev, rng, cache), "hd128": hd128})
     return out
+
+
+# -- fp8 caches: casts, sampling, the kernels' fp8 forms ----------------------------
+
+
+def fp8_cast_checks(dev) -> dict:
+    """The fp8 cache write and the kernels' on-chip conversion on the card:
+    ``to_fp8_like_jax`` over all 65,536 bf16 patterns, bitwise the same
+    function on the CPU (JAX's cast, tests/test_torch_fp8.py); all 256 e4m3
+    codes through the kernels' conversion (``fp8x8_to_bf16x8``, the
+    ``fp8_convert`` library), bitwise torch's CPU ``.to(bfloat16)``, a NaN
+    compared as a NaN."""
+    from dynamo_tpu_torch.ops import build
+    from dynamo_tpu_torch.ops.attention import to_fp8_like_jax
+
+    pats = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    cpu = to_fp8_like_jax(pats).view(torch.uint8)
+    card = to_fp8_like_jax(pats.to(dev)).view(torch.uint8).cpu()
+    cast_mismatch = int((cpu != card).sum())
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    want = codes.view(FP8).to(torch.bfloat16)
+    src = codes.to(dev)
+    out = torch.empty(256, dtype=torch.bfloat16, device=dev)
+    build.check_launch("fp8_convert", build.load("fp8_convert")(src.data_ptr(), out.data_ptr(), 256,
+                                                                 build.stream_of(out)))
+    got = out.cpu()
+    same = (got.view(torch.int16) == want.view(torch.int16)) | (torch.isnan(got) & torch.isnan(want))
+    record = {"phase": "fp8_casts", "bf16_patterns": int(pats.numel()), "cast_mismatches": cast_mismatch,
+              "e4m3_codes": 256, "conversion_mismatches": int((~same).sum()),
+              "nan_codes": int(torch.isnan(want).sum())}
+    emit(record)
+    if cast_mismatch or record["conversion_mismatches"]:
+        raise AssertionError(f"fp8 casts on the card differ: {record}")
+    return record
+
+
+def sampling_check(dev) -> dict:
+    """Seeded sampling on the card equals the port's CPU draw: the threefry
+    words of ``fold_in(PRNGKey(seed), step)`` bitwise, the Gumbel noise
+    within 2 ulps of max(|g|, 1), and the tokens ``sample_tokens`` draws from
+    the same f32 logits (llama-3.2-1b's vocabulary, temperature, top-k and
+    top-p rows, one greedy) equal."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    b, vocab = 8, 128256
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn((b, vocab), generator=gen) * 4
+    seeds = torch.tensor([0, 1, 2**31, 2**32 - 1, 7, 1234, 99, 5], dtype=torch.int64).to(torch.int32)
+    steps = torch.tensor([0, 1, 1000, 3, 0, 17, 2**20, 9], dtype=torch.int32)
+    temp = torch.tensor([0.8, 1.0, 1.3, 0.6, 0.0, 0.9, 1.1, 0.7])
+    top_k = torch.tensor([0, 40, 0, 5, 0, 0, 100, 0], dtype=torch.int32)
+    top_p = torch.tensor([0.95, 1.0, 0.9, 1.0, 1.0, 0.8, 1.0, 0.5])
+    width = smp.CANDIDATES
+    out = {}
+    for where in ("cpu", dev):
+        args = [x.to(where) for x in (logits, seeds, steps, temp, top_k, top_p)]
+        bits = smp.random_bits(args[1], args[2], width)
+        noise = smp.gumbel_noise(args[1], args[2], args[3], width)
+        toks = smp.sample_tokens(args[0], args[3], args[4], args[5], gumbel=noise)
+        out[str(where)] = (bits.cpu(), noise.cpu(), toks.cpu())
+    (bc, gc, tc), (bd, gd, td) = out["cpu"], out[str(dev)]
+    ulp = torch.from_numpy(np.spacing(np.maximum(np.abs(gc.numpy()), 1.0).astype(np.float32)))
+    record = {"phase": "sampling", "rows": b, "bits_equal": bool(torch.equal(bc, bd)),
+              "gumbel_max_err_in_ulps": float(((gc - gd).abs() / ulp).max()),
+              "tokens_equal": bool(torch.equal(tc, td)), "tokens": td.tolist()}
+    emit(record)
+    if not (record["bits_equal"] and record["tokens_equal"] and record["gumbel_max_err_in_ulps"] <= 2):
+        raise AssertionError(f"seeded sampling on the card differs from the CPU's: {record}")
+    return record
+
+
+def fp8_kernel_checks(dev) -> dict:
+    """The fp8 forms of paged_decode and paged_prefill against their plain
+    versions: the GQA geometries of ``kernel_checks`` with bf16 queries on
+    pages of 16 (TMA), 12 (TMA boxes of 4 rows, lookups by division) and 5
+    (cp.async), f32 queries on pages of 16; decode at gappy T_q 1, 4 and 8,
+    splits 1 and auto, with the bitwise T_q=1 / verify-column check;
+    prefill chunks after a cached prefix beside 1-token rows; the serve's
+    mixed step. Outputs are held at the bf16 tolerance (queries and p are
+    staged in bf16)."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+
+    rng = torch.Generator(device=dev).manual_seed(20)
+    errs = {"paged_decode_fp8": 0.0, "paged_prefill_fp8": 0.0}
+    bitwise = []
+    runs = [(g, torch.bfloat16, ps) for g in ((32, 8, 64), (32, 8, 128), (64, 8, 64)) for ps in (16, 12, 5)]
+    runs += [((32, 8, 64), torch.float32, 16), ((32, 8, 128), torch.float32, 16)]
+    for (h, n_kv, hd), q_dtype, ps in runs:
+        scale = hd**-0.5
+        lengths = [1, 37, 300, 1000]
+        npp = -(-1000 // ps) + 2
+        tag = f"heads {h}/{n_kv} hd{hd} ps{ps} q {q_dtype}"
+        for t in (1, 4, 8):
+            q, kc, vc, tb, pos, _ = _case(rng, dev, b=4, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=FP8,
+                                          lengths=lengths, contiguous=False, q_dtype=q_dtype)
+            for ns in (1, 0):
+                got = pd.paged_decode_attention(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                want = pd.paged_decode_plain(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                errs["paged_decode_fp8"] = max(errs["paged_decode_fp8"], compare(
+                    f"decode fp8 {tag} T{t} splits{ns}", got, want, [(i, t) for i in range(4)], torch.bfloat16))
+                for j in range(t if t > 1 else 0):
+                    one = pd.paged_decode_attention(q[:, j:j + 1].contiguous(), kc, vc, tb[0],
+                                                    pos[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
+                    bitwise.append(bool(torch.equal(one[:, 0], got[:, j])))
+                    if not bitwise[-1]:
+                        raise AssertionError(f"fp8: T_q=1 decode differs from verify column {j} ({tag} T{t} "
+                                             f"splits{ns})")
+        spans = [(900, 100), (0, 77), (499, 1), (650, 1)]
+        q, kc, vc, tb, _, _ = _case(rng, dev, b=4, t=100, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=FP8,
+                                    lengths=[s + n for s, n in spans], contiguous=True, q_dtype=q_dtype)
+        pos = torch.from_numpy(_spans(spans, 100)).to(dev)
+        got = pp.paged_prefill_attention(q, kc, vc, tb[0], pos, scale=scale)
+        want = pp.paged_prefill_plain(q, kc, vc, tb[0], pos, scale=scale)
+        errs["paged_prefill_fp8"] = max(errs["paged_prefill_fp8"], compare(
+            f"prefill fp8 {tag}", got, want, [(i, n) for i, (_, n) in enumerate(spans)], torch.bfloat16))
+    errs["paged_prefill_fp8"] = max(errs["paged_prefill_fp8"], mixed_step_check(dev, rng, FP8))
+    emit({"phase": "kernels_fp8", "max_abs_err": errs,
+          "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row",
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    return errs
+
+
+# fp8-cache MLA geometries beyond MLA_GEOMS: a looped rope of 80 lanes (TMA
+# boxes of 80 bytes), a rope whose boxes would land misaligned (cp.async),
+# f32 queries. (heads, latent, rope lanes, rope stream width, nope dim,
+# query dtype, page size).
+MLA_PATHS_FP8 = {
+    "rope-80 of 128": (32, 512, 80, 128, 128, torch.bfloat16, 16),
+    "latent-128 rope-32 of 32 ps2 (cp.async)": (4, 128, 32, 32, 32, torch.bfloat16, 2),
+    "mla-8b-proxy f32 queries": (32, 512, 64, 128, 128, torch.float32, 16),
+}
+
+
+def fp8_mla_kernel_checks(dev) -> dict:
+    """The fp8 form of paged_mla against its plain version: the MLA_GEOMS
+    geometries on pages of 16 and 4, and MLA_PATHS_FP8, at gappy T_q 1, 4
+    and 8 (at 4 heads also 20), splits 1, 2 and auto, with the bitwise
+    T_q=1 / verify-column check; chunks after a cached prefix beside
+    1-token rows; a 512-token chunk after 1024 cached tokens; the serve's
+    mixed step. Held at the bf16 tolerance."""
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    rng = torch.Generator(device=dev).manual_seed(21)
+    err = 0.0
+    bitwise = []
+    runs = [(geom, dims, torch.bfloat16, ps) for geom, dims in MLA_GEOMS.items() for ps in (16, 4)]
+    runs += [(geom, dims[:5], dims[5], dims[6]) for geom, dims in MLA_PATHS_FP8.items()]
+    for geom, (h, r_kv, dr, r_width, dn), q_dtype, ps in runs:
+        scale = (dn + dr) ** -0.5
+        dims = dict(h=h, r_kv=r_kv, dr=dr, r_width=r_width, dtype=FP8, q_dtype=q_dtype)
+        lengths = [1, 37, 300, 1000]
+        npp = -(-1000 // ps) + 2
+        for t in (1, 4, 8, 20) if h == 4 else (1, 4, 8):
+            pos = _positions(lengths, t, contiguous=False)
+            real = [min(t, n) for n in lengths]
+            q_lat, q_rope, c, r, tb, posd = _mla_case(rng, dev, pos, ps=ps, npp=npp, **dims)
+            for ns in (1, 2, 0):
+                tag = f"mla fp8 {geom} q {q_dtype} ps{ps} T{t} splits{ns}"
+                got = pm.paged_mla(q_lat, q_rope, c, r, tb[0], posd, scale=scale, num_splits=ns)
+                want = pm.paged_mla_plain(q_lat, q_rope, c, r, tb[0], posd, scale=scale, num_splits=ns)
+                err = max(err, compare(tag, got, want, list(enumerate(real)), torch.bfloat16))
+                if t == 1 or (ns == 0 and t > pm.MAX_SPLIT_T):
+                    continue
+                for j in range(t):
+                    one = pm.paged_mla(q_lat[:, j:j + 1].contiguous(), q_rope[:, j:j + 1].contiguous(), c, r,
+                                       tb[0], posd[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
+                    for i in range(len(lengths)):
+                        if j < real[i]:
+                            bitwise.append(bool(torch.equal(one[i, 0], got[i, j])))
+                            if not bitwise[-1]:
+                                raise AssertionError(f"T_q=1 decode differs from verify column {j} of row {i} "
+                                                     f"({tag})")
+        spans = [(900, 100), (0, 77), (499, 1), (650, 1)]
+        case = _mla_case(rng, dev, _spans(spans, 100), ps=ps, npp=npp, **dims)
+        case = (*case[:4], case[4][0], case[5])
+        err = max(err, compare(f"mla fp8 chunk {geom} ps{ps}", pm.paged_mla(*case, scale=scale),
+                               pm.paged_mla_plain(*case, scale=scale), [(i, n) for i, (_, n) in enumerate(spans)],
+                               torch.bfloat16))
+    h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+    case = _mla_case(rng, dev, _spans([(1024, 512)], 512), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=96,
+                     dtype=FP8, q_dtype=torch.bfloat16)
+    case = (*case[:4], case[4][0], case[5])
+    err = max(err, compare("mla fp8 512 after 1024", pm.paged_mla(*case, scale=(dn + dr) ** -0.5),
+                           pm.paged_mla_plain(*case, scale=(dn + dr) ** -0.5), [(0, 512)], torch.bfloat16))
+    err = max(err, mla_mixed_step_check(dev, rng, FP8))
+    emit({"phase": "kernels_mla_fp8", "max_abs_err": err,
+          "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row",
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    return {"paged_mla_fp8": err}
 
 
 # -- phase 3: forward -----------------------------------------------------------
 
 
-def forward_check(dev, model: str) -> None:
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's attention through the kernels' plain PyTorch
+    versions on the card, for as long as the context lasts."""
+    from dynamo_tpu_torch.models import mla
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_mla as pm
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+
+    saved = pd.paged_decode_attention, pp.paged_prefill_attention, mla.paged_mla
+    pd.paged_decode_attention = pd.paged_decode_plain
+    pp.paged_prefill_attention = pp.paged_prefill_plain
+    mla.paged_mla = lambda *args, walk=None, **kw: pm.paged_mla_plain(*args, **kw)
+    try:
+        yield
+    finally:
+        pd.paged_decode_attention, pp.paged_prefill_attention, mla.paged_mla = saved
+
+
+def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None) -> None:
     """One prefill chunk (T=64, two rows, the second continuing at 64) and
-    one decode step of ``model`` at full width, run with the kernels and
-    with the plain attention from the same caches."""
+    one decode step of ``model`` at full width on ``cache_dtype`` caches
+    (the model's dtype when None), run with the kernels and with plain
+    attention from the same caches: the gather reference, except for MLA
+    on an fp8 cache, which is held against the kernels' plain versions (the
+    MLA gather reference rounds p to fp8 as JAX's reference does,
+    models/mla.py:237, not to the kernels' bf16)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import PRESETS
 
     cfg = PRESETS[model]
-    params = llama.init_params(cfg, 0, device=dev)
+    params = params if params is not None else llama.init_params(cfg, 0, device=dev)
     ps, npages = 16, 64
-    kc0, vc0 = llama.init_kv_cache(cfg, npages, ps, device=dev)
+    kc0, vc0 = llama.init_kv_cache(cfg, npages, ps, dtype=cache_dtype, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     b, t = 2, 64
     tables = torch.arange(1, 19, dtype=torch.int32, device=dev).view(b, 9)  # 9 pages of 16 tokens per row
@@ -773,18 +1045,21 @@ def forward_check(dev, model: str) -> None:
     dec_tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev, dtype=torch.int32)
     dec_pos = pos[:, -1:] + 1
     dec_slots = torch.stack([tables[i, (dec_pos[i] // ps).long()] * ps + dec_pos[i] % ps for i in range(b)]).to(torch.int32)
+    baseline = "plain" if kc0.dtype == FP8 and cfg.attn_type == "mla" else "reference"
     results = {}
     with torch.inference_mode():
-        for impl in (None, "reference"):
+        for impl in (None, baseline):
             kc, vc = kc0.clone(), vc0.clone()
-            pre, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, last, attn_impl=impl)
-            dec, _, _ = llama.forward(params, cfg, dec_tok, dec_pos, kc, vc, tables, dec_slots,
-                                      torch.zeros(b, dtype=torch.int32, device=dev), attn_impl=impl)
+            with plain_kernels() if impl == "plain" else contextlib.nullcontext():
+                attn_impl = "reference" if impl == "reference" else None
+                pre, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, last, attn_impl=attn_impl)
+                dec, _, _ = llama.forward(params, cfg, dec_tok, dec_pos, kc, vc, tables, dec_slots,
+                                          torch.zeros(b, dtype=torch.int32, device=dev), attn_impl=attn_impl)
             results[impl] = (pre, dec)
     torch.cuda.synchronize()
     errs = {}
     for i, phase in enumerate(("prefill", "decode")):
-        a, r = results[None][i], results["reference"][i]
+        a, r = results[None][i], results[baseline][i]
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"forward {phase}: non-finite logits")
         errs[phase] = float((a - r).abs().max())
@@ -795,19 +1070,22 @@ def forward_check(dev, model: str) -> None:
         if not errs[phase] <= 0.05 * scale:
             raise AssertionError(f"forward {phase}: max abs err {errs[phase]} > 5% of max |logit| {scale}")
         errs[f"{phase}_argmax_equal"] = bool(torch.equal(a.argmax(-1), r.argmax(-1)))
-    emit({"phase": "forward", "model": model, "logits_max_abs_err": errs,
+    emit({"phase": "forward", "model": model, "cache": str(kc0.dtype).removeprefix("torch."), "baseline": baseline,
+          "logits_max_abs_err": errs,
           "tolerance": "0.05 * max|logit|", "logits_shape": list(results[None][0].shape)})
 
 
 # -- phase 4: serve -------------------------------------------------------------
 
 
-async def build_serving(model: str = MODEL):
+async def build_serving(model: str = MODEL, cache_dtype: torch.dtype | None = None, params: dict | None = None):
     """The serve phase's engine and pipeline: ``build_engine_service`` of
-    ``model`` (random init, bf16, on the card) behind ``build_pipeline``."""
+    ``model`` (random init from seed 0, or ``params``; bf16; on the card;
+    ``cache_dtype`` caches, the model's dtype when None) behind
+    ``build_pipeline``."""
     from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
 
-    service = await build_engine_service(model, **SERVE_ENGINE)
+    service = await build_engine_service(model, cache_dtype=cache_dtype, params=params, **SERVE_ENGINE)
     return service, build_pipeline(service)
 
 
@@ -856,13 +1134,89 @@ async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
     return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, SERVE_LENGTHS)))
 
 
-async def serve(model: str) -> dict:
-    """Serve the mix on ``model``; returns the phase's record, which holds the
-    launches of its kernels (``SERVE_KERNELS``) over the timed requests."""
-    kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[model]}
+@contextlib.contextmanager
+def record_draws(runner):
+    """For as long as the context lasts, record every step in which
+    ``runner`` samples a row with temperature > 0: the host's ``StepBatch``
+    (seeds, sample steps, temperatures, top-k, top-p, before they are packed
+    and copied to the card) and, for those rows only, the logits the card
+    sampled from, its Gumbel noise and its tokens (a copy of one row's
+    logits a sampled step inside the timed window). Yields the list."""
+    from dynamo_tpu_torch.engine import runner as runner_mod
+
+    steps, step0, sample0 = [], runner.step, runner_mod.sample_tokens
+
+    def step(batch, lp_k=0):
+        steps.append({"batch": batch})
+        return step0(batch, lp_k=lp_k) if lp_k else step0(batch)
+
+    def sample(logits, temperature, top_k, top_p, *, gumbel=None, **pen):
+        out = sample0(logits, temperature, top_k, top_p, gumbel=gumbel, **pen)
+        rows = np.flatnonzero(steps[-1]["batch"].temperature > 0)
+        if gumbel is not None and rows.size:
+            # Row slices copied as they are: no kernel of its own, so no
+            # module loads lazily inside the timed window.
+            def pick(t):
+                return torch.cat([t[r:r + 1].cpu() for r in rows])
+
+            steps[-1].update(rows=rows, logits=pick(logits).float(), gumbel=pick(gumbel), tokens=pick(out),
+                             pen={k: pick(v) for k, v in pen.items()})
+        return out
+
+    runner.step, runner_mod.sample_tokens = step, sample
+    try:
+        yield steps
+    finally:
+        runner.step, runner_mod.sample_tokens = step0, sample0
+
+
+def replay_draws(steps: list[dict], tokens: list[int]) -> dict:
+    """Hold the card's draws (``record_draws``) against the port's CPU draw:
+    the noise (``gumbel_noise``) and tokens (``sample_tokens``) recomputed
+    on the CPU from the host's seeds, steps, temperatures, top-k and top-p
+    and the card's logits. Tokens must be equal, the noise within 2 ulps of
+    max(|g|, 1), and ``tokens`` (the one sampled request's output) the last
+    of its row's draws."""
+    from dynamo_tpu_torch.ops import sampling as smp
+
+    sampled = [s for s in steps if "rows" in s]
+    drawn, err, equal = [], 0.0, True
+    for s in sampled:
+        bt, rows = s["batch"], s["rows"]
+        seeds = torch.from_numpy(bt.seeds[rows].astype(np.uint32).view(np.int32).copy())
+        temp = torch.from_numpy(bt.temperature[rows].astype(np.float32))
+        noise = smp.gumbel_noise(seeds, torch.from_numpy(bt.sample_steps[rows].astype(np.int32)), temp,
+                                 s["gumbel"].shape[-1])
+        toks = smp.sample_tokens(s["logits"], temp, torch.from_numpy(bt.top_k[rows].astype(np.int32)),
+                                 torch.from_numpy(bt.top_p[rows].astype(np.float32)), gumbel=noise, **s["pen"])
+        ulp = torch.from_numpy(np.spacing(np.maximum(np.abs(noise.numpy()), 1.0).astype(np.float32)))
+        err = max(err, float(((noise - s["gumbel"]).abs() / ulp).max()))
+        equal &= bool(torch.equal(toks, s["tokens"]))
+        drawn.append(s["tokens"].tolist())
+    record = {"sampled_steps": len(sampled), "rows_per_step": sorted({len(d) for d in drawn}),
+              "tokens_equal_cpu_draw": equal, "gumbel_max_err_in_ulps": err}
+    # One sampled row a step: the request's first token is drawn by its last
+    # prefill chunk, each later one by a step of its own.
+    mine = [d[0] for d in drawn[-len(tokens):]]
+    if not (equal and err <= 2 and record["rows_per_step"] == [1] and mine == tokens):
+        raise AssertionError(f"seeded sampling on the card differs from the CPU's draw: {record}")
+    return record
+
+
+async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None) -> dict:
+    """Serve the mix on ``model`` with ``cache_dtype`` caches; returns the
+    phase's record, which holds the launches of its kernels
+    (``SERVE_KERNELS``; their fp8 forms, named ``<kernel>_fp8``, on an fp8
+    cache) over the timed requests."""
+    fp8 = cache_dtype == FP8
+    counter = "launches_fp8" if fp8 else "launches"
+    kernels = {name + ("_fp8" if fp8 else ""): importlib.import_module(f"dynamo_tpu_torch.ops.{name}")
+               for name in SERVE_KERNELS[model]}
     t0 = time.perf_counter()
-    service, pipeline = await build_serving(model)
+    service, pipeline = await build_serving(model, cache_dtype, params)
     build_s = time.perf_counter() - t0
+    if cache_dtype is not None and service.core.runner.k_cache.dtype != cache_dtype:
+        raise AssertionError(f"asked for a {cache_dtype} cache, got {service.core.runner.k_cache.dtype}")
     bodies = serve_bodies(np.random.default_rng(3), model)
     try:
         await warm_up(pipeline, model)
@@ -871,12 +1225,14 @@ async def serve(model: str) -> dict:
         core = service.core
         dispatch0, mixed0 = dict(core.attn_dispatch_counts), core.mixed_steps
         for mod in kernels.values():
-            mod.launches = 0
-        start = time.perf_counter()
-        results = await send_all(pipeline, bodies)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launches = {name: mod.launches for name, mod in kernels.items()}
+            setattr(mod, counter, 0)
+        with record_draws(core.runner) as draws:
+            start = time.perf_counter()
+            results = await send_all(pipeline, bodies)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        launches = {name: getattr(mod, counter) for name, mod in kernels.items()}
+        cache = str(service.core.runner.k_cache.dtype).removeprefix("torch.")
         dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
         mixed = core.mixed_steps - mixed0
     finally:
@@ -893,14 +1249,18 @@ async def serve(model: str) -> dict:
         raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
     if mixed <= 0:
         raise AssertionError("no mixed prefill+decode step occurred")
+    ((body, seeded),) = [(b, r["tokens"]) for b, r in zip(bodies, results) if b["temperature"] > 0]
+    draws = replay_draws(draws, seeded)
     out_tokens = sum(len(r["tokens"]) for r in results)
     ttfts = sorted(r["ttft_s"] for r in results)
-    record = {"phase": "serve", "model": model, "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
+    record = {"phase": "serve", "model": model, "cache": cache, "requests": len(results),
+              "prompt_tokens": SERVE_LENGTHS,
               "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
               "output_tokens_per_s": out_tokens / wall,
               "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts), "max": ttfts[-1]},
               "engine_build_s": build_s, "kernel_launches": launches,
-              "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch}
+              "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch,
+              "seeded_request": {**{k: body[k] for k in ("temperature", "top_p", "seed")}, **draws}}
     emit(record)
     return record
 
@@ -1248,6 +1608,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    last = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
 
     t0 = time.perf_counter()
     built = build.build()
@@ -1260,21 +1622,33 @@ def main() -> int:
     if spills.get("paged_mla", 0):  # its consumers' registers are budgeted by setmaxnreg: a spill is a regression
         raise AssertionError(f"paged_mla spills registers: {spills['paged_mla']} bytes of spill stores")
 
+    fp8_cast_checks(dev)
+    sampling_check(dev)
     errs = kernel_checks(dev)
     mla_errs = mla_kernel_checks(dev)
     errs.update({f"paged_mla/{k}": e for k, e in mla_errs.items()})
+    errs.update({f"{k}/": e for k, e in {**fp8_kernel_checks(dev), **fp8_mla_kernel_checks(dev)}.items()})
     timing = kernel_timings(dev)
+    timing.update({f"{k}_fp8": v for k, v in kernel_timings(dev, FP8).items()})
     # The kernels line carries paged_mla's decode time; its prefill and
-    # mixed-step times are on the kernel_timing_mla line.
+    # mixed-step times are on the kernel_timing_mla lines.
     timing["paged_mla"] = mla_timings(dev)["decode"]
+    timing["paged_mla_fp8"] = mla_timings(dev, FP8)["decode"]
     launches, served = {}, {}
-    for model in (MODEL, MLA_MODEL):
-        forward_check(dev, model)
-        gc.collect()
-        torch.cuda.empty_cache()
-    for model in (MODEL, MLA_MODEL):  # each model's service is freed before the next is built
-        served[model] = asyncio.run(serve(model))
-        launches.update(served[model]["kernel_launches"])
+    for model in (MODEL, MLA_MODEL):  # each model's weights are freed before the next is made
+        from dynamo_tpu_torch.models import llama
+        from dynamo_tpu_torch.models.config import PRESETS
+
+        params = llama.init_params(PRESETS[model], 0, device=dev)
+        forward_check(dev, model, params=params)
+        forward_check(dev, model, FP8, params=params)
+        for cache_dtype in (None, FP8):
+            record = asyncio.run(serve(model, cache_dtype, params))
+            served.setdefault(model, record)
+            launches.update(record["kernel_launches"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
         gc.collect()
         torch.cuda.empty_cache()
     asyncio.run(serve_http(served[MODEL]))
@@ -1285,12 +1659,15 @@ def main() -> int:
         "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",
         "paged_prefill": "dynamo_tpu/ops/pallas_prefill.py:93",
         "paged_mla": "dynamo_tpu/ops/pallas_mla.py:83",
+        "paged_decode_fp8": "dynamo_tpu/ops/pallas_paged.py:368",
+        "paged_prefill_fp8": "dynamo_tpu/ops/pallas_prefill.py:189",
+        "paged_mla_fp8": "dynamo_tpu/ops/pallas_mla.py:200",
     }
     kernels = []
-    for name in ("paged_decode", "paged_prefill", "paged_mla"):
+    for name in replaces:
         tm = timing[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name.removesuffix('_fp8')}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max([tm["max_abs_err"]] + [e for k, e in errs.items() if k.startswith(name + "/")]),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
@@ -1300,8 +1677,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print(last, flush=True)
     return 0
 
 

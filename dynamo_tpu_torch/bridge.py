@@ -3,9 +3,10 @@ arrays, to the port's parameter dict.
 
 The layer-stacked leaves and the ``x @ W`` (``[in, out]``) orientation are
 kept as they are, so no transpose is needed. bf16 leaves cross through a
-``uint16`` view, because ``torch.from_numpy`` rejects the ml_dtypes bf16
-dtype. Quantized leaves (``{"qw"|"qw4", "scale", ...}`` dicts) are not
-ported yet and raise.
+``uint16`` view and fp8 e4m3 arrays (a JAX fp8 KV cache's bytes) through a
+``uint8`` view, because ``torch.from_numpy`` rejects the ml_dtypes types.
+Quantized leaves (``{"qw"|"qw4", "scale", ...}`` dicts) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -21,10 +22,13 @@ def _is_quantized(leaf) -> bool:
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
-    """One leaf: numpy (or anything ``np.asarray`` takes) -> CPU tensor, bf16 bit-exact."""
+    """One leaf: numpy (or anything ``np.asarray`` takes) -> CPU tensor, bf16
+    and fp8 e4m3 bit-exact."""
     a = np.ascontiguousarray(np.asarray(arr))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
     return torch.from_numpy(a.copy())
 
 

@@ -1,10 +1,12 @@
 // Shared helpers of the port's hand-written attention kernels (sm_90a).
 //
 // Dtype codes passed across the plain-C interface (ops/build.py DTYPE_CODES):
-//   0 = float32, 1 = bfloat16.
+//   0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (KV caches only).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -169,3 +171,23 @@ __device__ __forceinline__ void load8(const T* p, float* f) {
 // rows (HD 128) swizzle within each 128-byte half. Returns the element
 // offset of chunk c within its row.
 __device__ __forceinline__ int swz128(int c, int r) { return ((c & ~7) | ((c ^ r) & 7)) * 8; }
+
+// Eight e4m3 codes (8 bytes) as eight bf16 values (16 bytes), in order. Exact
+// for all 256 codes: e4m3 -> f16 (cvt.rn.f16x2.e4m3x2) loses nothing, and
+// every e4m3 value (NaN included) is a bf16 value. The fp8 forms of the
+// kernels land fp8 tiles at 1 byte an element and convert them on chip with
+// this, then run their bf16 matrix path on the converted tile, as the TPU
+// kernels upcast fp8 K/V to bf16 before their matmuls. (A form on the
+// integer and bf16 units instead, a bf16 multiply by 2^120 of the shifted
+// code, measured slower in every kernel on an H100: PERF.md §6.)
+__device__ __forceinline__ uint4 fp8x8_to_bf16x8(uint2 v) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t w = i < 2 ? v.x : v.y;
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> (16 * (i & 1))), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    o[i] = pack_bf16(f.x, f.y);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}

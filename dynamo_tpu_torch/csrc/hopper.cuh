@@ -68,14 +68,17 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// A paged cache [P, ps, W] (bf16) as a 2D tensor map of P*ps rows of W
-// elements, boxes of `box_rows` rows x 64 columns (128 bytes) landing in the
-// 128-byte-swizzled layout. cuTensorMapEncodeTiled comes through the runtime's
-// driver entry point, so nothing links libcuda. The map is a pure function of
-// the arguments, and a serving step asks for the same few (each layer's K and
-// V) on every launch, so encoded maps are kept and reused. Returns false when
-// the driver has no such entry or refuses the map.
-inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows, int W, int box_rows) {
+// A row-major 2D tensor [rows, W] as a tensor map, boxes of `box_rows` rows
+// x `box_cols` elements: bf16 boxes of 64 columns (128 bytes) landing in the
+// 128-byte-swizzled layout, or fp8 boxes (read as bytes) of up to 256
+// columns landing unswizzled, rows packed. cuTensorMapEncodeTiled comes
+// through the runtime's driver entry point, so nothing links libcuda. The
+// map is a pure function of the arguments, and a serving step asks for the
+// same few (each layer's K and V) on every launch, so encoded maps are kept
+// and reused. Returns false when the driver has no such entry or refuses
+// the map.
+inline bool encode_map(CUtensorMap* map, const void* base, long long rows, int W, bool fp8, int box_cols,
+                       int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -87,10 +90,10 @@ inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows,
       return static_cast<Encode>(nullptr);
     return reinterpret_cast<Encode>(fn);
   }();
-  using Key = std::tuple<const void*, long long, int, int>;
+  using Key = std::tuple<const void*, long long, int, bool, int, int>;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> kept;
-  const Key key{base, rows, W, box_rows};
+  const Key key{base, rows, W, fp8, box_cols, box_rows};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = kept.find(key);
   if (it != kept.end()) {
@@ -99,16 +102,23 @@ inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows,
   }
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)W * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)W * (fp8 ? 1 : sizeof(__nv_bfloat16))};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (encode(map, fp8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             fp8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   if (kept.size() >= 1024) kept.clear();  // caches reallocated many times over: start afresh
   kept.emplace(key, *map);
   return true;
+}
+
+// A paged bf16 cache [P, ps, W] as P*ps rows of W elements, 64-column boxes
+// into the 128-byte swizzle (see encode_map).
+inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows, int W, int box_rows) {
+  return encode_map(map, base, rows, W, false, 64, box_rows);
 }
 
 // Rows per TMA box of a key walk in `span`-key pieces over pages of ps
@@ -118,6 +128,14 @@ inline bool encode_cache_map(CUtensorMap* map, const void* base, long long rows,
 inline int tma_box_rows(int ps, int span) {
   const int r = std::gcd(ps, span);
   return r >= 8 ? r : 0;
+}
+
+// The same for unswizzled fp8 boxes `box_bytes` wide that land packed: every
+// box (box_rows whole rows of one page) must start 128 bytes aligned, so
+// box_rows * box_bytes must be a multiple of 128; 0 (cp.async) otherwise.
+inline int tma_box_rows_fp8(int ps, int span, int box_bytes) {
+  const int r = std::gcd(ps, span);
+  return (r * box_bytes) % 128 == 0 ? r : 0;
 }
 
 // Shared-memory writes of the generic proxy (st.shared, cp.async) made

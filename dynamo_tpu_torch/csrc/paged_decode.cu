@@ -50,6 +50,16 @@
 // What bounds it at batch 8 x 2048 tokens (PERF.md): the walk's stream, then
 // start-up and the merge; of the knobs tried, only the split count
 // (ops/paged_decode.py decode_split_plan) moved it.
+// fp8 e4m3 caches (pallas_paged.py:368, the cache read at 1 byte an element,
+// the matmuls in bf16): the same kernel, decode_mma_kernel<F8 = true>. Each
+// warp's ring holds its fp8 slices (TMA boxes of whole head-strip rows,
+// unswizzled, or cp.async), twice as deep (kStagesF8) for the same bytes in
+// flight. Once a slice lands, the warp converts it (fp8x8_to_bf16x8, exact)
+// into its own bf16 slice in the swizzled layout the ldmatrix reads expect,
+// and the bf16 path runs on that unchanged: the queries and p stay bf16, as
+// the TPU kernel keeps them (pallas_paged.py:485-487, :388). The stream is
+// half the bf16 one's bytes; the conversion is the warp's own work, inside
+// the walk.
 // f32 caches, which exist to check the algorithm without bf16 rounding, run
 // a scalar-FMA kernel (decode_partials) whose rows all share one block.
 
@@ -247,25 +257,31 @@ __global__ void __launch_bounds__(kThreads) decode_partials(
 // bf16 caches on the tensor cores, see the note at the top.
 
 constexpr int kStages = 4;     // ring depth (ops/paged_decode.py STAGES)
+constexpr int kStagesF8 = 8;   // fp8 ring depth (ops/paged_decode.py STAGES_FP8): the bf16 ring's bytes
 constexpr int kRowTile = 16;   // query rows per block (ops/paged_decode.py ROW_TILE)
 constexpr int kWarpKeys = kBlockTokens / kWarps;  // 16 keys of each tile per warp
 static_assert(kWarpKeys == 16, "a warp's slice is one 16-deep k-step of p.V");
 
-// Shared memory, from a 1024-aligned base: the ring (kStages x [K | V] x
-// [warp][HD/64 atoms][16 keys][64], 128-byte swizzled as TMA writes it), the
-// 16 staged query rows (padded), one mbarrier per (stage, warp), the rows'
-// positions, then the page ids of the split's walk. The ring is reused for
-// the warps' final states. ops/paged_decode.py _smem_bytes mirrors bytes().
-template <int HD>
+// Shared memory, from a 1024-aligned base: the ring (NS x [K | V] x
+// [warp][HD/64 atoms][16 keys][64], 128-byte swizzled as TMA writes it; fp8:
+// NS x [K | V] x [warp][16 keys][HD] bytes, then one bf16 stage the warps
+// convert their slices into), the 16 staged query rows (padded), one
+// mbarrier per (stage, warp), the rows' positions, then the page ids of the
+// split's walk. The ring is reused for the warps' final states.
+// ops/paged_decode.py _smem_bytes mirrors bytes().
+template <int HD, bool F8>
 struct MmaSmem {
+  static constexpr int NS = F8 ? kStagesF8 : kStages;
+  static constexpr int kElem = F8 ? 1 : 2;                     // bytes of a cache element
   static constexpr int kStageElems = 2 * kBlockTokens * HD;
-  static constexpr int kSliceBytes = 2 * kWarpKeys * HD * 2;  // one warp's K and V of a tile
+  static constexpr int kSliceBytes = 2 * kWarpKeys * HD * kElem;  // one warp's K and V of a tile
   static constexpr int kQStride = HD + 8;
-  static constexpr size_t kRingBytes = sizeof(__nv_bfloat16) * kStages * kStageElems;
+  static constexpr size_t kRingBytes = (size_t)kElem * NS * kStageElems;
+  static constexpr size_t kConvBytes = F8 ? sizeof(__nv_bfloat16) * kStageElems : 0;
   static constexpr size_t kQBytes = sizeof(__nv_bfloat16) * kRowTile * kQStride;
-  static constexpr size_t kBarBytes = sizeof(uint64_t) * kStages * kWarps;
+  static constexpr size_t kBarBytes = sizeof(uint64_t) * NS * kWarps;
   static size_t bytes(int npages) {
-    return 1024 + kRingBytes + kQBytes + kBarBytes + sizeof(int) * (size_t)(kRowTile + npages);
+    return 1024 + kRingBytes + kConvBytes + kQBytes + kBarBytes + sizeof(int) * (size_t)(kRowTile + npages);
   }
   static_assert(sizeof(float) * (kWarps + 1) * kRowTile * (HD + 2) <= kRingBytes, "the merges reuse the ring");
 };
@@ -276,14 +292,15 @@ __device__ __forceinline__ int slice_off(int c, int j) { return (c >> 3) * (kWar
 // Page ids a split of bps 64-key tiles can touch.
 __host__ __device__ inline int split_pages(int bps, int ps) { return (bps * kBlockTokens + ps - 1) / ps + 1; }
 
-template <typename QT, int HD>
+template <typename QT, int HD, bool F8>
 __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
-    const QT* __restrict__ q, const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    const QT* __restrict__ q, const unsigned char* __restrict__ kc, const unsigned char* __restrict__ vc,
     const int* __restrict__ tables, const int* __restrict__ positions, QT* __restrict__ out,
     int T, int H, int n_kv, int ps, int N, int S, int bps, int RT, float scale,
     const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv, int box_rows) {
-  using L = MmaSmem<HD>;
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  using L = MmaSmem<HD, F8>;
+  constexpr int NS = L::NS;
+  constexpr int CPR = HD / 8;  // 8-element chunks per row
   constexpr int KSTEPS = HD / 16;
   constexpr int NT = HD / 8;  // n8 tiles of the output
   const int G = H / n_kv, R = T * G, W = n_kv * HD;
@@ -293,10 +310,11 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kRingBytes + L::kQBytes);  // [stage][warp]
-  int* qpos = reinterpret_cast<int*>(full + kStages * kWarps);
+  unsigned char* ring = base;  // L::kElem bytes an element
+  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes);  // fp8: the converted slices
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes + L::kConvBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kRingBytes + L::kConvBytes + L::kQBytes);  // [stage][warp]
+  int* qpos = reinterpret_cast<int*>(full + NS * kWarps);
   int* pids = qpos + kRowTile;
   if (tid == 32 && box_rows) {
     tma_prefetch_map(&tmk);
@@ -305,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   if (tid == 0) {
     // TMA: the warp's one expect_tx arrival; cp.async: its 32 lanes, each
     // once its copies land.
-    for (int i = 0; i < kStages * kWarps; ++i) mbar_init(&full[i], box_rows ? 1 : 32);
+    for (int i = 0; i < NS * kWarps; ++i) mbar_init(&full[i], box_rows ? 1 : 32);
     mbar_init_fence();
   }
 
@@ -345,37 +363,48 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   }
   __syncthreads();
 
-  // This warp's 16-key slice of tile i into ring slot i % kStages, completing
-  // the slot's mbarrier of this warp. TMA: lane l loads box l (16 / box_rows
-  // boxes of box_rows keys per 64-column atom, K and V). cp.async: lane l
-  // copies 16-byte chunk l % CPR of keys l / CPR, + 32 / CPR, ...
-  constexpr int KPI = 32 / CPR;
+  // This warp's 16-key slice of tile i into ring slot i % NS, completing
+  // the slot's mbarrier of this warp. TMA: lane l loads box l (bf16: 16 /
+  // box_rows boxes of box_rows keys per 64-column atom; fp8: 16 / box_rows
+  // boxes of whole HD-byte rows), K and V. cp.async: lane l copies 16-byte
+  // chunk l % C16 of keys l / C16, + 32 / C16, ... (C16 chunks a row).
+  constexpr int C16 = HD * L::kElem / 16;
+  constexpr int KPI = 32 / C16;
   const PageWalk pw(ps, last_page, p0);
-  const int cc = lane % CPR;
-  const size_t col = (size_t)kvh * HD + cc * 8;
-  const int nbox = box_rows ? (kWarpKeys / box_rows) * (HD / 64) : 0;
+  const int cc = lane % C16;
+  const size_t col = ((size_t)kvh * HD) * L::kElem + cc * 16;  // bytes into a cache row
+  const int nbox = box_rows ? (kWarpKeys / box_rows) * (F8 ? 1 : HD / 64) : 0;
   auto load_slice = [&](int i, auto pow2) {
     constexpr bool P2 = decltype(pow2)::value;
-    __nv_bfloat16* ks = ring + (i % kStages) * L::kStageElems + warp * kWarpKeys * HD;
-    __nv_bfloat16* vs = ks + kBlockTokens * HD;
-    uint64_t* bar = &full[(i % kStages) * kWarps + warp];
+    unsigned char* ks = ring + (size_t)((i % NS) * L::kStageElems + warp * kWarpKeys * HD) * L::kElem;
+    unsigned char* vs = ks + (size_t)kBlockTokens * HD * L::kElem;
+    uint64_t* bar = &full[(i % NS) * kWarps + warp];
     const int kbase = (first + i) * kBlockTokens + warp * kWarpKeys;
     if (box_rows) {
       if (lane == 0) mbar_arrive_expect_tx(bar, L::kSliceBytes);
       __syncwarp();
       if (lane < nbox) {
-        const int a = lane % (HD / 64), j = (lane / (HD / 64)) * box_rows;
-        const int row = (int)pw.row<P2>(pids, kbase + j);
-        tma_load_2d(ks + a * (kWarpKeys * 64) + j * 64, &tmk, kvh * HD + a * 64, row, bar);
-        tma_load_2d(vs + a * (kWarpKeys * 64) + j * 64, &tmv, kvh * HD + a * 64, row, bar);
+        if constexpr (F8) {
+          const int j = lane * box_rows;
+          const int row = (int)pw.row<P2>(pids, kbase + j);
+          tma_load_2d(ks + j * HD, &tmk, kvh * HD, row, bar);
+          tma_load_2d(vs + j * HD, &tmv, kvh * HD, row, bar);
+        } else {
+          const int a = lane % (HD / 64), j = (lane / (HD / 64)) * box_rows;
+          const int row = (int)pw.row<P2>(pids, kbase + j);
+          const int dst = 2 * (a * (kWarpKeys * 64) + j * 64);
+          tma_load_2d(ks + dst, &tmk, kvh * HD + a * 64, row, bar);
+          tma_load_2d(vs + dst, &tmv, kvh * HD + a * 64, row, bar);
+        }
       }
     } else {
 #pragma unroll
       for (int j0 = 0; j0 < kWarpKeys; j0 += KPI) {
-        const int j = j0 + lane / CPR;
-        const size_t off = pw.row<P2>(pids, kbase + j) * W + col;
-        cp_async16(ks + slice_off(cc, j), kc + off);
-        cp_async16(vs + slice_off(cc, j), vc + off);
+        const int j = j0 + lane / C16;
+        const size_t off = pw.row<P2>(pids, kbase + j) * W * L::kElem + col;
+        const int dst = F8 ? j * HD + cc * 16 : 2 * slice_off(cc, j);
+        cp_async16(ks + dst, kc + off);
+        cp_async16(vs + dst, vc + off);
       }
       mbar_arrive_cp_async(bar);
     }
@@ -387,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
       load_slice(i, Bool<false>());
     }
   };
-  for (int i = 0; i < kStages - 1 && i < nb; ++i) issue(i);
+  for (int i = 0; i < NS - 1 && i < nb; ++i) issue(i);
 
   uint32_t qa[KSTEPS][4];
 #pragma unroll
@@ -410,9 +439,26 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
 
   for (int i = 0; i < nb; ++i) {
     __syncwarp();  // every lane is done with the slot the next load overwrites
-    if (i + kStages - 1 < nb) issue(i + kStages - 1);
-    mbar_wait(&full[(i % kStages) * kWarps + warp], (i / kStages) & 1);
-    const __nv_bfloat16* ks = ring + (i % kStages) * L::kStageElems + warp * kWarpKeys * HD;
+    if (i + NS - 1 < nb) issue(i + NS - 1);
+    mbar_wait(&full[(i % NS) * kWarps + warp], (i / NS) & 1);
+    const __nv_bfloat16* ks;
+    if constexpr (F8) {
+      // The landed fp8 slice, converted into this warp's bf16 slice of `conv`.
+      const unsigned char* k8 = ring + (size_t)(i % NS) * L::kStageElems + warp * kWarpKeys * HD;
+      __nv_bfloat16* kd = conv + warp * kWarpKeys * HD;
+#pragma unroll
+      for (int e = lane; e < kWarpKeys * CPR; e += 32) {
+        const int j = e / CPR, c = e - j * CPR;
+        *reinterpret_cast<uint4*>(kd + slice_off(c, j)) =
+            fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + j * HD + c * 8));
+        *reinterpret_cast<uint4*>(kd + kBlockTokens * HD + slice_off(c, j)) =
+            fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + kBlockTokens * HD + j * HD + c * 8));
+      }
+      __syncwarp();
+      ks = kd;
+    } else {
+      ks = reinterpret_cast<const __nv_bfloat16*>(ring) + (i % NS) * L::kStageElems + warp * kWarpKeys * HD;
+    }
     const __nv_bfloat16* vs = ks + kBlockTokens * HD;
     float sc[2][4];
 #pragma unroll
@@ -564,23 +610,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<CT, float>::value) {
+    constexpr bool F8 = std::is_same<CT, __nv_fp8_e4m3>::value;
     const int rt = (T * (H / n_kv) + kRowTile - 1) / kRowTile;
     cfg.gridDim = dim3(S, n_kv * rt, B);
-    cfg.dynamicSmemBytes = MmaSmem<HD>::bytes(split_pages(bps, ps));
-    auto kern = decode_mma_kernel<QT, HD>;
+    cfg.dynamicSmemBytes = MmaSmem<HD, F8>::bytes(split_pages(bps, ps));
+    auto kern = decode_mma_kernel<QT, HD, F8>;
     cudaError_t e = allow_smem(kern, cfg.dynamicSmemBytes, allowed);
     if (e != cudaSuccess) return e;
-    // K/V slices by TMA where the page size allows 8-row boxes, else
-    // cp.async. A tensor map the driver refuses is an error, never a silent
-    // switch to the cp.async path.
+    // K/V slices by TMA where the page size allows a box (bf16: 8 rows into
+    // the swizzle; fp8: rows landing 128-byte aligned), else cp.async. A
+    // tensor map the driver refuses is an error, never a silent switch to
+    // the cp.async path.
     CUtensorMap tmk{}, tmv{};
-    const int box_rows = tma_box_rows(ps, kWarpKeys);
-    if (box_rows && !(encode_cache_map(&tmk, k, (long long)P * ps, n_kv * HD, box_rows) &&
-                      encode_cache_map(&tmv, v, (long long)P * ps, n_kv * HD, box_rows)))
+    const int box_rows = F8 ? tma_box_rows_fp8(ps, kWarpKeys, HD) : tma_box_rows(ps, kWarpKeys);
+    const long long rows = (long long)P * ps;
+    if (box_rows && !(encode_map(&tmk, k, rows, n_kv * HD, F8, F8 ? HD : 64, box_rows) &&
+                      encode_map(&tmv, v, rows, n_kv * HD, F8, F8 ? HD : 64, box_rows)))
       return cudaErrorNotSupported;
-    e = cudaLaunchKernelEx(&cfg, kern, static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v), tables, positions, static_cast<QT*>(out), T, H,
+    e = cudaLaunchKernelEx(&cfg, kern, static_cast<const QT*>(q), static_cast<const unsigned char*>(k),
+                           static_cast<const unsigned char*>(v), tables, positions, static_cast<QT*>(out), T, H,
                            n_kv, ps, N, S, bps, rt, scale, tmk, tmv, box_rows);
     if (e != cudaSuccess) return e;
   } else {
@@ -619,6 +668,10 @@ extern "C" int dyn_paged_decode(const void* q, const void* k, const void* v, con
   DYN_DECODE_CASE(0, 0, 128, float, float)
   DYN_DECODE_CASE(0, 1, 64, float, __nv_bfloat16)
   DYN_DECODE_CASE(0, 1, 128, float, __nv_bfloat16)
+  DYN_DECODE_CASE(2, 1, 64, __nv_fp8_e4m3, __nv_bfloat16)
+  DYN_DECODE_CASE(2, 1, 128, __nv_fp8_e4m3, __nv_bfloat16)
+  DYN_DECODE_CASE(2, 0, 64, __nv_fp8_e4m3, float)
+  DYN_DECODE_CASE(2, 0, 128, __nv_fp8_e4m3, float)
 #undef DYN_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -67,6 +67,16 @@
 // score wgmma of each warpgroup, then the value product, with the softmax
 // between them (both warpgroups in step); at decode also the block's
 // start-up and the merge.
+// fp8 e4m3 caches (pallas_mla.py:200, latents and rope keys read at 1 byte
+// an element, the matmuls in bf16): the same kernel with a.f8 set. Warp 0
+// keeps a second, fp8 ring full (TMA boxes of up to 256 bytes of a key
+// row, unswizzled, in blocks [part][keys][box]; cp.async where a box would
+// land misaligned), and the whole producer warpgroup converts each landed
+// fp8 stage (fp8x8_to_bf16x8, exact) into the bf16 ring stage in the
+// swizzled layout the wgmma descriptors read. The consumers run unchanged,
+// queries and p in bf16 as the TPU kernel keeps them (pallas_mla.py:273-276,
+// :221). At D = 512 the two rings fit beside Q and p only with 32-key
+// stages (ops/paged_mla.py _tile_keys makes the same choice).
 // f32 caches (mla_f32_kernel), kept to check the algorithm without bf16
 // rounding: 32-row blocks on scalar FMA, 32-key sub-tiles, the same walk
 // facts and cluster merge.
@@ -96,6 +106,7 @@ struct MlaArgs {
   float* out;                 // [B, T, H, D]
   int T, H, DR, RW, ps, N, S, bps, q_f32;
   float scale;
+  int f8;  // the caches are fp8 e4m3 (bf16 otherwise, or f32 for mla_f32_kernel)
 };
 
 // What one block walks: rows [r0, r0 + rows) of sequence b and keys
@@ -220,15 +231,27 @@ constexpr int kStages = 2;
 constexpr int kBarConsumers = 1;  // named barriers over the two consumer warpgroups
 constexpr int kBarMax = 2;        // both halves of a tile's row maxima are exchanged
 constexpr int kBarP = 3;          // both halves of a tile's p are in the p tile
+constexpr int kBarProducer = 4;   // the producer warpgroup is done reading an fp8 stage
+
+// Bytes of an fp8 TMA box along a key row of w bytes (w a multiple of 16):
+// the widest multiple of 16 that divides w, at most 256 (a box's limit).
+__host__ __device__ constexpr int fp8_box_bytes(int w) {
+  for (int k = (w < 256 ? w : 256) / 16; k > 1; --k)
+    if (w % (16 * k) == 0) return 16 * k;
+  return 16;
+}
 
 // Shared-memory layout of mla_wgmma_kernel (bytes from a 1024-aligned base)
 // for rows of `na` 64-lane atoms (D / 64 latent, then ceil(DR / 64) rope) and
 // stages of `keys` keys: Q [na][64 rows][128 B], the ring kStages x [na][keys]
 // [128 B], the p tile [64][128 B], the ring's mbarriers and the Q tile's, the
-// row exchange [2][64] f32, the rows' positions, the block's (m, l) partial.
+// row exchange [2][64] f32, the rows' positions, the block's (m, l)
+// partial; fp8 caches then the fp8 ring's mbarriers and, 128-byte aligned,
+// the fp8 ring kStages x [keys][f8row bytes] (in blocks, see load_f8).
 // ops/paged_mla.py _wg_smem_bytes mirrors bytes().
 struct WgLayout {
   int na, keys;
+  int f8row = 0;  // bytes of an fp8 key row (D + DR); 0 for bf16 caches
   __host__ __device__ int stage_bytes() const { return na * keys * 128; }
   __host__ __device__ int ring() const { return na * kRows * 128; }
   __host__ __device__ int p() const { return ring() + kStages * stage_bytes(); }
@@ -236,7 +259,12 @@ struct WgLayout {
   __host__ __device__ int red() const { return bar() + (2 * kStages + 1) * 8; }
   __host__ __device__ int qpos() const { return red() + 4 * 2 * kRows; }
   __host__ __device__ int ml() const { return qpos() + 4 * kRows; }
-  __host__ __device__ size_t bytes() const { return 1024 + ml() + 4 * 2 * kRows; }
+  __host__ __device__ int f8bar() const { return ml() + 4 * 2 * kRows; }
+  __host__ __device__ int f8ring() const { return (f8bar() + kStages * 8 + 127) / 128 * 128; }
+  __host__ __device__ int f8stage_bytes() const { return keys * f8row; }
+  __host__ __device__ size_t bytes() const {
+    return 1024 + (f8row ? f8ring() + kStages * f8stage_bytes() : f8bar());
+  }
 };
 
 // Eight elements scaled in f32 and rounded to bf16, packed.
@@ -315,7 +343,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
   static_assert((size_t)(DA + 1) * 128 * (kRows + kStages * KEYS) >= sizeof(float) * (size_t)kRows * AS,
                 "the merge's partial outgrows the Q tile and the ring");
   const int DR = a.DR, NA = DA + (DR + 63) / 64;
-  const WgLayout L{NA, KEYS};
+  const WgLayout L{NA, KEYS, a.f8 ? D + DR : 0};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -323,6 +351,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bar());
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
+  uint64_t* full8 = reinterpret_cast<uint64_t*>(base + L.f8bar());  // fp8: the fp8 ring's stages landed
   float* red = reinterpret_cast<float*>(base + L.red());
   int* qpos = reinterpret_cast<int*>(base + L.qpos());
   float* m_s = reinterpret_cast<float*>(base + L.ml());
@@ -371,14 +400,57 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
       mbar_arrive_cp_async(&full[s]);
     }
   };
+  // fp8 caches: warp 0's copy of tile i into fp8 stage i % kStages, blocks
+  // [D / lb][KEYS][lb] of latent bytes, then [DR / rb][KEYS][rb] of rope
+  // bytes (f8_off). TMA: box e is block part e % nb8 of the box_rows keys at
+  // e / nb8 * box_rows; cp.async: 16-byte chunks, as load_tile's.
+  // The rope width is a constant of the unrolled (RSTEPS > 0) instantiations,
+  // so their fp8 address arithmetic folds to shifts and multiplies.
+  constexpr int lb = fp8_box_bytes(D);
+  const int DRf = RSTEPS > 0 ? RSTEPS * 16 : DR;
+  constexpr int kRopeBox = fp8_box_bytes(RSTEPS > 0 ? RSTEPS * 16 : 16);
+  const int rb = RSTEPS > 0 ? kRopeBox : fp8_box_bytes(DR), nb8 = D / lb + DRf / rb;
+  auto f8_off = [&](int j, int x) {  // byte x of key j's row in a stage
+    return x < D ? (x / lb) * (KEYS * lb) + j * lb + x % lb
+                 : KEYS * D + ((x - D) / rb) * (KEYS * rb) + j * rb + (x - D) % rb;
+  };
+  auto load_f8 = [&](int i) {
+    const int s = i % kStages, k0 = w.kbeg + i * KEYS, pmask = a.ps - 1;
+    unsigned char* st = base + L.f8ring() + s * L.f8stage_bytes();
+    if (box_rows) {
+      if (lane == 0) mbar_arrive_expect_tx(&full8[s], L.f8stage_bytes());
+      __syncwarp();
+      for (int e = lane; e < (KEYS / box_rows) * nb8; e += 32) {
+        const int run = e / nb8, part = e - run * nb8, j = run * box_rows, kpos = k0 + j;
+        const int row = trow[min(kpos >> w.sh, w.last_page)] * a.ps + (kpos & pmask);
+        if (part < D / lb) {
+          tma_load_2d(st + f8_off(j, part * lb), &tmc, part * lb, row, &full8[s]);
+        } else {
+          tma_load_2d(st + f8_off(j, D + (part - D / lb) * rb), &tmr, (part - D / lb) * rb, row, &full8[s]);
+        }
+      }
+    } else {
+      const unsigned char* cc = static_cast<const unsigned char*>(a.cc);
+      const unsigned char* rc = static_cast<const unsigned char*>(a.rc);
+      const int cpk = (D + DRf) / 16;
+      for (int e = lane; e < KEYS * cpk; e += 32) {
+        const int j = e / cpk, x = (e - j * cpk) * 16, kpos = k0 + j;
+        const size_t slot = (size_t)trow[min(kpos >> w.sh, w.last_page)] * a.ps + (kpos & pmask);
+        cp_async16(st + f8_off(j, x), x < D ? cc + slot * D + x : rc + slot * a.RW + (x - D));
+      }
+      mbar_arrive_cp_async(&full8[s]);
+    }
+  };
   if (warp == 0) {
     // Warp 0 starts the Q tile and the ring's first stage before the
     // block-wide barrier (the second would compete with Q for bandwidth).
     if (lane == 0) {
       for (int s = 0; s < kStages; ++s) {
-        // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes.
-        mbar_init(&full[s], box_rows ? 1 : 32);
+        // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes;
+        // fp8: the producer warpgroup's 128 threads, each once it converted.
+        mbar_init(&full[s], a.f8 ? 128 : box_rows ? 1 : 32);
         mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
+        if (a.f8) mbar_init(&full8[s], box_rows ? 1 : 32);
       }
       mbar_init(qbar, 1);
       mbar_init_fence();
@@ -401,7 +473,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
       }
     }
     __syncwarp();
-    if (ntiles > 0) load_tile(0);
+    if (ntiles > 0) {
+      if (a.f8) {
+        load_f8(0);
+      } else {
+        load_tile(0);
+      }
+    }
   }
   if (tid < kRows) qpos[tid] = tid < w.rows ? a.positions[(size_t)b * a.T + (w.r0 + tid) / a.H] : -1;
   __syncthreads();
@@ -411,7 +489,29 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
   if (warp < 4) {
     // ---- producer warpgroup: its warp 0 keeps the ring full ----
     setmaxnreg_dec<kProducerRegs>();
-    if (warp == 0) {
+    if (a.f8) {
+      // Convert each landed fp8 stage into the bf16 ring stage of the same
+      // index (all 128 threads), then refill the fp8 stage kStages tiles on.
+      if (warp == 0 && ntiles > 1) load_f8(1);
+      const int cpk = (D + DRf) / 8;  // 8-byte chunks of a key row
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        mbar_wait(&full8[s], (i / kStages) & 1);
+        const unsigned char* st8 = base + L.f8ring() + s * L.f8stage_bytes();
+        bf16* st = reinterpret_cast<bf16*>(base + L.ring() + s * L.stage_bytes());
+        for (int e = tid; e < KEYS * cpk; e += 128) {
+          const int j = e / cpk, c = e - j * cpk;
+          *reinterpret_cast<uint4*>(st + (c >> 3) * (KEYS * 64) + j * 64 + swz128(c & 7, j)) =
+              fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(st8 + f8_off(j, c * 8)));
+        }
+        fence_proxy_async();  // the converted stage is read by wgmma (the async proxy)
+        mbar_arrive(&full[s]);
+        named_bar_sync(kBarProducer, 128);  // every producer thread is done reading fp8 stage s
+        if (warp == 0 && i + kStages < ntiles) load_f8(i + kStages);
+      }
+      if (warp == 0 && !box_rows) cp_async_wait<0>();
+    } else if (warp == 0) {
       for (int i = 1; i < ntiles; ++i) {
         if (i >= kStages) mbar_wait(&empty[i % kStages], ((i / kStages) - 1) & 1);
         load_tile(i);
@@ -458,7 +558,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
     auto issue_scores = [&](int i) {
       const int s = i % kStages;
       mbar_wait(&full[s], (i / kStages) & 1);
-      if (!box_rows) fence_proxy_async();  // cp.async writes are the generic proxy's
+      if (!box_rows || a.f8) fence_proxy_async();  // cp.async and converted stages are the generic proxy's
       const uint32_t kst = ring_addr + s * L.stage_bytes();
       auto score_step = [&](int kk) {
         const uint32_t off = (kk & 3) * 32;  // 16-lane step inside the 128-byte row
@@ -889,16 +989,27 @@ cudaError_t launch_clustered(K kern, const MlaArgs& a, int B, int rows, int thre
 template <int D, int KEYS, int RSTEPS>
 cudaError_t launch_wgmma(const MlaArgs& a, int B, int P, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  const WgLayout L{D / 64 + (a.DR + 63) / 64, KEYS};
+  const WgLayout L{D / 64 + (a.DR + 63) / 64, KEYS, a.f8 ? D + a.DR : 0};
   auto kern = mla_wgmma_kernel<D, KEYS, RSTEPS>;
-  // Latent and rope tiles by TMA where the page size allows 8-row boxes
-  // and the rope stream is a box wide, else cp.async. A tensor map the
-  // driver refuses is an error, never a silent switch to cp.async.
+  // Latent and rope tiles by TMA where the page size allows a box (bf16: 8
+  // rows into the swizzle, the rope stream a box wide; fp8: every box
+  // landing 128-byte aligned), else cp.async. A tensor map the driver
+  // refuses is an error, never a silent switch to cp.async.
   CUtensorMap tmc{}, tmr{}, tmq{}, tmqr{};
-  const int box_rows = a.RW >= 64 ? tma_box_rows(a.ps, KEYS) : 0;
-  if (box_rows && !(encode_cache_map(&tmc, a.cc, (long long)P * a.ps, D, box_rows) &&
-                    encode_cache_map(&tmr, a.rc, (long long)P * a.ps, a.RW, box_rows)))
-    return cudaErrorNotSupported;
+  const long long cache_rows = (long long)P * a.ps;
+  int box_rows;
+  if (a.f8) {
+    const int lb = fp8_box_bytes(D), rb = fp8_box_bytes(a.DR), r = std::gcd(a.ps, KEYS);
+    box_rows = (r * lb) % 128 == 0 && (r * rb) % 128 == 0 ? r : 0;
+    if (box_rows && !(encode_map(&tmc, a.cc, cache_rows, D, true, lb, box_rows) &&
+                      encode_map(&tmr, a.rc, cache_rows, a.RW, true, rb, box_rows)))
+      return cudaErrorNotSupported;
+  } else {
+    box_rows = a.RW >= 64 ? tma_box_rows(a.ps, KEYS) : 0;
+    if (box_rows && !(encode_cache_map(&tmc, a.cc, cache_rows, D, box_rows) &&
+                      encode_cache_map(&tmr, a.rc, cache_rows, a.RW, box_rows)))
+      return cudaErrorNotSupported;
+  }
   // bf16 queries whose rope lanes fill whole boxes arrive by TMA too.
   const int q_tma = !a.q_f32 && a.DR % 64 == 0;
   const long long rows = (long long)B * a.T * a.H;
@@ -937,19 +1048,20 @@ extern "C" int dyn_paged_mla(const void* q_lat, const void* q_rope, const void* 
   if (S < 1 || S > kMaxSplits || (D != 128 && D != 512) || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
   const MlaArgs a{q_lat, q_rope, c_cache, r_cache, tables, positions, walk_max, walk_first, out,
-                  T, H, DR, RW, ps, N, S, bps, q_dtype == 0, scale};
-  if (cache_dtype == 1) {
-    // 64-key stages where they fit the shared memory, else 32 (wider rows);
-    // ops/paged_mla.py _tile_keys makes the same choice.
-    const int na = D / 64 + (DR + 63) / 64;
-    const int keys = WgLayout{na, 64}.bytes() <= kMaxSmem ? 64 : 32;
-    if (WgLayout{na, keys}.bytes() > kMaxSmem) return (int)cudaErrorInvalidValue;
+                  T, H, DR, RW, ps, N, S, bps, q_dtype == 0, scale, cache_dtype == 2};
+  if (cache_dtype == 1 || cache_dtype == 2) {
+    // 64-key stages where they fit the shared memory, else 32 (wider rows,
+    // fp8 at D = 512); ops/paged_mla.py _tile_keys makes the same choice.
+    const int na = D / 64 + (DR + 63) / 64, f8row = a.f8 ? D + DR : 0;
+    const int keys = WgLayout{na, 64, f8row}.bytes() <= kMaxSmem ? 64 : 32;
+    if (WgLayout{na, keys, f8row}.bytes() > kMaxSmem) return (int)cudaErrorInvalidValue;
     // The rope width of every serving geometry (64) gets an unrolled score product.
     if (D == 512) {
-      if (DR == 64) return (int)launch_wgmma<512, 64, 4>(a, B, P, st);
+      if (DR == 64)
+        return (int)(keys == 64 ? launch_wgmma<512, 64, 4>(a, B, P, st) : launch_wgmma<512, 32, 4>(a, B, P, st));
       return (int)(keys == 64 ? launch_wgmma<512, 64, 0>(a, B, P, st) : launch_wgmma<512, 32, 0>(a, B, P, st));
     }
-    if (DR == 64) return (int)launch_wgmma<128, 64, 4>(a, B, P, st);
+    if (DR == 64 && keys == 64) return (int)launch_wgmma<128, 64, 4>(a, B, P, st);
     return (int)(keys == 64 ? launch_wgmma<128, 64, 0>(a, B, P, st) : launch_wgmma<128, 32, 0>(a, B, P, st));
   }
   if (cache_dtype == 0) return (int)(D == 512 ? launch_f32<512>(a, B, st) : launch_f32<128>(a, B, st));

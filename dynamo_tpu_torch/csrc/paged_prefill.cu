@@ -45,6 +45,16 @@
 // block streams its KV head's whole causal history from L2), then the
 // consumers' softmax and the two products, which the two warpgroups overlap
 // only with each other.
+// fp8 e4m3 caches (pallas_prefill.py:189, the cache read at 1 byte an
+// element, the matmuls in bf16): the same kernel, prefill_wgmma_kernel<F8 =
+// true>, with a producer warpgroup. Its first warp keeps a second, fp8 ring
+// full (TMA boxes of whole head-strip rows, unswizzled, or cp.async); all
+// four warps (one on each SM sub-partition, whose conversion units they
+// share) convert each landed fp8 tile (fp8x8_to_bf16x8, exact) into the
+// bf16 ring stage in the swizzled layout the wgmma descriptors read, while
+// the consumers work on earlier stages. setmaxnreg hands the producers'
+// registers to the consumers, which run unchanged: queries and p in bf16 as
+// the TPU kernel keeps them (pallas_prefill.py:277, :210).
 // f32 caches, which exist to check the algorithm without bf16 rounding, run
 // a register-tiled scalar-FMA kernel (prefill_kernel) of 64-row blocks.
 
@@ -246,37 +256,46 @@ constexpr int kConsumers = 2;                       // consumer warpgroups
 constexpr int kBlockRows = kWgRows * kConsumers;    // 128 (ops/paged_prefill.py BLOCK_ROWS_BF16)
 constexpr int kProducerWarp = 4 * kConsumers;       // warp index of the producer
 constexpr int kWgThreads = 128 * kConsumers + 32;
+constexpr int kWgThreadsF8 = 128 * (kConsumers + 1);  // fp8: a producer warpgroup
+constexpr int kF8ProducerRegs = 56;                    // registers a thread after setmaxnreg (fp8): producers
+constexpr int kF8ConsumerRegs = 224;                   // and consumers (128 x 56 + 256 x 224 = 384 x 168)
 constexpr int kTileKeys = 128;                      // keys per ring stage (ops/paged_prefill.py TILE_KEYS)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory layout (bytes from a 1024-aligned base): Q [CH][128 rows][64],
-// kStages x (K [CH][TK keys][64], V [CH][TK][64]), full/empty mbarriers, the
-// position scan, then the page ids of the walk (one per table entry at most).
-// ops/paged_prefill.py _smem_bytes mirrors bytes().
-template <int HD>
+// kStages x (K [CH][TK keys][64], V [CH][TK][64]), fp8 caches: kF8Stages x
+// (K [TK][HD], V [TK][HD]) bytes; full/empty mbarriers (fp8: and the fp8
+// ring's), the position scan, then the page ids of the walk (one per table
+// entry at most). ops/paged_prefill.py _smem_bytes mirrors bytes().
+template <int HD, bool F8>
 struct WgSmem {
   static constexpr int CH = HD / 64;  // 64-column atoms per row
   static constexpr int kStages = HD == 64 ? 4 : 2;  // ops/paged_prefill.py _stages
+  static constexpr int kF8Stages = F8 ? (HD == 64 ? 2 : 1) : 0;  // ops/paged_prefill.py _fp8_stages
   static constexpr int kQBytes = CH * kBlockRows * 128;
   static constexpr int kHalf = CH * kTileKeys * 128;  // K (or V) of one stage
   static constexpr int kStageBytes = 2 * kHalf;
-  static constexpr int kBar = kQBytes + kStages * kStageBytes;
-  static constexpr int kSpan = kBar + 2 * kStages * 8;
+  static constexpr int kF8Ring = kQBytes + kStages * kStageBytes;
+  static constexpr int kF8StageBytes = 2 * kTileKeys * HD;
+  static constexpr int kBar = kF8Ring + kF8Stages * kF8StageBytes;
+  static constexpr int kSpan = kBar + (2 * kStages + kF8Stages) * 8;
   static constexpr int kPids = kSpan + 16;
   static size_t bytes(int table_width) { return 1024 + kPids + sizeof(int) * (size_t)table_width; }
 };
 
 static_assert(kTileKeys == 128, "the score product is one wgmma m64n128k16 per 16-deep step");
 
-template <typename QT, int HD>
-__global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
-    const QT* __restrict__ q, const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+template <typename QT, int HD, bool F8>
+__global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgmma_kernel(
+    const QT* __restrict__ q, const unsigned char* __restrict__ kc, const unsigned char* __restrict__ vc,
     const int* __restrict__ tables, const int* __restrict__ positions, QT* __restrict__ out,
     int T, int H, int n_kv, int ps, int N, float scale, const __grid_constant__ CUtensorMap tmk,
     const __grid_constant__ CUtensorMap tmv, int box_rows) {
-  using L = WgSmem<HD>;
+  using L = WgSmem<HD, F8>;
   constexpr int CH = L::CH;
   constexpr int kStages = L::kStages;
+  constexpr int kF8Stages = L::kF8Stages;
+  constexpr int NT = F8 ? kWgThreadsF8 : kWgThreads;
   constexpr int CPR = HD / 8;          // 16-byte chunks per row
   constexpr int NJ = kTileKeys / 8;    // n8 column groups of a score tile
   constexpr int PK = kTileKeys / 16;   // 16-key steps of p.V
@@ -289,6 +308,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
   uint64_t* empty = full + kStages;
+  uint64_t* full8 = empty + kStages;  // fp8: the fp8 ring's stages landed
   int* span = reinterpret_cast<int*>(base + L::kSpan);
   int* pids = reinterpret_cast<int*>(base + L::kPids);
 
@@ -300,18 +320,19 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
   if (tid == 0) {
     span[0] = 0;
     for (int s = 0; s < kStages; ++s) {
-      // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes,
-      // each once its copies land.
-      mbar_init(&full[s], box_rows ? 1 : 32);
+      // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes;
+      // fp8 (the converted tile): the producer warpgroup's 128 threads.
+      mbar_init(&full[s], F8 ? 128 : box_rows ? 1 : 32);
       mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
     }
+    for (int s = 0; s < kF8Stages; ++s) mbar_init(&full8[s], box_rows ? 1 : 32);
     mbar_init_fence();
   }
   __syncthreads();
   const int start = prow[0];
   const int t0 = qi * TQ;
   int mx = 0;
-  for (int t = tid; t < T; t += kWgThreads) mx = max(mx, prow[t]);
+  for (int t = tid; t < T; t += NT) mx = max(mx, prow[t]);
   {
     // Page ids of every tile the walk can reach (kend <= start + t0 + TQ),
     // staged while the position scan is in flight; an entry past the row's
@@ -319,7 +340,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
     const int* trow = tables + (size_t)b * N;
     const int tiles = (max(start + t0 + TQ, 1) + kTileKeys - 1) / kTileKeys;
     const int np = min(N, (tiles * kTileKeys - 1) / ps + 1);
-    for (int j = tid; j < np; j += kWgThreads) pids[j] = trow[j];
+    for (int j = tid; j < np; j += NT) pids[j] = trow[j];
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -331,46 +352,59 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
   const int ntiles = has_work ? (kend + kTileKeys - 1) / kTileKeys : 0;
   const int last_page = min((kv_len - 1) / ps, N - 1);
 
-  if (warp == kProducerWarp) {
+  if (warp >= kProducerWarp) {  // the producer warp (fp8: warpgroup; its first warp loads)
     if (ntiles == 0) return;
+    if constexpr (F8) setmaxnreg_dec<kF8ProducerRegs>();
+    const bool loader = warp == kProducerWarp;
     const PageWalk pw(ps, last_page);
     // TMA: lane l loads box l of the tile's K and V (kTileKeys / box_rows
     // boxes of box_rows keys per 64-column atom).
-    const int nbox = box_rows ? (kTileKeys / box_rows) * CH : 0;
+    const int nbox = box_rows ? (kTileKeys / box_rows) * (F8 ? 1 : CH) : 0;
+    // bf16: into ring stage i % kStages; fp8: into fp8 stage i % kF8Stages.
     auto tma_tile = [&](int i, auto pow2) {
-      const int s = i % kStages;
-      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + s * L::kStageBytes);
+      uint64_t* bar = F8 ? &full8[i % kF8Stages] : &full[i % kStages];
+      unsigned char* st = F8 ? base + L::kF8Ring + (i % kF8Stages) * L::kF8StageBytes
+                             : base + L::kQBytes + (i % kStages) * L::kStageBytes;
       for (int e = lane; e < nbox; e += 32) {
-        const int a = e % CH, j = (e / CH) * box_rows;
-        const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
-        const int dst = a * (kTileKeys * 64) + j * 64;
-        tma_load_2d(ks + dst, &tmk, kvh * HD + a * 64, row, &full[s]);
-        tma_load_2d(ks + L::kHalf / 2 + dst, &tmv, kvh * HD + a * 64, row, &full[s]);
+        if constexpr (F8) {
+          const int j = e * box_rows;
+          const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
+          tma_load_2d(st + j * HD, &tmk, kvh * HD, row, bar);
+          tma_load_2d(st + kTileKeys * HD + j * HD, &tmv, kvh * HD, row, bar);
+        } else {
+          const int a = e % CH, j = (e / CH) * box_rows;
+          const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
+          const int dst = 2 * (a * (kTileKeys * 64) + j * 64);
+          tma_load_2d(st + dst, &tmk, kvh * HD + a * 64, row, bar);
+          tma_load_2d(st + L::kHalf + dst, &tmv, kvh * HD + a * 64, row, bar);
+        }
       }
     };
-    // cp.async: lane l copies 16-byte chunk c = l % CPR of keys l / CPR,
-    // + 32 / CPR, ... into the swizzled layout.
-    constexpr int KPI = 32 / CPR;  // keys per pass of the warp
-    const int c = lane % CPR;
-    const size_t col = (size_t)kvh * HD + c * 8;
+    // cp.async: lane l copies 16-byte chunk c = l % C16 of keys l / C16,
+    // + 32 / C16, ... (bf16: into the swizzled layout; fp8: packed rows).
+    constexpr int kElem = F8 ? 1 : 2;
+    constexpr int C16 = HD * kElem / 16;  // 16-byte chunks per row
+    constexpr int KPI = 32 / C16;  // keys per pass of the warp
+    const int c = lane % C16;
+    const size_t col = (size_t)kvh * HD * kElem + c * 16;  // bytes into a cache row
     const int dcol = (c >> 3) * (kTileKeys * 64);
     auto copy_tile = [&](int i, auto pow2) {
-      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + (i % kStages) * L::kStageBytes);
-      __nv_bfloat16* vs = ks + L::kHalf / 2;
+      unsigned char* ks = F8 ? base + L::kF8Ring + (i % kF8Stages) * L::kF8StageBytes
+                             : base + L::kQBytes + (i % kStages) * L::kStageBytes;
+      unsigned char* vs = ks + (F8 ? kTileKeys * HD : L::kHalf);
 #pragma unroll 8
       for (int j0 = 0; j0 < kTileKeys; j0 += KPI) {
-        const int j = j0 + lane / CPR;
-        const size_t off = pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j) * W + col;
-        const int dst = dcol + j * 64 + swz128(c & 7, j);
+        const int j = j0 + lane / C16;
+        const size_t off = pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j) * W * kElem + col;
+        const int dst = F8 ? j * HD + c * 16 : 2 * (dcol + j * 64 + swz128(c & 7, j));
         cp_async16(ks + dst, kc + off);
         cp_async16(vs + dst, vc + off);
       }
     };
-    for (int i = 0; i < ntiles; ++i) {
-      const int s = i % kStages;
-      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+    auto load = [&](int i) {  // tile i's copies, completing its (bf16 or fp8) stage's full barrier
+      uint64_t* bar = F8 ? &full8[i % kF8Stages] : &full[i % kStages];
       if (box_rows) {
-        if (lane == 0) mbar_arrive_expect_tx(&full[s], L::kStageBytes);
+        if (lane == 0) mbar_arrive_expect_tx(bar, F8 ? L::kF8StageBytes : L::kStageBytes);
         __syncwarp();
         if (pw.pow2) {
           tma_tile(i, Bool<true>());
@@ -383,7 +417,38 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
         } else {
           copy_tile(i, Bool<false>());
         }
-        mbar_arrive_cp_async(&full[s]);
+        mbar_arrive_cp_async(bar);
+      }
+    };
+    if constexpr (F8) {
+      if (loader)
+        for (int i = 0; i < kF8Stages && i < ntiles; ++i) load(i);
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      if constexpr (F8) {
+        // Convert the landed fp8 tile into ring stage s (all 128 producer
+        // threads), then refill its fp8 stage.
+        const int f = i % kF8Stages;
+        mbar_wait(&full8[f], (i / kF8Stages) & 1);
+        const unsigned char* k8 = base + L::kF8Ring + f * L::kF8StageBytes;
+        __nv_bfloat16* kd = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + s * L::kStageBytes);
+        constexpr int CPR8 = HD / 8;  // 8-element chunks per row
+#pragma unroll 4
+        for (int e = tid - kProducerWarp * 32; e < kTileKeys * CPR8; e += 128) {
+          const int j = e / CPR8, cc = e - j * CPR8;
+          const int dst = (cc >> 3) * (kTileKeys * 64) + j * 64 + swz128(cc & 7, j);
+          *reinterpret_cast<uint4*>(kd + dst) = fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + j * HD + cc * 8));
+          *reinterpret_cast<uint4*>(kd + L::kHalf / 2 + dst) =
+              fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + kTileKeys * HD + j * HD + cc * 8));
+        }
+        fence_proxy_async();  // the converted tile is read by wgmma (the async proxy)
+        mbar_arrive(&full[s]);
+        named_bar_sync(2, 128);  // every producer thread is done reading fp8 stage f
+        if (loader && i + kF8Stages < ntiles) load(i + kF8Stages);
+      } else {
+        load(i);
       }
     }
     cp_async_wait<0>();
@@ -401,6 +466,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
     }
     return;
   }
+  if constexpr (F8) setmaxnreg_inc<kF8ConsumerRegs>();
   // Queries: scaled in f32, rounded to bf16, swizzled.
   for (int e = tid; e < kBlockRows * CPR; e += 128 * kConsumers) {
     const int r = e / CPR, c = e - r * CPR, t = t0 + r / G;
@@ -441,7 +507,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) prefill_wgmma_kernel(
       if (lane == 0) mbar_arrive(&empty[s]);
       continue;
     }
-    if (!box_rows) fence_proxy_async();  // cp.async writes are the generic proxy's
+    if (F8 || !box_rows) fence_proxy_async();  // cp.async and converted tiles are the generic proxy's
     const uint32_t k_addr = ring + s * L::kStageBytes;
     fence_regs(sc);
     wgmma_fence();
@@ -572,23 +638,26 @@ template <typename CT, typename QT, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables, const int* positions,
                    void* out, int B, int T, int H, int n_kv, int ps, int N, int P, float scale, cudaStream_t stream) {
   const int G = H / n_kv;
-  if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<CT, float>::value) {
+    constexpr bool F8 = std::is_same<CT, __nv_fp8_e4m3>::value;
     static size_t allowed = 48 * 1024;
-    const size_t smem = WgSmem<HD>::bytes(N);
-    auto kern = prefill_wgmma_kernel<QT, HD>;
-    // K/V tiles by TMA where the page size allows 8-row boxes, else
-    // cp.async. A tensor map the driver refuses is an error, never a silent
-    // switch to the cp.async path.
+    const size_t smem = WgSmem<HD, F8>::bytes(N);
+    auto kern = prefill_wgmma_kernel<QT, HD, F8>;
+    // K/V tiles by TMA where the page size allows a box (bf16: 8 rows into
+    // the swizzle; fp8: rows landing 128-byte aligned), else cp.async. A
+    // tensor map the driver refuses is an error, never a silent switch to
+    // the cp.async path.
     CUtensorMap tmk{}, tmv{};
-    const int box_rows = tma_box_rows(ps, kTileKeys);
-    if (box_rows && !(encode_cache_map(&tmk, k, (long long)P * ps, n_kv * HD, box_rows) &&
-                      encode_cache_map(&tmv, v, (long long)P * ps, n_kv * HD, box_rows)))
+    const int box_rows = F8 ? tma_box_rows_fp8(ps, kTileKeys, HD) : tma_box_rows(ps, kTileKeys);
+    const long long rows = (long long)P * ps;
+    if (box_rows && !(encode_map(&tmk, k, rows, n_kv * HD, F8, F8 ? HD : 64, box_rows) &&
+                      encode_map(&tmv, v, rows, n_kv * HD, F8, F8 ? HD : 64, box_rows)))
       return cudaErrorNotSupported;
     const cudaError_t e = allow_smem(kern, smem, allowed);
     if (e != cudaSuccess) return e;
     const int tq = kBlockRows / G;
-    kern<<<dim3(n_kv, (T + tq - 1) / tq, B), kWgThreads, smem, stream>>>(
-        static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+    kern<<<dim3(n_kv, (T + tq - 1) / tq, B), F8 ? kWgThreadsF8 : kWgThreads, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
         tables, positions, static_cast<QT*>(out), T, H, n_kv, ps, N, scale, tmk, tmv, box_rows);
     return cudaGetLastError();
   } else {
@@ -625,6 +694,10 @@ extern "C" int dyn_paged_prefill(const void* q, const void* k, const void* v, co
   DYN_PREFILL_CASE(0, 0, 128, float, float)
   DYN_PREFILL_CASE(0, 1, 64, float, __nv_bfloat16)
   DYN_PREFILL_CASE(0, 1, 128, float, __nv_bfloat16)
+  DYN_PREFILL_CASE(2, 1, 64, __nv_fp8_e4m3, __nv_bfloat16)
+  DYN_PREFILL_CASE(2, 1, 128, __nv_fp8_e4m3, __nv_bfloat16)
+  DYN_PREFILL_CASE(2, 0, 64, __nv_fp8_e4m3, float)
+  DYN_PREFILL_CASE(2, 0, 128, __nv_fp8_e4m3, float)
 #undef DYN_PREFILL_CASE
   return (int)cudaErrorInvalidValue;
 }

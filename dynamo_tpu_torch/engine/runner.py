@@ -25,7 +25,7 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_cache_widths
-from dynamo_tpu_torch.ops.attention import NEG_INF, attention_phase, noncontiguous_rows
+from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, NEG_INF, attention_phase, noncontiguous_rows
 from dynamo_tpu_torch.ops.paged_decode import decode_kernel_supported
 from dynamo_tpu_torch.ops.paged_mla import paged_mla_supported
 from dynamo_tpu_torch.ops.paged_prefill import prefill_kernel_supported
@@ -98,6 +98,8 @@ class TorchModelRunner:
         self.last_attn_dispatch: tuple[str, str] | None = None
         self._attn_path = "kernel" if self.device.type == "cuda" else "plain"
         dt = cache_dtype or llama.param_dtype(cfg)
+        if dt not in CACHE_DTYPES:
+            raise ValueError(f"unsupported KV cache dtype {dt} (want {', '.join(map(str, CACHE_DTYPES))})")
         if self.device.type == "cuda":
             self._check_kernels_take(cfg, dt, page_size)
         self.params = _to_device(params, self.device)
@@ -108,8 +110,9 @@ class TorchModelRunner:
     @staticmethod
     def _check_kernels_take(cfg: ModelConfig, cache_dtype: torch.dtype, page_size: int) -> None:
         """On the card every step's attention runs in a kernel (``paged_mla``
-        for an MLA model, the decode and prefill kernels for GQA); refuse a
-        model whose geometry they do not take before allocating anything."""
+        for an MLA model, the decode and prefill kernels for GQA; their fp8
+        forms for an fp8 cache); refuse a model whose geometry or cache type
+        they do not take before allocating anything."""
         kw = dict(q_dtype=llama.param_dtype(cfg), cache_dtype=cache_dtype)
         if cfg.attn_type == "mla":
             r_kv, r_width = mla_cache_widths(cfg)
@@ -209,9 +212,10 @@ class TorchModelRunner:
             slots.astype(np.int32).ravel(), padded.last_token_index.astype(np.int32),
             padded.temperature.astype(np.float32).view(np.int32),
             padded.top_k.astype(np.int32), padded.top_p.astype(np.float32).view(np.int32),
+            padded.seeds.astype(np.uint32).view(np.int32), padded.sample_steps.astype(np.int32),
         ])
         dev = torch.from_numpy(packed).to(self.device)
-        sizes = [b * t, b * t, b * n, b * t, b, b, b, b]
+        sizes = [b * t, b * t, b * n, b * t, b, b, b, b, b, b]
         parts = torch.split(dev, sizes)
         tokens = parts[0].view(b, t)
         positions = parts[1].view(b, t)
@@ -221,6 +225,7 @@ class TorchModelRunner:
         temperature = parts[5].view(torch.float32)
         top_k = parts[6]
         top_p = parts[7].view(torch.float32)
+        seeds, sample_steps = parts[8], parts[9]
         with torch.inference_mode():
             logits, _, _ = llama.forward(
                 self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache,
@@ -233,7 +238,7 @@ class TorchModelRunner:
             gumbel = None
             if (padded.temperature > 0).any():
                 width = min(CANDIDATES, logits.shape[-1])
-                gumbel = gumbel_noise(padded.seeds, padded.sample_steps, padded.temperature, width).to(self.device)
+                gumbel = gumbel_noise(seeds, sample_steps, temperature, width)
             pen = {}
             if padded.freq_pen.any() or padded.pres_pen.any():
                 pen = dict(

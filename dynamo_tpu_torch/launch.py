@@ -14,7 +14,9 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
 - :func:`run_local` — N workers and the frontend in one process over the
   in-memory runtime, round-robin, random or KV-routed.
 - CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
-  --router-mode kv --http-port 8080`` (``--platform cpu`` runs on the CPU).
+  --router-mode kv --http-port 8080`` (``--platform cpu`` runs on the CPU;
+  ``--kv-cache-dtype fp8``, or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV
+  cache as fp8 e4m3, served by the kernels' fp8 forms).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 from typing import Any
 
 import torch
@@ -56,6 +59,25 @@ logger = logging.getLogger(__name__)
 CONTEXT_LENGTH_CAP = 4096  # the JAX build's preset card: min(max_position, 4096)
 
 
+def _kv_cache_dtype():
+    """Resolve DYN_KV_CACHE_DTYPE / DYN_WORKER_KV_CACHE_DTYPE to a torch dtype.
+
+    'bf16' (or unset) -> None: the runner keeps its model-dtype default.
+    'fp8' -> float8_e4m3fn storage; every attention path upcasts fp8 KV to
+    bf16 (the kernels) or the query dtype (the reference path) at the
+    matmul, so this only changes the cache's footprint and rounding.
+    """
+    name = (
+        os.environ.get("DYN_KV_CACHE_DTYPE")
+        or os.environ.get("DYN_WORKER_KV_CACHE_DTYPE", "")
+    ).strip().lower()
+    if name in ("", "bf16", "bfloat16"):
+        return None
+    if name in ("fp8", "float8_e4m3fn", "fp8_e4m3"):
+        return torch.float8_e4m3fn
+    raise ValueError(f"unsupported kv cache dtype: {name!r} (want bf16 or fp8)")
+
+
 async def build_engine_service(
     model: str,
     *,
@@ -72,10 +94,14 @@ async def build_engine_service(
     without them the weights are random-init from ``seed``. ``engine_kw``
     overrides :class:`EngineConfig` fields; the defaults are the JAX build's
     for a preset (byte-tokenizer EOS, 16-token pages, context capped at
-    4096). Raises without a GPU unless ``device="cpu"``."""
+    4096). ``cache_dtype`` None takes :func:`_kv_cache_dtype` (the
+    environment; unset keeps the model's dtype). Raises without a GPU unless
+    ``device="cpu"``."""
     if model not in PRESETS:
         raise ValueError(f"unknown preset {model!r} (ported presets: {', '.join(PRESETS)})")
     dev = resolve_device(device)
+    if cache_dtype is None:
+        cache_dtype = _kv_cache_dtype()
     cfg = PRESETS[model]
     config = EngineConfig(**{
         "max_seq_len": min(cfg.max_position, CONTEXT_LENGTH_CAP),
@@ -309,6 +335,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--input", default="http", choices=["http"], help="only 'http' is ported")
     parser.add_argument("--platform", default=None, choices=["cuda", "cpu"],
                         help="device to serve on (default: the card)")
+    parser.add_argument("--kv-cache-dtype", default="bf16", choices=["bf16", "fp8"],
+                        help="KV-cache storage dtype; fp8 halves KV memory (attention upcasts at the matmul)")
     return parser
 
 
@@ -323,6 +351,8 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda", 
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"not supported by dynamo_tpu_torch yet: {' '.join(unknown)}")
+    if args.kv_cache_dtype != "bf16":
+        os.environ["DYN_WORKER_KV_CACHE_DTYPE"] = args.kv_cache_dtype
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     asyncio.run(_amain(args, device=device, seed=seed, params=params))
 

@@ -73,6 +73,20 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def kv_bytes_per_token(self, itemsize: int | None = None) -> int:
+        """Bytes of KV cache per token across all layers (2 = K and V; MLA
+        caches one latent + rope key instead). ``itemsize`` overrides the
+        dtype-derived cache element size (e.g. a bf16 cache for an f32
+        model, or 1 for an fp8 cache)."""
+        if itemsize is None:
+            itemsize = 2 if self.dtype == "bfloat16" else 4
+        if self.attn_type == "mla":
+            from .mla import mla_cache_widths  # mla imports this module
+
+            # Physical bytes: the latent and the padded rope stream.
+            return self.num_layers * sum(mla_cache_widths(self)) * itemsize
+        return 2 * self.num_layers * self.kv_dim * itemsize
+
 
 PRESETS: dict[str, ModelConfig] = {
     # Small enough for fast CPU unit tests, large enough to exercise GQA + paging.

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops.attention import NEG_INF
+from dynamo_tpu_torch.ops.attention import NEG_INF, store_rows
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.paged_mla import paged_mla
 from dynamo_tpu_torch.ops.rope import apply_rope
@@ -103,12 +103,11 @@ def mla_attention(
     kv_a = h @ lp["w_kv_a"]  # [B, T, r_kv + dr]
     c = rms_norm(kv_a[..., :r_kv], lp["kv_norm"], eps=cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., None, r_kv:], positions, inv_freq)[:, :, 0]  # [B, T, dr]
-    num_pages, ps, r_width = r_cache.shape
+    r_width = r_cache.shape[2]
     slots = slot_mapping.reshape(-1).long()
-    c_cache.view(num_pages * ps, r_kv).index_copy_(0, slots, c.reshape(-1, r_kv).to(c_cache.dtype))
+    store_rows(c_cache, slots, c.reshape(-1, r_kv))
     # The rope stream is lane-padded (mla_cache_widths): zero-fill the tail.
-    k_rope_store = torch.nn.functional.pad(k_rope.reshape(-1, dr), (0, r_width - dr))
-    r_cache.view(num_pages * ps, r_width).index_copy_(0, slots, k_rope_store.to(r_cache.dtype))
+    store_rows(r_cache, slots, torch.nn.functional.pad(k_rope.reshape(-1, dr), (0, r_width - dr)))
 
     # -- queries, absorbed into latent space -------------------------------
     q_nope, q_rope = _queries(lp, cfg, h, positions, inv_freq)

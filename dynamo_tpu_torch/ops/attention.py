@@ -25,6 +25,38 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30  # large-but-finite: avoids NaN from (-inf) - (-inf) in masked softmax
+FP8 = torch.float8_e4m3fn  # the fp8 KV cache's storage type (launch.py --kv-cache-dtype fp8)
+CACHE_DTYPES = (torch.bfloat16, torch.float32, FP8)  # the KV cache types every kernel takes
+FP8_NAN_ABOVE = 464.0  # |x| past the midpoint of 448 (the largest e4m3fn) and 480 rounds to NaN
+
+
+def to_fp8_like_jax(x: torch.Tensor) -> torch.Tensor:
+    """``x.astype(float8_e4m3fn)`` as JAX computes it, on ``x``'s device:
+    round to nearest even, and NaN (0x7F, or 0xFF below zero) for every
+    |x| > 464 and for infinities and NaNs, where ``.to()`` saturates to
+    ±448 on some builds. Bitwise equal to JAX's cast on every input
+    (``tests/test_torch_fp8.py``, and on the card ``chip_smoke.py``)."""
+    bits = x.to(FP8).view(torch.uint8)  # its sign bit is x's, NaN and saturated values alike
+    # Five elementwise launches: a serving step casts every layer's K and V.
+    return torch.where(x.abs() <= FP8_NAN_ABOVE, bits, bits | 0x7F).view(FP8)
+
+
+def stage_dtype(cache_dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels stage pre-scaled queries in and round p to before
+    p.V: the cache's own, or bf16 for an fp8 cache (the TPU kernels upcast
+    fp8 K/V to bf16 and keep the queries in bf16: pallas_paged.py:485-487)."""
+    return cache_dtype if cache_dtype.itemsize >= 2 else torch.bfloat16
+
+
+def store_rows(cache: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> None:
+    """``cache.view(-1, W)[slots] = rows`` in place (``index_copy_``), cast to
+    the cache's type as JAX casts (fp8: :func:`to_fp8_like_jax`, copied as
+    bytes, which ``index_copy_`` takes on every device)."""
+    w = cache.shape[-1]
+    if cache.dtype == FP8:
+        cache.view(torch.uint8).view(-1, w).index_copy_(0, slots, to_fp8_like_jax(rows).view(torch.uint8))
+    else:
+        cache.view(-1, w).index_copy_(0, slots, rows.to(cache.dtype))
 
 
 def gather_pages(cache: torch.Tensor, block_tables: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -56,6 +88,8 @@ def paged_attention_reference(
     k = gather_pages(k_cache, block_tables, n_kv)  # [B, S, n_kv, hd]
     v = gather_pages(v_cache, block_tables, n_kv)
     s = k.shape[1]
+    if k.dtype.itemsize < 2:  # fp8 KV cache: matmuls run in the query dtype, as in the JAX build
+        k, v = k.to(q.dtype), v.to(q.dtype)
     qg = (q * scale).to(q.dtype).reshape(b, t, n_kv, group, head_dim)
     logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
     key_pos = torch.arange(s, device=q.device, dtype=torch.int32)
@@ -73,14 +107,14 @@ def write_kv(
     new_v: torch.Tensor,
     slot_mapping: torch.Tensor,  # [B, T] flat slot = page_id * page_size + offset (0 for padding)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter new K/V into the paged cache **in place** (``index_copy_`` on
-    the flat ``[pages * ps, W]`` view) and return the same cache tensors.
+    """Scatter new K/V into the paged cache **in place** (:func:`store_rows`
+    on the flat ``[pages * ps, W]`` view) and return the same cache tensors.
     Padding tokens carry slot 0 (the null page): their overlapping writes are
     harmless."""
-    num_pages, page_size, w = k_cache.shape
+    w = k_cache.shape[-1]
     slots = slot_mapping.reshape(-1).long()
-    k_cache.view(num_pages * page_size, w).index_copy_(0, slots, new_k.reshape(-1, w).to(k_cache.dtype))
-    v_cache.view(num_pages * page_size, w).index_copy_(0, slots, new_v.reshape(-1, w).to(v_cache.dtype))
+    store_rows(k_cache, slots, new_k.reshape(-1, w))
+    store_rows(v_cache, slots, new_v.reshape(-1, w))
     return k_cache, v_cache
 
 

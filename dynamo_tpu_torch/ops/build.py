@@ -29,8 +29,12 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    # Optimise a source's kernels in parallel threads: paged_mla.cu's nine
+    # instantiations are the build's long pole, and the build counts against
+    # chip_smoke.py's time.
+    "--split-compile=0",
 )
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point and argument types of each kernel library.
@@ -46,6 +50,11 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     "paged_mla": (
         "dyn_paged_mla",
         [_P] * 9 + [_I] * 13 + [_F, _P],
+    ),
+    # The fp8 kernels' on-chip e4m3 -> bf16 conversion alone, for checks.
+    "fp8_convert": (
+        "dyn_fp8_to_bf16",
+        [_P, _P, _I, _P],
     ),
 }
 

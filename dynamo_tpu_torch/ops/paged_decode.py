@@ -22,29 +22,37 @@ import functools
 import torch
 
 from dynamo_tpu_torch.ops import build
-from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
+from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, FP8, NEG_INF, gather_pages, stage_dtype
 
 BLOCK_TOKENS = 64  # keys per kernel iteration (csrc/paged_decode.cu kBlockTokens)
 STAGES = 4  # bf16 kernel's K/V ring depth (csrc/paged_decode.cu kStages)
+STAGES_FP8 = 8  # fp8 form's ring depth: the same bytes in flight (csrc/paged_decode.cu kStagesF8)
 MAX_SPLITS = 8  # a thread block cluster's portable size: the splits of a row tile are one cluster
 ROW_TILE = 16  # bf16 kernel's query rows per block (csrc/paged_decode.cu kRowTile)
 MAX_VERIFY_T = 32  # query tokens per row the multi-query form takes
 SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float32)  # queries
 
-launches = 0  # kernel launches through paged_decode_attention (CUDA only)
+# Kernel launches through paged_decode_attention (CUDA only): bf16/f32 caches,
+# and the fp8 form.
+launches = 0
+launches_fp8 = 0
 
 
 def _smem_bytes(t_q: int, group: int, head_dim: int, itemsize: int) -> int:
     """Mirror of the kernel source's shared-memory layouts, without the
-    bf16 kernel's page ids (:func:`_page_id_bytes`). bf16 (``MmaSmem``):
-    alignment slack, the K/V ring, one 16-row query tile, the ring's
-    mbarriers and the tile's positions, whatever T_q. f32
-    (``DecodeSmem``): every row of the block's T_q x G in shared memory."""
-    if itemsize == 2:
-        return (1024 + 2 * STAGES * 2 * BLOCK_TOKENS * head_dim + 2 * ROW_TILE * (head_dim + 8)
-                + 8 * STAGES * 4 + 4 * ROW_TILE)
+    tensor-core kernel's page ids (:func:`_page_id_bytes`). bf16 and fp8
+    (``MmaSmem``): alignment slack, the K/V ring (fp8: twice as deep at 1
+    byte an element, then one bf16 stage the warps convert into), one
+    16-row query tile, the ring's mbarriers and the tile's positions,
+    whatever T_q. f32 (``DecodeSmem``): every row of the block's T_q x G in
+    shared memory."""
+    if itemsize <= 2:
+        stages = STAGES if itemsize == 2 else STAGES_FP8
+        conv = 0 if itemsize == 2 else 2 * 2 * BLOCK_TOKENS * head_dim
+        return (1024 + itemsize * stages * 2 * BLOCK_TOKENS * head_dim + conv + 2 * ROW_TILE * (head_dim + 8)
+                + 8 * stages * 4 + 4 * ROW_TILE)
     rows = t_q * group
     vec = 16 // itemsize
     return (2 * itemsize * BLOCK_TOKENS * (2 * head_dim + vec)  # double-buffered K/V tiles
@@ -59,9 +67,10 @@ def _page_id_bytes(blocks_per_split: int, page_size: int) -> int:
 def decode_kernel_supported(n_heads: int, head_dim: int, width: int, t_q: int = 1, *,
                             q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups, bf16
-    or f32 queries and cache, and T_q up to MAX_VERIFY_T within the
-    shared-memory budget (which only the f32 kernel's grows with T_q)."""
-    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
+    or f32 queries, bf16, f32 or fp8 caches, and T_q up to MAX_VERIFY_T
+    within the shared-memory budget (which only the f32 kernel's grows with
+    T_q)."""
+    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in CACHE_DTYPES:
         return False
     n_kv = width // head_dim
     if n_heads % n_kv:
@@ -122,9 +131,9 @@ def lse_combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Te
 def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float,
                        num_splits: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gathered K/V, f32 scores of the
-    pre-scaled (cache-dtype) queries, per-split softmax partials with p
-    masked explicitly and rounded to the cache dtype for p.V, then
-    :func:`lse_combine`."""
+    pre-scaled queries staged in :func:`stage_dtype` (the cache's, bf16 for
+    fp8), per-split softmax partials with p masked explicitly and rounded to
+    the same dtype for p.V, then :func:`lse_combine`."""
     b, t, h, hd = q.shape
     _, ps, w = k_cache.shape
     n_kv = w // hd
@@ -134,7 +143,8 @@ def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: f
     k = gather_pages(k_cache, tables, n_kv).float()  # [B, S, kv, hd]
     v = gather_pages(v_cache, tables, n_kv).float()
     s_len = k.shape[1]
-    qs = (q.float() * scale).to(k_cache.dtype).float().reshape(b, t, n_kv, g, hd)
+    st = stage_dtype(k_cache.dtype)
+    qs = (q.float() * scale).to(st).float().reshape(b, t, n_kv, g, hd)
     logits = torch.einsum("btkgd,bskd->bkgts", qs, k)  # [B, kv, g, T, S]
     key_pos = torch.arange(s_len, device=q.device, dtype=torch.int32)
     mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None, None]  # [B,1,1,T,S]
@@ -153,9 +163,9 @@ def paged_decode_plain(q, k_cache, v_cache, block_tables, positions, *, scale: f
         p = torch.where(mask[..., lo:hi], torch.exp(sl - m[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        # p rounded to the cache dtype before p.V, as the TPU kernel rounds
+        # p rounded to the staging dtype before p.V, as the TPU kernel rounds
         # it (pallas_paged.py:388); l sums the unrounded p.
-        accs.append(torch.einsum("bkgts,bskd->bkgtd", p.to(v_cache.dtype).float(), v[:, lo:hi]))
+        accs.append(torch.einsum("bkgts,bskd->bkgtd", p.to(st).float(), v[:, lo:hi]))
     out = lse_combine(torch.stack(accs, 1), torch.stack(ms, 1), torch.stack(ls, 1))  # [B, kv, g, T, hd]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
@@ -167,7 +177,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
     ``q [B, T_q, H, hd]``, caches ``[P, ps, n_kv*hd]``, ``block_tables
     i32[B, N]`` (-1 tails allowed), ``positions i32[B, T_q]`` (gappy rows
     allowed). ``num_splits`` 0 = auto (:func:`decode_split_plan`)."""
-    global launches
+    global launches, launches_fp8
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_cache, v_cache, block_tables, positions,
                                   scale=scale, num_splits=num_splits)
@@ -179,8 +189,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
                          f"T_q={t}, q {q.dtype}, cache {k_cache.dtype}")
     n_kv = w // hd
     splits, bps = decode_split_plan(b, n_kv, block_tables.shape[1], ps, num_splits, q.device)
-    if k_cache.dtype == torch.bfloat16 and (_smem_bytes(t, h // n_kv, hd, 2) + _page_id_bytes(bps, ps)
-                                           > SMEM_BYTES):
+    itemsize = k_cache.dtype.itemsize
+    if itemsize <= 2 and _smem_bytes(t, h // n_kv, hd, itemsize) + _page_id_bytes(bps, ps) > SMEM_BYTES:
         raise NotImplementedError(f"paged_decode kernel: the page ids of {bps} key blocks of {ps}-token pages "
                                   "do not fit in shared memory")
     out = torch.empty_like(q)
@@ -191,5 +201,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_decode", err)
-    launches += 1
+    if k_cache.dtype == FP8:
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

@@ -14,10 +14,12 @@ multi-query attention: per (sequence, query token, head) the scores are
 and rope-key ``r [P, ps, r_width]`` streams (only the first ``dr =
 q_rope.shape[-1]`` rope lanes are read), the value is ``c`` itself, each
 query masked to ``kpos <= positions[b, t]``, the output f32 in latent
-space. Queries are scaled in f32 and rounded to the cache dtype first, as
-the TPU wrapper does (``pallas_mla.py:273-276``); the kernel folds that into
-its staging. The key walk is cut into split-K partials whose boundaries come
-from static shapes only, merged by a log-sum-exp combine. Every T runs in
+space. Queries are scaled in f32 and rounded to the cache dtype first (bf16
+for an fp8 cache, whose latents and rope keys the kernel reads at 1 byte an
+element and converts to bf16 on chip), as the TPU wrapper does
+(``pallas_mla.py:273-276``); the kernel folds that into its staging. The
+key walk is cut into split-K partials whose boundaries come from static
+shapes only, merged by a log-sum-exp combine. Every T runs in
 the kernel: decode, gappy verify rows, prefill chunks, mixed steps. Outputs
 at a row's padding columns (tokens after the one holding the row's largest
 position) are unspecified; the engine never reads them. The kernel learns
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops import build
-from dynamo_tpu_torch.ops.attention import NEG_INF
+from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, FP8, NEG_INF, stage_dtype
 from dynamo_tpu_torch.ops.paged_decode import MAX_SPLITS, SMEM_BYTES, _sm_count, lse_combine, split_plan
 
 BLOCK_TOKENS = 64  # keys per split block (csrc/paged_mla.cu kBlockTokens)
@@ -43,9 +45,12 @@ F32_ROW_TILE = 32  # query rows per f32 kernel block (csrc/paged_mla.cu kF32Rows
 F32_KEYS = 32  # key sub-tile of the f32 kernel (csrc/paged_mla.cu kF32Keys)
 MAX_SPLIT_T = 8  # longest row whose auto plan splits the key walk
 LATENT_DIMS = (128, 512)
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float32)  # queries
 
-launches = 0  # kernel launches through paged_mla (CUDA only)
+# Kernel launches through paged_mla (CUDA only): bf16/f32 caches, and the
+# fp8 form.
+launches = 0
+launches_fp8 = 0
 
 
 def _row_atoms(r_kv: int, dr: int) -> int:
@@ -53,28 +58,34 @@ def _row_atoms(r_kv: int, dr: int) -> int:
     return r_kv // 64 + -(-dr // 64)
 
 
-def _wg_smem_bytes(r_kv: int, dr: int, keys: int) -> int:
-    """Mirror of ``WgLayout::bytes`` (bf16 kernel): alignment slack, the Q
-    tile, the ring of ``keys``-key stages, the p tile, the ring's and the Q
-    tile's mbarriers, the row exchange, the rows' positions and the (m, l)
-    partial."""
+def _wg_smem_bytes(r_kv: int, dr: int, keys: int, fp8: bool = False) -> int:
+    """Mirror of ``WgLayout::bytes`` (the wgmma kernel): alignment slack, the
+    Q tile, the ring of ``keys``-key stages, the p tile, the ring's and the
+    Q tile's mbarriers, the row exchange, the rows' positions and the (m, l)
+    partial; for an fp8 cache then the fp8 ring's mbarriers and, 128-byte
+    aligned, the fp8 ring (``r_kv + dr`` bytes a key)."""
     na = _row_atoms(r_kv, dr)
-    return (1024 + na * ROW_TILE * 128 + STAGES * na * keys * 128 + ROW_TILE * 128 + (2 * STAGES + 1) * 8
-            + 4 * 2 * ROW_TILE + 4 * ROW_TILE + 4 * 2 * ROW_TILE)
+    end = (na * ROW_TILE * 128 + STAGES * na * keys * 128 + ROW_TILE * 128 + (2 * STAGES + 1) * 8
+           + 4 * 2 * ROW_TILE + 4 * ROW_TILE + 4 * 2 * ROW_TILE)
+    if fp8:
+        end = -(-(end + 8 * STAGES) // 128) * 128 + STAGES * keys * (r_kv + dr)
+    return 1024 + end
 
 
-def _tile_keys(r_kv: int, dr: int) -> int:
-    """Keys per ring stage of the bf16 kernel: 64 where they fit the shared
-    memory, else 32 (rows of more than nine atoms)."""
-    return 64 if _wg_smem_bytes(r_kv, dr, 64) <= SMEM_BYTES else 32
+def _tile_keys(r_kv: int, dr: int, fp8: bool = False) -> int:
+    """Keys per ring stage of the wgmma kernel: 64 where they fit the shared
+    memory, else 32 (rows of more than nine atoms; fp8 at a 512-wide
+    latent)."""
+    return 64 if _wg_smem_bytes(r_kv, dr, 64, fp8) <= SMEM_BYTES else 32
 
 
 def _smem_bytes(r_kv: int, dr: int, itemsize: int) -> int:
-    """Mirror of the kernel source's shared memory: ``WgLayout`` (bf16) or
-    ``f32_smem_bytes`` (the query tile, a key sub-tile, scores, stats and
-    positions)."""
-    if itemsize == 2:
-        return _wg_smem_bytes(r_kv, dr, _tile_keys(r_kv, dr))
+    """Mirror of the kernel source's shared memory: ``WgLayout`` (bf16,
+    fp8) or ``f32_smem_bytes`` (the query tile, a key sub-tile, scores,
+    stats and positions)."""
+    if itemsize <= 2:
+        fp8 = itemsize == 1
+        return _wg_smem_bytes(r_kv, dr, _tile_keys(r_kv, dr, fp8), fp8)
     return (4 * ((F32_ROW_TILE + F32_KEYS) * (r_kv + dr + 4) + F32_ROW_TILE * (F32_KEYS + 1) + 3 * F32_ROW_TILE)
             + 4 * F32_ROW_TILE)
 
@@ -84,14 +95,14 @@ def paged_mla_supported(n_heads: int, r_kv: int, r_width: int, dr: int, page_siz
     """Shapes the kernel takes: latent width 128 or 512, a rope width ``dr``
     that is a multiple of 16 within the cache's ``r_width`` (whose rows are
     16-byte aligned), pages of a power of 2 tokens, at least 2 (a 32-key
-    sub-tile of the f32 kernel spans at most 16 pages), bf16 or f32 queries
-    and caches, and the shared-memory tiles within the block's budget. Any
-    head count and any T."""
-    if r_kv not in LATENT_DIMS or q_dtype not in DTYPES or cache_dtype not in DTYPES or n_heads < 1:
+    sub-tile of the f32 kernel spans at most 16 pages), bf16 or f32 queries,
+    bf16, f32 or fp8 caches, and the shared-memory tiles within the block's
+    budget. Any head count and any T."""
+    if r_kv not in LATENT_DIMS or q_dtype not in DTYPES or cache_dtype not in CACHE_DTYPES or n_heads < 1:
         return False
     if page_size < 2 or page_size & (page_size - 1):
         return False
-    itemsize = torch.empty((), dtype=cache_dtype).element_size()
+    itemsize = cache_dtype.itemsize
     if dr < 16 or dr % 16 or dr > r_width or (r_width * itemsize) % 16:
         return False
     return _smem_bytes(r_kv, dr, itemsize) <= SMEM_BYTES
@@ -130,9 +141,10 @@ def mla_split_plan(batch: int, t_q: int, pages_per_seq: int, page_size: int, num
 def paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale: float,
                     num_splits: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gathered latent and rope pages,
-    f32 scores of the pre-scaled (cache-dtype) queries, per-split softmax
-    partials with p masked explicitly and rounded to the cache dtype for the
-    value product, then :func:`lse_combine`."""
+    f32 scores of the pre-scaled queries staged in :func:`stage_dtype` (the
+    cache's, bf16 for fp8), per-split softmax partials with p masked
+    explicitly and rounded to the same dtype for the value product, then
+    :func:`lse_combine`."""
     b, t, h, r_kv = q_lat.shape
     dr = q_rope.shape[-1]
     _, ps, r_width = r_cache.shape
@@ -141,8 +153,9 @@ def paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *,
     s_len = block_tables.shape[1] * ps
     c = c_cache[idx].reshape(b, s_len, r_kv).float()
     r = r_cache[idx].reshape(b, s_len, r_width)[..., :dr].float()
-    ql = (q_lat.float() * scale).to(c_cache.dtype).float()
-    qr = (q_rope.float() * scale).to(c_cache.dtype).float()
+    st = stage_dtype(c_cache.dtype)
+    ql = (q_lat.float() * scale).to(st).float()
+    qr = (q_rope.float() * scale).to(st).float()
     logits = torch.einsum("bthr,bsr->bths", ql, c) + torch.einsum("bthr,bsr->bths", qr, r)  # [B, T, H, S]
     key_pos = torch.arange(s_len, device=q_lat.device, dtype=torch.int32)
     mask = (key_pos[None, None, :] <= positions[:, :, None])[:, :, None]  # [B, T, 1, S]
@@ -161,7 +174,7 @@ def paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *,
         p = torch.where(mask[..., lo:hi], torch.exp(sl - m[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bths,bsr->bthr", p.to(c_cache.dtype).float(), c[:, lo:hi]))
+        accs.append(torch.einsum("bths,bsr->bthr", p.to(st).float(), c[:, lo:hi]))
     return lse_combine(torch.stack(accs, 1), torch.stack(ms, 1), torch.stack(ls, 1))
 
 
@@ -178,7 +191,7 @@ def check_mla_args(q_lat, q_rope, c_cache, r_cache, block_tables, positions) -> 
             raise ValueError(f"{name} is on {x.device}, q_lat on {q_lat.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.dtype in DTYPES and x.data_ptr() % 16:
+        if x.dtype in CACHE_DTYPES and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if (q_lat.dim() != 4 or q_rope.dim() != 4 or q_rope.shape[:3] != q_lat.shape[:3] or q_rope.dtype != q_lat.dtype
             or c_cache.dim() != 3 or r_cache.dim() != 3 or c_cache.shape[:2] != r_cache.shape[:2]
@@ -203,7 +216,7 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
     per query token). ``num_splits`` 0 = auto (:func:`mla_split_plan`).
     ``walk``: ``walk_facts(positions)``, for a caller that runs several
     layers on one step's positions; computed here when not given."""
-    global launches
+    global launches, launches_fp8
     if q_lat.device.type == "cpu":
         return paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions,
                                scale=scale, num_splits=num_splits)
@@ -227,5 +240,8 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
              b, t, h, r_kv, dr, r_width, ps, block_tables.shape[1], c_cache.shape[0], splits, bps,
              build.DTYPE_CODES[c_cache.dtype], build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
     build.check_launch("paged_mla", err)
-    launches += 1
+    if c_cache.dtype == FP8:
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

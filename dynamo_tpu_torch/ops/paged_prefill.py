@@ -20,16 +20,19 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops import build
-from dynamo_tpu_torch.ops.attention import NEG_INF, gather_pages
+from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, FP8, NEG_INF, gather_pages, stage_dtype
 
 BLOCK_ROWS = 64  # query rows (token x head) per f32 kernel block (csrc/paged_prefill.cu kRows)
 BLOCK_ROWS_BF16 = 128  # per bf16 (wgmma) kernel block (csrc/paged_prefill.cu kBlockRows)
 TILE_KEYS = 128  # keys per bf16 kernel ring stage (csrc/paged_prefill.cu kTileKeys)
 SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float32)  # queries
 
-launches = 0  # kernel launches through paged_prefill_attention (CUDA only)
+# Kernel launches through paged_prefill_attention (CUDA only): bf16/f32
+# caches, and the fp8 form.
+launches = 0
+launches_fp8 = 0
 
 
 def _stages(head_dim: int) -> int:
@@ -37,35 +40,45 @@ def _stages(head_dim: int) -> int:
     return 4 if head_dim == 64 else 2
 
 
-def _smem_bytes(head_dim: int, table_width: int) -> int:
-    """Mirror of ``WgSmem::bytes`` (the bf16 kernel) in the kernel source:
-    alignment slack, the 128-row query tile, the ring of K/V tiles of
-    TILE_KEYS keys (128 bytes per key and 64 columns, each), the mbarriers
-    and position scan, and one staged page id per table entry."""
+def _fp8_stages(head_dim: int) -> int:
+    """The fp8 form's fp8 ring depth (``WgSmem::kF8Stages``)."""
+    return 2 if head_dim == 64 else 1
+
+
+def _smem_bytes(head_dim: int, table_width: int, itemsize: int = 2) -> int:
+    """Mirror of ``WgSmem::bytes`` (the tensor-core kernel) in the kernel
+    source: alignment slack, the 128-row query tile, the ring of K/V tiles
+    of TILE_KEYS keys (128 bytes per key and 64 columns, each), for an fp8
+    cache (``itemsize`` 1) the fp8 ring of K/V tiles (head_dim bytes a key),
+    the mbarriers and position scan, and one staged page id per table
+    entry."""
     atoms, stages = head_dim // 64, _stages(head_dim)
-    return (1024 + atoms * BLOCK_ROWS_BF16 * 128 + stages * 2 * atoms * TILE_KEYS * 128 + 16 * stages + 16
-            + 4 * table_width)
+    f8 = _fp8_stages(head_dim) if itemsize == 1 else 0
+    return (1024 + atoms * BLOCK_ROWS_BF16 * 128 + stages * 2 * atoms * TILE_KEYS * 128
+            + f8 * 2 * TILE_KEYS * head_dim + 8 * (2 * stages + f8) + 16 + 4 * table_width)
 
 
 def prefill_kernel_supported(n_heads: int, head_dim: int, width: int, *, q_dtype: torch.dtype,
                              cache_dtype: torch.dtype, table_width: int = 0) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups of at
-    most BLOCK_ROWS heads, bf16 or f32 queries and cache, and (bf16) a block
-    table of ``table_width`` pages whose ids fit in shared memory. The chunk
-    width is unbounded (the grid tiles it)."""
-    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in DTYPES:
+    most BLOCK_ROWS heads, bf16 or f32 queries, bf16, f32 or fp8 caches,
+    and (bf16, fp8) a block table of ``table_width`` pages whose ids fit in
+    shared memory. The chunk width is unbounded (the grid tiles it)."""
+    if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in CACHE_DTYPES:
         return False
     n_kv = width // head_dim
-    if cache_dtype == torch.bfloat16 and _smem_bytes(head_dim, table_width) > SMEM_BYTES:
+    itemsize = cache_dtype.itemsize
+    if itemsize <= 2 and _smem_bytes(head_dim, table_width, itemsize) > SMEM_BYTES:
         return False
     return n_heads % n_kv == 0 and n_heads // n_kv <= BLOCK_ROWS
 
 
 def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
     """Plain PyTorch version: gathered K/V, f32 scores of the pre-scaled
-    (cache-dtype) queries, mask ``kpos <= qpos & kpos < kv_len``, softmax
-    with p masked explicitly (rounded to the cache dtype for p.V) and 0 for
-    rows with no attendable key."""
+    queries staged in :func:`stage_dtype` (the cache's, bf16 for fp8), mask
+    ``kpos <= qpos & kpos < kv_len``, softmax with p masked explicitly
+    (rounded to the same dtype for p.V) and 0 for rows with no attendable
+    key."""
     b, t, h, hd = q.shape
     _, ps, w = k_cache.shape
     n_kv = w // hd
@@ -74,7 +87,8 @@ def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: 
     k = gather_pages(k_cache, tables, n_kv).float()
     v = gather_pages(v_cache, tables, n_kv).float()
     s_len = k.shape[1]
-    qs = (q.float() * scale).to(k_cache.dtype).float().reshape(b, t, n_kv, g, hd)
+    st = stage_dtype(k_cache.dtype)
+    qs = (q.float() * scale).to(st).float().reshape(b, t, n_kv, g, hd)
     logits = torch.einsum("btkgd,bskd->bkgts", qs, k)
     kv_len = positions.amax(dim=1) + 1  # [B]
     key_pos = torch.arange(s_len, device=q.device, dtype=torch.int32)
@@ -84,16 +98,16 @@ def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: 
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     l = p.sum(dim=-1)
-    # p rounded to the cache dtype before p.V, as the TPU kernel rounds it
+    # p rounded to the staging dtype before p.V, as the TPU kernel rounds it
     # (pallas_prefill.py:210); l sums the unrounded p.
-    acc = torch.einsum("bkgts,bskd->bkgtd", p.to(v_cache.dtype).float(), v)
+    acc = torch.einsum("bkgts,bskd->bkgtd", p.to(st).float(), v)
     out = torch.where(l[..., None] > 0, acc / l.clamp(min=1e-30)[..., None], 0.0)
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
 
 def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
     """Prefill-phase (T > 1) paged flash attention; returns [B, T, H, hd] in q's dtype."""
-    global launches
+    global launches, launches_fp8
     if q.device.type == "cpu":
         return paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, scale=scale)
     build.check_paged_args(q, k_cache, v_cache, block_tables, positions)
@@ -111,5 +125,8 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, sca
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_prefill", err)
-    launches += 1
+    if k_cache.dtype == FP8:
+        launches_fp8 += 1
+    else:
+        launches += 1
     return out

@@ -7,9 +7,12 @@ Greedy rows are an exact full-row argmax. Non-greedy rows work inside a
 OpenAI frequency/presence penalties apply. The categorical draw is
 ``argmax(scaled + gumbel)`` — what ``jax.random.categorical`` computes —
 with the Gumbel noise passed in, so a test can feed both builds the same
-noise. :func:`gumbel_noise` draws it per row from an explicit generator
-seeded by ``(seed, sample_steps)`` alone, so a seeded request's tokens do
-not depend on what it is batched with.
+noise. :func:`gumbel_noise` draws what the JAX runner draws: row i's key is
+``fold_in(PRNGKey(seeds[i]), sample_steps[i])`` and its noise
+``jax.random.gumbel(key, (width,))`` (the ``categorical`` draw of
+``sample_tokens``), computed here with threefry-2x32 written in PyTorch on
+the rows' device, all rows at once. A seeded request's tokens depend on
+``(seed, sample_steps)`` alone, never on what it is batched with.
 """
 
 from __future__ import annotations
@@ -24,20 +27,66 @@ from dynamo_tpu_torch.ops.attention import NEG_INF
 CANDIDATES = 256
 
 
-def gumbel_noise(seeds: np.ndarray, sample_steps: np.ndarray, temperature: np.ndarray,
+# threefry-2x32 (jax/_src/prng.py _threefry2x32_lowering): 20 rounds in five
+# groups of four rotations, a key injection after each group.
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
+    """The threefry-2x32 hash of counters ``(x0, x1)`` under key ``(k0, k1)``:
+    int64 tensors holding uint32 values, broadcast together; returns the two
+    output words the same way. Every sum is masked back to 32 bits."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def random_bits(seeds: torch.Tensor, sample_steps: torch.Tensor, width: int) -> torch.Tensor:
+    """uint32 words (as int64) ``[B, width]``: row i is
+    ``jax.random.bits(fold_in(PRNGKey(seeds[i]), sample_steps[i]), (width,))``
+    with the partitionable threefry of jax 0.9 (counters ``(0, iota)``, a
+    word the xor of the hash's two outputs). ``seeds``/``sample_steps``:
+    integer tensors ``[B]``, read as uint32 (the runner packs them as
+    int32)."""
+    seed = seeds.long()[:, None] & _MASK32
+    step = sample_steps.long()[:, None] & _MASK32
+    zero = torch.zeros_like(seed)
+    # PRNGKey(seed) = (0, seed); fold_in hashes the counter pair (0, data).
+    k0, k1 = threefry2x32(zero, seed, zero, step)
+    iota = torch.arange(width, device=seeds.device, dtype=torch.int64)[None, :]
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(iota), iota)
+    return b0 ^ b1
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms on ``[tiny, 1)`` from 32-bit words, as
+    ``jax.random.uniform(minval=tiny, maxval=1)`` builds them: the top 23
+    bits as the mantissa of a float in ``[1, 2)``, minus 1, scaled and
+    shifted, then at least ``tiny``."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(_TINY, dtype=torch.float32, device=bits.device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - lo
+    return torch.maximum(lo, mant * span + lo)
+
+
+def gumbel_noise(seeds: torch.Tensor, sample_steps: torch.Tensor, temperature: torch.Tensor,
                  width: int) -> torch.Tensor:
-    """f32[B, width] standard Gumbel noise on the CPU; row i comes from a
-    ``torch.Generator`` seeded with ``(seeds[i], sample_steps[i])``. Greedy
-    rows (temperature 0) get zeros — they never read it."""
-    out = torch.zeros((len(seeds), width), dtype=torch.float32)
-    tiny = float(np.finfo(np.float32).tiny)
-    for i, (seed, step, temp) in enumerate(zip(seeds, sample_steps, temperature)):
-        if temp <= 0:
-            continue
-        gen = torch.Generator().manual_seed((int(seed) << 32) | (int(step) & 0xFFFFFFFF))
-        u = torch.rand(width, generator=gen, dtype=torch.float32).clamp_(min=tiny)
-        out[i] = -torch.log(-torch.log(u))
-    return out
+    """f32 ``[B, width]`` standard Gumbel noise on the inputs' device: row i
+    is ``jax.random.gumbel(fold_in(PRNGKey(seeds[i]), sample_steps[i]),
+    (width,))`` (its ``mode="low"`` form, ``-log(-log(u))``). Greedy rows
+    (temperature 0) get zeros — they never read it."""
+    u = uniform_from_bits(random_bits(seeds, sample_steps, width))
+    return torch.where(temperature[:, None] > 0, -torch.log(-torch.log(u)), 0.0)
 
 
 def sample_tokens(

@@ -40,13 +40,13 @@ PARAMS = params_from_jax({k: ({kk: np.asarray(vv) for kk, vv in v.items()} if is
 
 
 def _jax_core(**engine_kw):
-    runner = ModelRunner(JPRESETS[NAME], JPARAMS, num_pages=ENGINE["num_pages"], page_size=PAGE,
+    runner = ModelRunner(JPRESETS[NAME], JPARAMS, num_pages={**ENGINE, **engine_kw}["num_pages"], page_size=PAGE,
                          max_batch_size=ENGINE["max_batch_size"], prefill_bucket=16, attn_impl="reference")
     return JEngineCore(runner, JEngineConfig(**{**ENGINE, **engine_kw}))
 
 
 def _torch_core(**engine_kw):
-    runner = TorchModelRunner(PRESETS[NAME], PARAMS, num_pages=ENGINE["num_pages"], page_size=PAGE,
+    runner = TorchModelRunner(PRESETS[NAME], PARAMS, num_pages={**ENGINE, **engine_kw}["num_pages"], page_size=PAGE,
                               max_batch_size=ENGINE["max_batch_size"], prefill_bucket=16, device="cpu")
     return EngineCore(runner, EngineConfig(**{**ENGINE, **engine_kw}))
 
@@ -89,6 +89,56 @@ def test_engine_core_greedy_tokens_equal_jax(chunk):
     for field in ("prompt_tokens_total", "generated_tokens_total", "kv_active_blocks", "cache_hit_rate"):
         assert getattr(tm, field) == getattr(jm, field), field
     assert tm.cache_hit_rate > 0
+
+
+def test_engine_core_seeded_sampled_tokens_equal_jax():
+    """Seeded temperature > 0 requests (with top-k and top-p), mixed steps
+    and a prefix-cache hit: tokens bitwise equal to the JAX engine's. Both
+    draw jax.random.categorical's threefry Gumbel noise from
+    fold_in(PRNGKey(seed), sample_steps) (the port computes it in torch);
+    the noise agrees to an ulp of the logs, and the tokens exactly."""
+    arrivals = [(0, list(range(3, 23)), 12), (1, [9, 8, 7, 6, 5], 14), (2, list(range(3, 19)) + list(range(30, 44)), 9)]
+    sampling = [dict(temperature=0.9, top_p=0.95, seed=1234), dict(temperature=1.3, top_k=40, seed=2**31 + 5),
+                dict(temperature=0.7, seed=0)]
+
+    def reqs(req, samp, stop):
+        made = []
+
+        def make(prompt, n):
+            made.append(req(token_ids=prompt, sampling=samp(**sampling[len(made)]), stop=stop(max_tokens=n)))
+            return made[-1]
+        return make
+
+    want = _drive(_jax_core(), reqs(JRequest, JSampling, JStop), arrivals)
+    got = _drive(_torch_core(), reqs(PreprocessedRequest, SamplingOptions, StopConditions), arrivals)
+    assert got == want
+    assert [len(got[i]) for i in range(3)] == [12, 14, 9]
+    greedy = _drive(_torch_core(), reqs(PreprocessedRequest, lambda **kw: SamplingOptions(temperature=0.0),
+                                        StopConditions), arrivals)
+    assert greedy != got  # the draws did sample
+
+
+def test_preemption_counts_and_greedy_tokens_equal_jax():
+    """Four requests (prompts of 15-20 tokens, 25-30 new tokens each) on 24
+    pages of 4 tokens, 8-token chunks: both engines run out of pages and
+    preempt, equally often, every request still runs to its length, and the
+    greedy tokens are equal."""
+    arrivals = [(0, list(range(3, 18)), 25), (0, list(range(20, 38)), 28), (1, list(range(40, 60)), 30),
+                (2, list(range(60, 76)), 26)]
+    jcore, tcore = _jax_core(num_pages=24), _torch_core(num_pages=24)
+
+    def jreq(prompt, n):
+        return JRequest(token_ids=prompt, sampling=JSampling(temperature=0.0), stop=JStop(max_tokens=n))
+
+    def treq(prompt, n):
+        return PreprocessedRequest(token_ids=prompt, sampling=SamplingOptions(temperature=0.0),
+                                   stop=StopConditions(max_tokens=n))
+
+    want = _drive(jcore, jreq, arrivals)
+    got = _drive(tcore, treq, arrivals)
+    assert got == want
+    assert [len(got[i]) for i in range(4)] == [25, 28, 30, 26]
+    assert tcore.num_preemptions == jcore.num_preemptions > 0
 
 
 def test_pipeline_text_equals_jax():

@@ -359,13 +359,42 @@ def test_window_sampling_bitwise_with_shared_gumbel(penalized):
 
 
 def test_gumbel_noise_depends_on_seed_and_step_only():
-    seeds = np.array([5, 5, 9], np.uint32)
-    steps = np.array([2, 2, 2], np.int32)
-    temp = np.array([1.0, 1.0, 0.0], np.float32)
+    seeds = torch.tensor([5, 5, 9], dtype=torch.int32)
+    steps = torch.tensor([2, 2, 2], dtype=torch.int32)
+    temp = torch.tensor([1.0, 1.0, 0.0])
     g = tsampling.gumbel_noise(seeds, steps, temp, 16)
     assert torch.equal(g[0], g[1])  # same (seed, step): same noise wherever the row sits
     assert torch.equal(g[2], torch.zeros(16))  # greedy rows read none
     assert torch.equal(tsampling.gumbel_noise(seeds[:1], steps[:1], temp[:1], 16)[0], g[0])
+    assert not torch.equal(tsampling.gumbel_noise(seeds[:1], steps[:1] + 1, temp[:1], 16)[0], g[0])
+
+
+# The seeds the runner packs as int32 (uint32 viewed), and sample_steps.
+THREEFRY_SEEDS = [0, 1, 2**31, 2**32 - 1]
+THREEFRY_STEPS = np.array([0, 1, 1000], np.int32)
+
+
+@pytest.mark.parametrize("seed", THREEFRY_SEEDS)
+def test_threefry_noise_matches_jax_random(seed):
+    """The port's threefry-2x32 draw against jax.random on the keys the JAX
+    runner folds, fold_in(PRNGKey(seed), step) (runner.py:295): the 32-bit
+    words and the uniforms bitwise; the Gumbel noise -log(-log(u)) within 2
+    ulps of max(|g|, 1), as each log may differ from XLA's CPU log by an ulp
+    (the largest difference seen against jax 0.9's CPU build is 1 such ulp)."""
+    seeds = np.full(len(THREEFRY_STEPS), seed, np.uint32).view(np.int32)
+    keys = jax.vmap(lambda s, c: jax.random.fold_in(jax.random.PRNGKey(s), c))(
+        jnp.asarray(seeds), jnp.asarray(THREEFRY_STEPS))
+    width = tsampling.CANDIDATES
+    bits = tsampling.random_bits(_t(seeds), _t(THREEFRY_STEPS), width)
+    want_bits = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (width,), jnp.uint32))(keys))
+    np.testing.assert_array_equal(bits.numpy().astype(np.uint32), want_bits)
+    tiny = np.finfo(np.float32).tiny
+    want_u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (width,), jnp.float32, tiny, 1.0))(keys))
+    np.testing.assert_array_equal(tsampling.uniform_from_bits(bits).numpy(), want_u)
+    want_g = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (width,), jnp.float32))(keys))
+    got_g = tsampling.gumbel_noise(_t(seeds), _t(THREEFRY_STEPS), torch.ones(len(seeds)), width).numpy()
+    ulp = np.spacing(np.maximum(np.abs(want_g), 1.0).astype(np.float32))
+    assert (np.abs(got_g - want_g) <= 2 * ulp).all()
 
 
 def test_token_logprobs_match_jax():
