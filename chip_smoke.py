@@ -49,19 +49,34 @@ failure exits non-zero:
               an fp8 cache; plain attention is the gather reference but
               for mla-8b-proxy on fp8, where it is the kernels' plain
               versions.
+   graphs   — CUDA-graph replay against the eager step (``graph_check``):
+              two runners on the same weights, graphs and eager, take the
+              same prefill, mixed and two decode steps (the graph runner's
+              decode rows chained on the card through ``step_async``);
+              tokens, logprobs and top-20 alternatives bitwise equal, for
+              each model on a bf16 cache and llama-3.2-1b on fp8 too.
 4. serve    — ``build_engine_service`` (random init, bf16 weights) behind
               ``build_pipeline``: 8 concurrent OpenAI completion requests,
-              prompts of 16..1500 tokens, 32 tokens each; the model's
-              kernels' launch counts must be > 0, every engine step's
-              attention must have run in a kernel, and a mixed step must
-              occur. llama-3.2-1b (paged_decode, paged_prefill), then, after
-              it is freed, mla-8b-proxy (paged_mla); each on a bf16 and an
-              fp8 cache (launch counts ``<kernel>_fp8``). Every draw the
-              card makes for the mix's seeded request is replayed on the
-              CPU (``record_draws``, ``replay_draws``): tokens equal.
+              prompts of 16..1500 tokens, 32 tokens each, after a warm-up
+              request and an untimed pass of a mix of other prompts; the
+              model's kernels' launch counts (counted through graph
+              replays) must be > 0, every engine step's attention must have
+              run in a kernel, and a mixed step must occur. Each mix is
+              served twice (``serve_both``): by the eager runner behind the
+              synchronous engine, then by the main path, CUDA graphs behind
+              the overlapped engine, whose steps must overlap; greedy tokens
+              bitwise equal between the two; both modes' tok/s, graph keys,
+              capture seconds, graph-pool bytes and overlapped / barrier
+              steps reported. llama-3.2-1b (paged_decode, paged_prefill),
+              then, after it is freed, mla-8b-proxy (paged_mla); each on a
+              bf16 and an fp8 cache (launch counts ``<kernel>_fp8``). Every
+              draw the card makes for the mix's seeded request is replayed
+              on the CPU (``record_draws`` reads it through the runner's
+              ``draw_hook``; ``replay_draws``): tokens equal.
 5. http     — ``launch.run_local``: two llama-3.2-1b workers (same seed
-              as phase 4) behind the KV router and the OpenAI frontend on
-              a free port. /v1/models, /health and /metrics; phase 4's mix
+              as phase 4, the main path: graphs, overlapped engine) behind
+              the KV router and the OpenAI frontend on a free port.
+              /v1/models, /health and /metrics; phase 4's mix
               as 8 concurrent streamed completions over aiohttp (every
               stream ends with [DONE], finish "length", 32 tokens; both
               kernels launch, every step's attention in a kernel, a mixed
@@ -1075,17 +1090,98 @@ def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, param
           "tolerance": "0.05 * max|logit|", "logits_shape": list(results[None][0].shape)})
 
 
+# -- phase 3b: graphs -----------------------------------------------------------
+
+
+def graph_check(dev, model: str, params: dict, cache_dtype: torch.dtype | None = None) -> dict:
+    """Graph replay against the eager step on the same inputs, at full
+    width: two runners on the same weights, one replaying CUDA graphs (the
+    main path), one eager, each on its own cache, take the same steps:
+    a prefill of two 64-token prompts, a mixed step (one decode row, one
+    prompt's second 48-token chunk, a new 40-token prompt; a mixed-step key),
+    then two decode steps (a decode key: its second use a replay alone).
+    The graph runner dispatches every step with ``step_async``, each
+    decode row's input token chained on the card from the step before; the
+    eager runner gets the same tokens from the host.
+    One row samples (seeded), every step asks for logprobs. Tokens,
+    logprobs and top-20 ids and logprobs must be bitwise equal."""
+    from dynamo_tpu_torch.engine.runner import StepBatch, TorchModelRunner
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[model]
+    ps, npages, lp_k = 16, 64, 20
+    runners = {g: TorchModelRunner(cfg, params, num_pages=npages, page_size=ps, max_batch_size=8,
+                                   cache_dtype=cache_dtype, device=dev, graphs=g) for g in (True, False)}
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (64, 112, 40)]
+    tables = np.arange(1, 1 + 3 * 8, dtype=np.int32).reshape(3, 8)  # 8 pages of 16 tokens per row
+
+    def batch(rows, tokens):
+        """rows: (row id, start position, new tokens); row 1 samples."""
+        b, t = len(rows), max(n for _, _, n in rows)
+        tok = np.zeros((b, t), np.int32)
+        pos = np.zeros((b, t), np.int32)
+        for i, (r, start, n) in enumerate(rows):
+            tok[i, :n] = tokens[i]
+            pos[i, :n] = np.arange(start, start + n)
+        tb = tables[[r for r, _, _ in rows]]
+        slots = (tb[np.arange(b)[:, None], pos // ps] * ps + pos % ps).astype(np.int32)
+        for i, (_, _, n) in enumerate(rows):
+            slots[i, n:] = 0  # padding columns write to the null page, as the engine's do
+        temp = np.array([0.8 if r == 1 else 0.0 for r, _, _ in rows], np.float32)
+        return StepBatch(tok, pos, tb, slots, np.array([n - 1 for _, _, n in rows], np.int32), temp,
+                         np.zeros(b, np.int32), np.full(b, 0.95, np.float32), np.full(b, 1234, np.uint32),
+                         np.array([start for _, start, _ in rows], np.int32), np.zeros(b, np.float32),
+                         np.zeros(b, np.float32), np.full(b, 8 * ps, np.int32), np.full((b, 1), -1, np.int32))
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+    def run(name, rows, graph_tokens, eager_tokens, **chain):
+        """One step on both runners (the graph runner's through
+        ``step_async``); records whether they agree bitwise and returns the
+        eager runner's tokens."""
+        g_toks, g_aux = runners[True].step_async(batch(rows, graph_tokens), lp_k, **chain).result()
+        e_toks, e_aux = runners[False].step(batch(rows, eager_tokens), lp_k=lp_k)
+        ok = same(g_toks[:, 0], e_toks) and all(same(g_aux[k], e_aux[k]) for k in ("logprob", "top_ids", "top_lps"))
+        steps.append({"step": name, "tokens": len(e_toks), "bitwise_equal": ok})
+        return e_toks
+
+    steps = []
+    first = run("prefill", [(0, 0, 64), (1, 0, 64)], *[[prompts[0], prompts[1][:64]]] * 2)
+    mixed = [[first[0]], prompts[1][64:], prompts[2]]
+    prev = run("mixed", [(0, 64, 1), (1, 64, 48), (2, 0, 40)], mixed, mixed)
+    for k in range(2):
+        prev = run(f"decode{k}", [(r, (65, 112, 40)[r] + k, 1) for r in range(3)], [[0]] * 3,
+                   [[int(t)] for t in prev], chain=True, chain_src=[0, 1, 2])
+    equal = all(st["bitwise_equal"] for st in steps)
+    stats = runners[True].graph_stats()
+    record = {"phase": "graphs", "model": model, "cache": str(runners[True].k_cache.dtype).removeprefix("torch."),
+              "steps": steps, "keys_captured": stats["keys"], "capture_s": stats["capture_s"],
+              "pool_bytes": stats["pool_bytes"]}
+    emit(record)
+    if not equal or stats["keys"] != 3:
+        raise AssertionError(f"graph replay differs from the eager step: {record}")
+    del runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
 # -- phase 4: serve -------------------------------------------------------------
 
 
-async def build_serving(model: str = MODEL, cache_dtype: torch.dtype | None = None, params: dict | None = None):
+async def build_serving(model: str = MODEL, cache_dtype: torch.dtype | None = None, params: dict | None = None,
+                        *, graphs: bool = True, overlap: bool = True):
     """The serve phase's engine and pipeline: ``build_engine_service`` of
     ``model`` (random init from seed 0, or ``params``; bf16; on the card;
     ``cache_dtype`` caches, the model's dtype when None) behind
-    ``build_pipeline``."""
+    ``build_pipeline``; by default the main path, CUDA graphs behind the
+    overlapped engine."""
     from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
 
-    service = await build_engine_service(model, cache_dtype=cache_dtype, params=params, **SERVE_ENGINE)
+    service = await build_engine_service(model, cache_dtype=cache_dtype, params=params, graphs=graphs,
+                                         overlap=overlap, **SERVE_ENGINE)
     return service, build_pipeline(service)
 
 
@@ -1136,38 +1232,37 @@ async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
 
 @contextlib.contextmanager
 def record_draws(runner):
-    """For as long as the context lasts, record every step in which
-    ``runner`` samples a row with temperature > 0: the host's ``StepBatch``
-    (seeds, sample steps, temperatures, top-k, top-p, before they are packed
-    and copied to the card) and, for those rows only, the logits the card
-    sampled from, its Gumbel noise and its tokens (a copy of one row's
-    logits a sampled step inside the timed window). Yields the list."""
-    from dynamo_tpu_torch.engine import runner as runner_mod
+    """For as long as the context lasts, record every dispatch in which
+    ``runner`` samples a row with temperature > 0, through its ``draw_hook``
+    (a graph replay or ``step_async`` calls no Python per row): the host's
+    padded ``StepBatch`` (seeds, sample steps, temperatures, top-k, top-p,
+    before they are packed and copied to the card) and, for those rows
+    only, the logits the card sampled from, its Gumbel noise, its tokens
+    and any penalty inputs, read from the step's own tensors (a graph's
+    static outputs under replay). The rows are copied on the card as they
+    are dispatched (a copy kernel, no wait, no module loaded lazily), and
+    to the host when the context ends. Yields the list."""
+    steps = []
 
-    steps, step0, sample0 = [], runner.step, runner_mod.sample_tokens
+    def hook(batch, draw):
+        rows = np.flatnonzero(batch.temperature > 0)
+        if draw["gumbel"] is None or not rows.size:
+            return
+        pen = ("history", "frequency_penalty", "presence_penalty")
+        steps.append({"batch": batch, "rows": rows,
+                      **{k: [draw[k][r:r + 1].clone() for r in rows] for k in ("logits", "gumbel", "tokens")},
+                      "pen": {k: [draw[k][r:r + 1].clone() for r in rows] for k in pen if k in draw}})
 
-    def step(batch, lp_k=0):
-        steps.append({"batch": batch})
-        return step0(batch, lp_k=lp_k) if lp_k else step0(batch)
-
-    def sample(logits, temperature, top_k, top_p, *, gumbel=None, **pen):
-        out = sample0(logits, temperature, top_k, top_p, gumbel=gumbel, **pen)
-        rows = np.flatnonzero(steps[-1]["batch"].temperature > 0)
-        if gumbel is not None and rows.size:
-            # Row slices copied as they are: no kernel of its own, so no
-            # module loads lazily inside the timed window.
-            def pick(t):
-                return torch.cat([t[r:r + 1].cpu() for r in rows])
-
-            steps[-1].update(rows=rows, logits=pick(logits).float(), gumbel=pick(gumbel), tokens=pick(out),
-                             pen={k: pick(v) for k, v in pen.items()})
-        return out
-
-    runner.step, runner_mod.sample_tokens = step, sample
+    runner.draw_hook = hook
     try:
         yield steps
     finally:
-        runner.step, runner_mod.sample_tokens = step0, sample0
+        runner.draw_hook = None
+        for st in steps:
+            for k in ("logits", "gumbel", "tokens"):
+                st[k] = torch.cat(st[k]).cpu()
+            st["logits"] = st["logits"].float()
+            st["pen"] = {k: torch.cat(v).cpu() for k, v in st["pen"].items()}
 
 
 def replay_draws(steps: list[dict], tokens: list[int]) -> dict:
@@ -1203,27 +1298,48 @@ def replay_draws(steps: list[dict], tokens: list[int]) -> dict:
     return record
 
 
-async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None) -> dict:
-    """Serve the mix on ``model`` with ``cache_dtype`` caches; returns the
-    phase's record, which holds the launches of its kernels
-    (``SERVE_KERNELS``; their fp8 forms, named ``<kernel>_fp8``, on an fp8
-    cache) over the timed requests."""
+def _overlap_counts(core) -> dict:
+    return {"steps": dict(core.overlap_step_counts), "barriers": dict(core.overlap_barrier_counts)}
+
+
+def _counts_since(now: dict, then: dict) -> dict:
+    return {k: n - then.get(k, 0) for k, n in now.items() if n - then.get(k, 0)}
+
+
+async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None, *,
+                eager: bool = False) -> tuple[dict, list[list[int]]]:
+    """Serve the mix on ``model`` with ``cache_dtype`` caches: the main path
+    (CUDA graphs, overlapped engine), or with ``eager`` the eager runner
+    behind the synchronous engine. One warm-up request and one pass of a
+    mix of other prompts (same lengths, so mostly the same graph keys) go
+    first, untimed; then the timed pass. Returns the phase's record, which
+    holds the launches of its kernels (``SERVE_KERNELS``; their fp8 forms,
+    named ``<kernel>_fp8``, on an fp8 cache, counted through graph replays)
+    over the timed requests, and each timed request's tokens."""
     fp8 = cache_dtype == FP8
     counter = "launches_fp8" if fp8 else "launches"
     kernels = {name + ("_fp8" if fp8 else ""): importlib.import_module(f"dynamo_tpu_torch.ops.{name}")
                for name in SERVE_KERNELS[model]}
     t0 = time.perf_counter()
-    service, pipeline = await build_serving(model, cache_dtype, params)
+    service, pipeline = await build_serving(model, cache_dtype, params, graphs=not eager, overlap=not eager)
     build_s = time.perf_counter() - t0
-    if cache_dtype is not None and service.core.runner.k_cache.dtype != cache_dtype:
-        raise AssertionError(f"asked for a {cache_dtype} cache, got {service.core.runner.k_cache.dtype}")
+    core = service.core
+    if cache_dtype is not None and core.runner.k_cache.dtype != cache_dtype:
+        raise AssertionError(f"asked for a {cache_dtype} cache, got {core.runner.k_cache.dtype}")
+    if core.runner.graphs == eager or core.config.overlap == eager:
+        raise AssertionError(f"asked for eager={eager}, got graphs={core.runner.graphs}, "
+                             f"overlap={core.config.overlap}")
     bodies = serve_bodies(np.random.default_rng(3), model)
     try:
+        t0 = time.perf_counter()
         await warm_up(pipeline, model)
+        await send_all(pipeline, serve_bodies(np.random.default_rng(4), model))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs0 = core.runner.graph_stats()
         # Counters go to 0 just before the main path and are read just after;
         # the engine's own cumulative counters are read as differences.
-        core = service.core
-        dispatch0, mixed0 = dict(core.attn_dispatch_counts), core.mixed_steps
+        dispatch0, mixed0, overlap0 = dict(core.attn_dispatch_counts), core.mixed_steps, _overlap_counts(core)
         for mod in kernels.values():
             setattr(mod, counter, 0)
         with record_draws(core.runner) as draws:
@@ -1232,7 +1348,9 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
         launches = {name: getattr(mod, counter) for name, mod in kernels.items()}
-        cache = str(service.core.runner.k_cache.dtype).removeprefix("torch.")
+        graphs1 = core.runner.graph_stats()
+        overlap1 = _overlap_counts(core)
+        cache = str(core.runner.k_cache.dtype).removeprefix("torch.")
         dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
         mixed = core.mixed_steps - mixed0
     finally:
@@ -1249,26 +1367,60 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
         raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
     if mixed <= 0:
         raise AssertionError("no mixed prefill+decode step occurred")
+    overlap = {"steps": _counts_since(overlap1["steps"], overlap0["steps"]),
+               "barriers": _counts_since(overlap1["barriers"], overlap0["barriers"])}
+    if not eager and overlap["steps"].get("overlapped", 0) <= 0:
+        raise AssertionError(f"the overlapped engine never overlapped a step: {overlap}")
     ((body, seeded),) = [(b, r["tokens"]) for b, r in zip(bodies, results) if b["temperature"] > 0]
     draws = replay_draws(draws, seeded)
     out_tokens = sum(len(r["tokens"]) for r in results)
     ttfts = sorted(r["ttft_s"] for r in results)
-    record = {"phase": "serve", "model": model, "cache": cache, "requests": len(results),
-              "prompt_tokens": SERVE_LENGTHS,
+    record = {"phase": "serve", "model": model, "cache": cache,
+              "mode": "eager, synchronous engine" if eager else "cuda graphs, overlapped engine",
+              "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
               "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
               "output_tokens_per_s": out_tokens / wall,
               "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts), "max": ttfts[-1]},
-              "engine_build_s": build_s, "kernel_launches": launches,
+              "engine_build_s": build_s, "warm_up_s": warm_s, "kernel_launches": launches,
               "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch,
+              "overlap": overlap,
+              "graphs": {"keys": graphs1["keys"], "keys_captured_in_window": graphs1["keys"] - graphs0["keys"],
+                         "capture_s": graphs1["capture_s"], "pool_bytes": graphs1["pool_bytes"]},
               "seeded_request": {**{k: body[k] for k in ("temperature", "top_p", "seed")}, **draws}}
     emit(record)
-    return record
+    return record, [r["tokens"] for r in results]
+
+
+def serve_both(model: str, cache_dtype: torch.dtype | None, params: dict) -> dict:
+    """The mix served twice in one run: the eager runner behind the
+    synchronous engine, then the main path. Every request's tokens must be
+    bitwise equal (every step carries the same rows and shapes in both
+    modes, and a replay runs the eager step's kernels on the same inputs).
+    Returns the main path's record."""
+    eager, eager_tokens = asyncio.run(serve(model, cache_dtype, params, eager=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path, tokens = asyncio.run(serve(model, cache_dtype, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    greedy = [i for i, body in enumerate(serve_bodies(np.random.default_rng(3), model)) if body["temperature"] == 0]
+    differ = [SERVE_LENGTHS[i] for i in range(len(tokens)) if tokens[i] != eager_tokens[i]]
+    emit({"phase": "serve_modes", "model": model, "cache": main_path["cache"],
+          "tokens_equal": not differ, "requests_differing_by_prompt_tokens": differ,
+          "output_tokens_per_s": {"eager_sync": eager["output_tokens_per_s"],
+                                  "graphs_overlap": main_path["output_tokens_per_s"]},
+          "speedup": main_path["output_tokens_per_s"] / eager["output_tokens_per_s"]})
+    if any(SERVE_LENGTHS[i] in differ for i in greedy):
+        raise AssertionError(f"greedy tokens of the graph-replayed overlapped serve differ from the eager "
+                             f"synchronous serve's (requests of {differ} prompt tokens)")
+    return main_path
 
 
 # -- phase 5: http --------------------------------------------------------------
 
 HTTP_WORKERS = 2
 CLOSE_TOKENS = 256  # the request that outlives the other worker's close()
+LONG_TOKENS = 1024  # each request of the burst both workers must step beside
 
 
 async def stream_completion(session, base: str, body: dict, first_chunk: asyncio.Event | None = None) -> dict:
@@ -1376,7 +1528,8 @@ async def serve_http(in_process: dict) -> dict:
     other serves."""
     import aiohttp
 
-    from dynamo_tpu_torch.launch import run_local, shutdown
+    from dynamo_tpu_torch.launch import build_pipeline, run_local, shutdown
+    from dynamo_tpu_torch.runtime.engine import Context
     from dynamo_tpu_torch.tokenizer import ByteTokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
     from dynamo_tpu_torch.tracing import SPANS
@@ -1390,12 +1543,14 @@ async def serve_http(in_process: dict) -> dict:
     cold_body = {**greedy, "prompt": bytes(rng.choice(letters, 299)).decode(), "logprobs": 5}
     alone_body = {**cold_body, "prompt": bytes(rng.choice(letters, 299)).decode()}
     wrng = np.random.default_rng(6)
-    long_bodies = [{**greedy, "prompt": bytes(wrng.choice(letters, 299)).decode(), "max_tokens": 160}
+    # The first burst must outlast the router's view of load (published
+    # every 0.5 s) by a margin: ~1,000 graph-replayed decode steps.
+    long_bodies = [{**greedy, "prompt": bytes(wrng.choice(letters, 299)).decode(), "max_tokens": LONG_TOKENS}
                    for _ in range(4)]
     short_bodies = [{**greedy, "prompt": bytes(wrng.choice(letters, 299)).decode()} for _ in range(4)]
     t0 = time.perf_counter()
     handles = await run_local(MODEL, port=0, num_workers=HTTP_WORKERS, router_mode="kv", device="cuda",
-                              **SERVE_ENGINE)
+                              overlap=True, **SERVE_ENGINE)
     build_s = time.perf_counter() - t0
     base = f"http://127.0.0.1:{handles['port']}"
     cores = [svc.core for svc in handles["services"]]
@@ -1430,11 +1585,21 @@ async def serve_http(in_process: dict) -> dict:
             cold = await stream_completion(session, base, cold_body)
             await stream_completion(session, base, {"model": MODEL, "prompt": "w" * 600, "max_tokens": 4,
                                                     "temperature": 0.0, "nvext": {"ignore_eos": True}})
+            # Each worker in-process first takes a mix of other prompts and a
+            # lone prompt of the timed ones' lengths, as in phase 4: the
+            # graph keys of the timed requests below are captured on both
+            # workers before any is sent.
+            for svc in handles["services"]:
+                warm_pipeline = build_pipeline(svc)
+                await send_all(warm_pipeline, serve_bodies(np.random.default_rng(4), MODEL))
+                async for _ in warm_pipeline.generate({**greedy, "prompt": "v" * 299}, Context()):
+                    pass
 
             # Phase 4's mix, concurrent and streamed. Counters go to 0 just
             # before it and are read just after.
             bodies = serve_bodies(np.random.default_rng(3), MODEL)
             before = counts()
+            graphs0 = [c.runner.graph_stats() for c in cores]
             queue0 = _metric_sum(await http_get(session, base, "/metrics"), "dynamo_frontend_request_queue_seconds")
             for mod in kernels.values():
                 mod.launches = 0
@@ -1443,7 +1608,9 @@ async def serve_http(in_process: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
             launches = {name: mod.launches for name, mod in kernels.items()}
-            dispatch, _, mixed, prompt_tokens = since(before)
+            dispatch, steps, mixed, prompt_tokens = since(before)
+            captured = [{"keys": g1["keys"] - g0["keys"], "capture_s": g1["capture_s"] - g0["capture_s"]}
+                        for g0, g1 in zip(graphs0, (c.runner.graph_stats() for c in cores))]
             queue1 = _metric_sum(await http_get(session, base, "/metrics"), "dynamo_frontend_request_queue_seconds")
 
             # Both workers at once. The router reads load from metrics each
@@ -1532,8 +1699,6 @@ async def serve_http(in_process: dict) -> dict:
     # hop, SSE).
     service, pipeline = await build_serving(MODEL)
     try:
-        from dynamo_tpu_torch.runtime.engine import Context
-
         async def timed(body: dict) -> tuple[float, float, str, list[dict]]:
             sent, ttft, pieces, entries = time.perf_counter(), None, [], []
             async for out in pipeline.generate(dict(body), Context()):
@@ -1569,7 +1734,8 @@ async def serve_http(in_process: dict) -> dict:
         "http_minus_in_process": {"wall_s": wall - in_process["wall_s"],
                                   "ttft_median_s": statistics.median(ttfts) - in_process["ttft_s"]["median"]},
         "stack_build_s": build_s, "kernel_launches": launches, "engine_steps": sum(dispatch.values()),
-        "attn_dispatch_steps": dispatch, "mixed_steps_per_worker": mixed,
+        "attn_dispatch_steps": dispatch, "steps_per_worker": steps, "mixed_steps_per_worker": mixed,
+        "graph_keys_captured_in_window_per_worker": captured,
         "prompt_tokens_per_worker": prompt_tokens,
         "both_workers": {"first_burst_worker": [f"{w:x}" for w in busy], "steps_per_worker_in_window": stepped,
                          "prompt_tokens_per_worker": both_prompt_tokens, "mixed_steps_per_worker": both_mixed,
@@ -1642,12 +1808,13 @@ def main() -> int:
         params = llama.init_params(PRESETS[model], 0, device=dev)
         forward_check(dev, model, params=params)
         forward_check(dev, model, FP8, params=params)
+        graph_check(dev, model, params)
+        if model == MODEL:
+            graph_check(dev, model, params, FP8)
         for cache_dtype in (None, FP8):
-            record = asyncio.run(serve(model, cache_dtype, params))
+            record = serve_both(model, cache_dtype, params)
             served.setdefault(model, record)
             launches.update(record["kernel_launches"])
-            gc.collect()
-            torch.cuda.empty_cache()
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
-"""Engine core: continuous batching with stall-free mixed steps (synchronous
-step path of ``dynamo_tpu/engine/core.py:EngineCore``).
+"""Engine core: continuous batching with stall-free mixed steps and the
+overlapped pipeline (``dynamo_tpu/engine/core.py:EngineCore``).
 
 A ``step()`` fuses decode and prefill work into ONE runner dispatch: every
 running sequence contributes a 1-token decode row, and waiting or mid-prompt
@@ -19,11 +19,18 @@ is prefill XOR decode).
 - Pages commit to the prefix cache as they fill, emitting KV stored events;
   eviction emits removed events (allocator.py).
 
+- Overlap (``EngineConfig.overlap``): step N+1 is composed at the
+  sequences' effective state and dispatched (``runner.step_async``) before
+  step N's tokens reach the host; decode rows take their input token from
+  step N's samples on the device. Stops are detected one step late, at
+  harvest, and the row's in-flight token is discarded: output streams are
+  bit-identical to ``overlap=False``.
+
 Not ported yet, and without a config field here, so setting their flag
-fails: overlapped execution, speculative decoding, multi-step decode
-bursts, SLO scheduling, cache-aware admission and async tier onboarding.
-Per-request features that are not ported (constrained decoding, multimodal
-inputs) finish the request with an error. The block manager, fault points, tracing spans and the
+fails: speculative decoding, multi-step decode bursts, SLO scheduling,
+cache-aware admission and async tier onboarding. Per-request features that
+are not ported (constrained decoding, multimodal inputs) finish the request
+with an error. The block manager, fault points, tracing spans and the
 flight recorder are not part of this core.
 """
 
@@ -52,11 +59,23 @@ logger = logging.getLogger(__name__)
 # per-request top_logprobs slices host-side). 20 = the OpenAI cap.
 LOGPROBS_TOP_K = 20
 
+# Why an overlapped engine's step ran as a barrier (the JAX build's names;
+# the first reason noted within a step wins, "idle" when none was).
+BARRIER_REASONS = (
+    "cancel",  # cancellation reaped mid-pipeline: in-flight writes are stale
+    "runner",  # runner has no step_async
+    "prefill",  # legacy XOR mode: whole-prompt prefill steps carry no decodes
+    "drain",  # every live row finishes inside the in-flight step
+    "pages",  # sole candidate cannot extend: commit in-flight, then re-check
+    "fill",  # pipeline refill: dispatched with nothing in flight
+    "idle",  # barrier step with no recorded reason (nothing dispatched)
+)
+
 
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX build's EngineConfig with the same names and defaults, less
-    every field only an unported feature reads (``overlap``, ``spec_k``,
+    every field only an unported feature reads (``spec_k``,
     ``decode_steps``, ``slo_sched``, ``cache_aware``, ``async_onboard``,
     ``overlap_spec``, ``swa_free_pages``, ``constraint_lookahead_tokens``):
     passing one fails with a ``TypeError`` that names it."""
@@ -71,6 +90,25 @@ class EngineConfig:
     salt: int = DEFAULT_SALT
     worker_id: int = 0
     chunk_prefill_tokens: int = 512
+    # Overlapped execution (DYN_OVERLAP): a depth-1 pipeline that dispatches
+    # step N+1 before step N's tokens reach the host. Mixed steps, penalized
+    # rows and budget-final tokens chain; cancellation barriers. Output
+    # streams are bit-identical to off.
+    overlap: bool = False
+
+
+@dataclasses.dataclass
+class _InflightStep:
+    """A dispatched-but-unharvested step. ``ns``/``samples`` snapshot the
+    composition the harvest needs to apply the results: a row whose
+    sequence left RUNNING meanwhile (cancelled, preempted, finished) is
+    skipped and its sample discarded."""
+
+    batch: list
+    handle: object
+    ns: list  # real token columns per row
+    n_dec: int  # leading decode rows (the rest are prefill chunks)
+    samples: list  # per row: does the engine accept its sample?
 
 
 class EngineCore:
@@ -109,6 +147,25 @@ class EngineCore:
         # Serializes step() (executor thread) against abort_all() (event loop).
         self.step_lock = threading.RLock()
         self._head_stall_steps = 0
+        # The dispatch in flight on the device, not yet consumed (overlap).
+        self._inflight: _InflightStep | None = None
+        # Effective-state advance for sequences with a dispatch in flight:
+        # seq_id -> (cached_delta, emit_delta): the KV slots the in-flight
+        # step writes for the row, and 1 iff it samples a token the host has
+        # not seen yet. The scheduler and the lookahead reason at
+        # num_cached + cached_delta / num_generated + emit_delta, so in-flight
+        # work is never scheduled twice. Cleared when the step is consumed.
+        self._inflight_adv: dict[int, tuple[int, int]] = {}
+        # seq_id -> row of the latest step_async whose sample is the
+        # sequence's next input token: a chained dispatch takes it on the device.
+        self._chain_map: dict[int, int] = {}
+        # Per step with overlap on: "overlapped" when it dispatched a chained
+        # lookahead while harvesting the previous one, "barrier" otherwise,
+        # and why each barrier step barriered (BARRIER_REASONS).
+        self._overlap_mode: str | None = None
+        self._overlap_barrier_reason: str | None = None
+        self.overlap_step_counts: dict[str, int] = {"overlapped": 0, "barrier": 0}
+        self.overlap_barrier_counts: dict[str, int] = {}
 
     # -- request intake ----------------------------------------------------
 
@@ -146,14 +203,25 @@ class EngineCore:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running or self.prefilling)
+        return bool(self.waiting or self.running or self.prefilling or self._inflight is not None)
 
     # -- stepping ----------------------------------------------------------
 
     def step(self) -> list[tuple[Sequence, EngineOutput]]:
         """Advance the engine by one batched forward; returns per-seq deltas."""
         with self.step_lock:
+            prev_info = self.last_step_info
+            self._overlap_mode = None
+            self._overlap_barrier_reason = None
             out = self._step_locked()
+            if self.last_step_info is prev_info and not out and not self.running:
+                return out  # idle drain: nothing dispatched, nothing to record
+            if self.config.overlap:
+                mode = self._overlap_mode or "barrier"
+                self.overlap_step_counts[mode] = self.overlap_step_counts.get(mode, 0) + 1
+                if mode == "barrier":
+                    reason = self._overlap_barrier_reason or "idle"
+                    self.overlap_barrier_counts[reason] = self.overlap_barrier_counts.get(reason, 0) + 1
             # Consume the runner's dispatch label, so a step that dispatched
             # nothing never re-counts the previous dispatch.
             attn = getattr(self.runner, "last_attn_dispatch", None)
@@ -164,7 +232,26 @@ class EngineCore:
 
     def _step_locked(self) -> list[tuple[Sequence, EngineOutput]]:
         cancelled = self._reap_cancelled()
+        if self._inflight is not None and (
+            cancelled or (not self.config.overlap and (self.waiting or self.prefilling))
+        ):
+            # Composition is about to change. Reaping released the cancelled
+            # rows' pages, so the in-flight step's writes for them are stale
+            # and nothing new may be composed on top of it.
+            if cancelled:
+                self._note_barrier("cancel")
+            return cancelled + self._drain_inflight()
         chunks = self._schedule_prefill()
+        overlap_ok, reason = self._overlap_route(chunks)
+        if overlap_ok:
+            return cancelled + self._run_mixed_overlapped(chunks)
+        if reason is not None:
+            self._note_barrier(reason)
+        if self.config.overlap and self._inflight is not None:
+            # Barrier with work in flight: commit it before any synchronous
+            # dispatch. Chunks scheduled above keep their pages and are
+            # scheduled again next step.
+            return cancelled + self._drain_inflight()
         fused = self.config.chunk_prefill_tokens > 0
         if chunks or (fused and self.running and self.prefilling):
             # Mixed step: decode rows + prefill-chunk rows in one dispatch
@@ -173,7 +260,7 @@ class EngineCore:
             return cancelled + self._run_mixed(chunks)
         if self.running:
             return cancelled + self._run_decode()
-        return cancelled
+        return cancelled + self._drain_inflight()
 
     def _reap_cancelled(self) -> list[tuple[Sequence, EngineOutput]]:
         out: list[tuple[Sequence, EngineOutput]] = []
@@ -190,6 +277,64 @@ class EngineCore:
                     )))
         return out
 
+    # -- overlapped pipeline routing ---------------------------------------
+
+    def _note_barrier(self, reason: str) -> None:
+        """Record why this step barriered (first reason wins)."""
+        if self._overlap_barrier_reason is None:
+            self._overlap_barrier_reason = reason
+
+    def _adv(self, s: Sequence) -> tuple[int, int]:
+        """(cached_delta, emit_delta) the in-flight dispatch owes ``s``."""
+        return self._inflight_adv.get(s.seq_id, (0, 0))
+
+    def _eff_cached(self, s: Sequence) -> int:
+        """num_cached once the in-flight step lands."""
+        return s.num_cached + self._adv(s)[0]
+
+    def _eff_remaining(self, s: Sequence) -> int:
+        """remaining_tokens at effective state, WITHOUT the live-row floor:
+        <= 0 means the sequence reaches its finish line inside the in-flight
+        step (it is left out of the lookahead, and the late stop check at
+        harvest finishes it). Equals Sequence.remaining_tokens for rows with
+        nothing in flight."""
+        de = self._adv(s)[1]
+        return min(
+            s.request.stop.max_tokens - (s.num_generated + de),
+            self.config.max_seq_len - (len(s.tokens) + de),
+        )
+
+    def _decodes_next(self, s: Sequence) -> bool:
+        """A mid-prompt sequence that decodes once the in-flight step lands:
+        its chunk in flight leaves at most its last prompt token, which the
+        synchronous engine feeds as a decode row (it moves a sequence to
+        running at ``prompt_remaining <= 1``). The JAX engine counts only a
+        sampling final chunk here, and schedules a 1-token chunk where its
+        synchronous step runs a decode row."""
+        return self._adv(s)[0] > 0 and len(s.tokens) - self._eff_cached(s) <= 1
+
+    def _overlap_route(self, chunks) -> tuple[bool, str | None]:
+        """Decide whether this step runs the chained pipeline: (use_overlap,
+        barrier_reason). The reason is None when overlap is simply off or
+        idle, else it names the composition the pipeline cannot take.
+        Penalties, logprobs, budget-final tokens, admission and mixed
+        prefill+decode steps all chain."""
+        cfg = self.config
+        if not cfg.overlap:
+            return False, None
+        if not hasattr(self.runner, "step_async"):
+            return False, "runner"
+        if chunks and cfg.chunk_prefill_tokens <= 0:
+            # Legacy XOR mode: whole-prompt prefill steps carry no decode
+            # rows, so there is nothing to chain.
+            return False, "prefill"
+        rows = self.running + [s for s, _ in chunks] + [s for s in self.prefilling if self._decodes_next(s)]
+        if not rows:
+            # Nothing schedulable. If a step is in flight its rows are all
+            # finishing: the next step harvests it; otherwise idle.
+            return (self._inflight is not None), None
+        return True, None
+
     # -- prefill phase -----------------------------------------------------
 
     def _schedule_prefill(self) -> list[tuple[Sequence, int]]:
@@ -204,17 +349,26 @@ class EngineCore:
         ps = self.config.page_size
         chunk_budget = self.config.chunk_prefill_tokens
         chunked = chunk_budget > 0
-        if chunked and self.running:
+        # Decodable at effective state, as the synchronous engine sees them
+        # by now: running sequences that do not finish inside the in-flight
+        # step (overlap), and those that decode next (_decodes_next). (The JAX
+        # engine counts the running ones as they stand, so its overlapped
+        # steps can take the chunk budget where its synchronous steps take
+        # the whole prefill budget, and the reverse: a different
+        # composition, and on the card a row's arithmetic depends on the
+        # batch's shapes.)
+        decodable = [s for s in self.running + [s for s in self.prefilling if self._decodes_next(s)]
+                     if self._eff_remaining(s) >= 1]
+        if chunked and decodable:
             budget = min(chunk_budget, self.config.max_prefill_tokens)
         else:
             budget = self.config.max_prefill_tokens
         chunks: list[tuple[Sequence, int]] = []
-        # Decode first: the running sequences' next-token pages are spoken
+        # Decode first: the decodable sequences' next-token pages are spoken
         # for before any chunk is sized against the free pool.
         reserve = sum(
-            s.pages_needed(ps, max(0, min(1, s.request.stop.max_tokens - s.num_generated,
-                                          self.config.max_seq_len - len(s.tokens))))
-            for s in self.running
+            s.pages_needed(ps, self._adv(s)[0] + max(0, min(1, self._eff_remaining(s))))
+            for s in decodable
         ) if chunked else 0
 
         def free_pages() -> int:
@@ -224,11 +378,16 @@ class EngineCore:
         for seq in self.prefilling:
             if budget <= 0:
                 break
-            n = min(seq.prompt_remaining, budget)
-            n = min(n, len(seq.pages) * ps - seq.num_cached + free_pages() * ps)
+            if self._decodes_next(seq):
+                continue  # a decode row of this step (overlap)
+            # A chunk already in flight counts as computed (overlap): the
+            # next chunk starts where the in-flight one will leave off.
+            dc = self._adv(seq)[0]
+            n = min(seq.prompt_remaining - dc, budget)
+            n = min(n, len(seq.pages) * ps - (seq.num_cached + dc) + free_pages() * ps)
             if n <= 0:
                 continue  # page-starved this step; decode still proceeds
-            need = seq.pages_needed(ps, n)
+            need = seq.pages_needed(ps, dc + n)
             if need:
                 try:
                     seq.pages.extend(self.allocator.allocate(need))
@@ -288,11 +447,13 @@ class EngineCore:
             chunks.append((seq, n))
         if chunks:
             self._head_stall_steps = 0
-        elif chunked and not self.running and len(self.prefilling) > 1:
+        elif chunked and not self.running and len(self.prefilling) > 1 and self._inflight is None:
             # Nothing can move: mid-prompt sequences pin every page among
             # themselves. Preempt the most recently arrived one and retry
             # (bounded by the prefilling count; a sole mid-prompt sequence
             # always fits — its prompt passed the pool check at intake).
+            # With a step in flight, emptiness is progress (its chunks land
+            # next step): never preempt a row whose chunk is mid-air.
             self._preempt(self.prefilling[-1])
             return self._schedule_prefill()
         return chunks
@@ -366,8 +527,19 @@ class EngineCore:
             for s in batch:
                 self._finish(s, FinishReason.ERROR)
             raise
+        rec = _InflightStep(batch, None, ns=ns, n_dec=n_dec, samples=samples)
+        return out + self._apply_mixed_results(rec, next_tokens, lp_aux)
+
+    def _apply_mixed_results(self, rec: _InflightStep, next_tokens, lp_aux) -> list[tuple[Sequence, EngineOutput]]:
+        """Apply a (possibly mixed) step's sampled tokens; shared by the
+        synchronous path and the overlapped harvest. Rows whose sequence
+        left RUNNING while the step was in flight (cancelled, preempted,
+        finished by a late stop) are skipped: their samples are discarded."""
+        batch, ns, samples = rec.batch, rec.ns, rec.samples
+        out: list[tuple[Sequence, EngineOutput]] = []
         for i, (s, n) in enumerate(zip(batch, ns)):
             if s.status is not SeqStatus.RUNNING:
+                self._chain_map.pop(s.seq_id, None)
                 continue
             # Prompt-token accounting: only the prompt part of the span.
             self._prompt_tokens_total += max(0, min(s.num_cached + n, s.num_prompt) - s.num_cached)
@@ -385,10 +557,206 @@ class EngineCore:
                 # the prefill finishes) and discard the sampled token.
                 self._commit_filled_pages(s)
         # Chunks whose final span sampled are decodable now.
-        for s in batch[n_dec:]:
+        for s in batch[rec.n_dec:]:
             if s in self.prefilling and s.prompt_remaining <= 1 and not s.is_finished:
                 self.prefilling.remove(s)
                 self.running.append(s)
+        return out
+
+    # -- overlapped mixed pipeline -----------------------------------------
+
+    def _ensure_lookahead_pages(self, rows: list[Sequence]) -> Sequence | None:
+        """Give every lookahead decode row pages covering its chained write
+        (position ``eff_cached``); preempt on exhaustion. Rows preempted by
+        an earlier row's allocation are dropped from ``rows`` in place (the
+        caller filters again for victims already behind the cursor). A sole
+        row that cannot fit is returned *unfinished*: the step in flight may
+        hold its legitimate finish."""
+        ps = self.config.page_size
+        i = 0
+        while i < len(rows):
+            s = rows[i]
+            if s.status is not SeqStatus.RUNNING:
+                rows.pop(i)
+                continue
+            need = s.pages_needed(ps, self._adv(s)[0] + 1)
+            if need:
+                try:
+                    s.pages.extend(self.allocator.allocate(need))
+                except OutOfPagesError:
+                    victim = self.running[-1] if self.running else s
+                    if victim is s and len(self.running) <= 1:
+                        return s
+                    self._preempt(victim)
+                    continue  # retry same index (rows may shrink behind us)
+            i += 1
+        return None
+
+    def _abort_pipeline(self, batch: list[Sequence]) -> None:
+        """A dispatch crashed mid-pipeline: fail its rows AND those still in
+        flight (rows finishing inside the in-flight step live only there),
+        then reset the chain state so a recovering caller starts from a
+        clean pipeline. ``_finish`` releases each sequence's pages once."""
+        failed: dict[int, Sequence] = {id(s): s for s in batch}
+        if self._inflight is not None:
+            for s in self._inflight.batch:
+                failed.setdefault(id(s), s)
+            self._inflight = None
+        self._inflight_adv = {}
+        self._chain_map = {}
+        if hasattr(self.runner, "reset_chain"):
+            self.runner.reset_chain()
+        for s in failed.values():
+            if s.status is not SeqStatus.FINISHED:
+                self._finish(s, FinishReason.ERROR)
+
+    def _run_mixed_overlapped(self, chunks: list[tuple[Sequence, int]]) -> list[tuple[Sequence, EngineOutput]]:
+        """Depth-1 overlapped pipeline over mixed steps
+        (``dynamo_tpu/engine/core.py:_run_mixed_overlapped``, less its
+        speculative, constrained, multimodal and burst branches).
+
+        Step N+1 is composed at the sequences' effective state
+        (``_inflight_adv``) and dispatched before step N's tokens reach the
+        host. Decode rows whose input token is still in flight take it on
+        the device from step N's samples (``_chain_map``); prefill chunk
+        rows feed from the host (their tokens are known). Penalty history is
+        restored on the device for chained rows and the position-limit clamp
+        keeps a budget-final row's write off live pages, so neither needs a
+        barrier. Rows that finish *inside* the in-flight step are left out
+        of the lookahead: their finish is detected at harvest, one step
+        late, and streams stay bit-identical to overlap=False."""
+        fused = self.config.chunk_prefill_tokens > 0
+        out: list[tuple[Sequence, EngineOutput]] = []
+        info = self.last_step_info = {
+            "decode_rows": 0,
+            "chunk_rows": len(chunks),
+            "chunk_tokens": int(sum(n for _, n in chunks)),
+            "decodable": len(self.running),
+            "chained_rows": 0,
+        }
+        inf = self._inflight
+        # Decode candidates at effective state: running rows still short of
+        # their finish line, plus mid-prompt rows that decode once the
+        # in-flight step lands (_decodes_next; a sampling final chunk's
+        # sample is taken on the device).
+        decode_rows = [
+            s for s in self.running
+            if s.status is SeqStatus.RUNNING and self._eff_remaining(s) >= 1
+        ] + [
+            s for s in self.prefilling
+            if self._decodes_next(s) and self._eff_remaining(s) >= 1
+        ]
+        if not decode_rows and not chunks:
+            # Everything live finishes inside the in-flight step (or the
+            # schedule is page-starved): commit it, refill next step.
+            if inf is not None:
+                self._note_barrier("drain")
+                out += self._drain_inflight()
+            return out
+        failed = self._ensure_lookahead_pages(decode_rows)
+        if failed is not None:
+            # The sole candidate cannot extend: the in-flight step may hold
+            # its legitimate finish. Commit that first, then check again.
+            self._note_barrier("pages")
+            out += self._drain_inflight()
+            if failed.status is SeqStatus.RUNNING:
+                f2 = self._ensure_burst_pages(1)
+                if f2 is not None:
+                    out.append((f2, self._final_output(f2)))
+            return out
+        # _ensure_lookahead_pages may have preempted rows already behind its
+        # cursor; drop them (their recompute is scheduled from waiting).
+        decode_rows = [s for s in decode_rows if s.status is SeqStatus.RUNNING]
+        batch = decode_rows + [s for s, _ in chunks]
+        if not batch:
+            if inf is not None:
+                self._note_barrier("drain")
+                out += self._drain_inflight()
+            return out
+        n_dec = len(decode_rows)
+        info["decode_rows"] = n_dec
+        if chunks and fused:
+            self.mixed_steps += 1
+        ns = [1] * n_dec + [n for _, n in chunks]
+        ps = self.config.page_size
+        t = max(ns)
+        npg = max(len(s.pages) for s in batch)
+        b = len(batch)
+        tokens = np.zeros((b, t), np.int32)
+        positions = np.zeros((b, t), np.int32)
+        block_tables = np.zeros((b, npg), np.int32)
+        slots = np.zeros((b, t), np.int32)
+        last = np.zeros(b, np.int32)
+        chain_src = np.full(b, -1, np.int32)
+        samples = [False] * b
+        for i, (s, n) in enumerate(zip(batch, ns)):
+            ec = self._eff_cached(s)
+            if i < n_dec:
+                src = self._chain_map.get(s.seq_id, -1)
+                if src >= 0:
+                    chain_src[i] = src  # column 0 taken on the device
+                else:
+                    # The host knows the input token (nothing in flight for
+                    # this row; an IndexError here would mean the chain map
+                    # lost an in-flight row, never silence it).
+                    tokens[i, 0] = s.tokens[ec]
+                samples[i] = True
+            else:
+                tokens[i, :n] = s.tokens[ec : ec + n]
+                samples[i] = ec + n == len(s.tokens)
+            pos = np.arange(ec, ec + n, dtype=np.int32)
+            positions[i, :n] = pos
+            block_tables[i, : len(s.pages)] = s.pages
+            page_arr = np.asarray(s.pages, dtype=np.int32)
+            slots[i, :n] = page_arr[pos // ps] * ps + pos % ps
+            last[i] = n - 1
+        info["chained_rows"] = chained = int((chain_src >= 0).sum())
+        sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
+        lp_k = LOGPROBS_TOP_K if any(
+            s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
+        ) else 0
+        try:
+            dev = self.runner.step_async(sb, lp_k=lp_k, chain=chained > 0,
+                                         chain_src=chain_src if chained else None)
+        except Exception:
+            self._abort_pipeline(batch)
+            raise
+        new_inf = _InflightStep(batch, dev, ns=ns, n_dec=n_dec, samples=samples)
+        if inf is not None:
+            self._overlap_mode = "overlapped"
+        else:
+            self._note_barrier("fill")
+        # The new dispatch's chain map: its emitting rows. Installed *before*
+        # the harvest below so late finishes prune their entries.
+        self._chain_map = {s.seq_id: i for i, (s, smp) in enumerate(zip(batch, samples)) if smp}
+        if inf is not None:
+            out += self._harvest_inflight()
+        self._inflight = new_inf
+        self._inflight_adv = {
+            s.seq_id: (n, 1 if smp else 0) for s, n, smp in zip(batch, ns, samples)
+        }
+        return out
+
+    def _harvest_inflight(self) -> list[tuple[Sequence, EngineOutput]]:
+        """Consume the in-flight step (waiting for its tokens) and apply it;
+        the device-resident samples stay valid for a dispatch composed on
+        top. Clears the effective-state advance: the host has caught up."""
+        inf = self._inflight
+        if inf is None:
+            return []
+        self._inflight = None
+        self._inflight_adv = {}
+        res, lp_aux = inf.handle.result()
+        return self._apply_mixed_results(inf, res[:, 0], lp_aux)
+
+    def _drain_inflight(self) -> list[tuple[Sequence, EngineOutput]]:
+        """Consume the in-flight step without composing on top of it: apply
+        its results, then reset the chain state (nothing chains from the
+        device buffer until the pipeline refills)."""
+        out = self._harvest_inflight()
+        self._chain_map = {}
+        if hasattr(self.runner, "reset_chain"):
+            self.runner.reset_chain()
         return out
 
     # -- decode phase ------------------------------------------------------
@@ -474,7 +842,11 @@ class EngineCore:
             top_k[i] = sp.top_k
             top_p[i] = sp.top_p
             seeds[i] = np.uint32((sp.seed if sp.seed is not None else s.seq_id * 0x9E3779B9 + 1) & 0xFFFFFFFF)
-            steps[i] = s.num_generated
+            # Effective rng counter: a chained row's in-flight token has
+            # already taken counter num_generated (its history entry is
+            # restored on the device); without a step in flight this is
+            # num_generated.
+            steps[i] = s.num_generated + self._adv(s)[1]
             freq[i] = sp.frequency_penalty
             pres[i] = sp.presence_penalty
             limits[i] = s.position_limit(self.config.max_seq_len)
@@ -504,9 +876,14 @@ class EngineCore:
             seq.committed_pages += 1
 
     def abort_all(self, reason: FinishReason = FinishReason.ERROR) -> None:
-        """Finish every live sequence (releasing its pages); blocks until a
-        step running in another thread completes."""
+        """Finish every live sequence (releasing its pages) and drop the step
+        in flight; blocks until a step running in another thread completes."""
         with self.step_lock:
+            self._inflight = None
+            self._inflight_adv = {}
+            self._chain_map = {}
+            if hasattr(self.runner, "reset_chain"):
+                self.runner.reset_chain()
             for seq in list(self.running) + list(self.prefilling) + list(self.waiting):
                 seq.context.kill()
                 self._finish(seq, reason)
@@ -559,6 +936,10 @@ class EngineCore:
         seq.num_cached = 0
         seq.prefill_chunks = 0
         seq.status = SeqStatus.PREEMPTED
+        # Any in-flight advance is void: on re-admission the sequence
+        # restarts from num_cached=0.
+        self._inflight_adv.pop(seq.seq_id, None)
+        self._chain_map.pop(seq.seq_id, None)
         if seq in self.running:
             self.running.remove(seq)
         if seq in self.prefilling:

@@ -2,21 +2,44 @@
 (counterpart of ``dynamo_tpu/engine/runner.py:ModelRunner``).
 
 ``TorchModelRunner`` owns the parameters and the paged KV cache on its
-device and serves the seam ``EngineCore`` drives: ``step``, ``cfg``,
-``io_lock`` and ``last_attn_dispatch``. Host arrays are padded onto the
-same bucket lattice as the JAX build (batch and chunk length to powers of
-two, table width to a power of two), packed into one int32 buffer and sent
-to the device in a single copy; only the sampled token ids come back. The
-KV cache is updated in place by the forward.
+device and serves the seam ``EngineCore`` drives: ``step``, ``step_async``,
+``can_chain``/``chain_len``/``reset_chain``, ``cfg``, ``io_lock`` and
+``last_attn_dispatch``. Host arrays are padded onto the same bucket lattice
+as the JAX build (batch and chunk length to powers of two, table width and
+penalty history to powers of two), packed into one buffer (int32 fields,
+then the optional logit mask's bytes) and sent to the device in a single
+copy from pinned memory; only the sampled token ids (and logprobs when
+asked) come back, by one copy into pinned memory that a CUDA event closes.
+The KV cache is updated in place by the forward.
 
-Not ported yet: ``step_async``, ``spec_step``, ``multi_step``,
-``read_page(s)``, ``write_page(s)`` and ``embed``.
+On the card every step replays a CUDA graph, one per dispatch key — the
+padded shapes ``(b, t, n, h)``, ``lp_k``, whether the step chains, and the
+sampling branches it takes (a sampled row, penalties, a mask) — where the
+JAX build runs one jitted program per key. A key is run once eagerly on a
+side stream to warm it up, then captured at its first use; every graph
+shares one memory pool; its inputs are a persistent device buffer per key,
+filled outside the graph. A failed capture or replay raises: nothing falls
+back to eager. The eager body runs only on the CPU, or on the card when the
+runner is built with ``graphs=False`` (the comparison ``chip_smoke.py``
+makes).
+
+``step_async`` dispatches without waiting (the overlapped engine's depth-1
+pipeline): its samples stay on the device in ``_chain_buf``, a runner-owned
+buffer outside the graph pool, and the next dispatch may take each row's
+input token from there in-graph (``_apply_chain``). ``DeviceStepTokens``
+waits for the step's copy to host; two pinned buffers alternate, so a
+harvest never reads one that the next copy is filling.
+
+Not ported yet: ``spec_step(_async)``, ``multi_step``, ``read_page(s)``,
+``write_page(s)`` and ``embed``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -25,6 +48,7 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_cache_widths
+from dynamo_tpu_torch.ops import build
 from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, NEG_INF, attention_phase, noncontiguous_rows
 from dynamo_tpu_torch.ops.paged_decode import decode_kernel_supported
 from dynamo_tpu_torch.ops.paged_mla import paged_mla_supported
@@ -34,6 +58,28 @@ from dynamo_tpu_torch.ops.sampling import CANDIDATES, gumbel_noise, sample_token
 
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _apply_chain(tokens, history, sample_steps, chain_buf, chain_src):
+    """Per-row device-resident token sourcing for a chained dispatch
+    (``dynamo_tpu/engine/runner.py:_apply_chain``).
+
+    ``chain_src`` i32[B] holds, per row, an index into ``chain_buf`` (the
+    previous dispatch's device-resident samples) or -1 for host-fed rows.
+    Chained rows' column-0 input token is gathered on the device; host-fed
+    rows keep their host token. The gathered token is also written into the
+    penalty ``history`` at ``sample_steps - 1``: a chained row's host history
+    lacks exactly the one in-flight token it chains, and that token is the
+    gathered value; for host-fed rows the write stores what is already
+    there. Returns new ``(tokens, history)``."""
+    src = chain_src.clamp(0, chain_buf.shape[0] - 1).long()
+    gathered = chain_buf[src]
+    chained = chain_src >= 0
+    tokens = torch.cat([torch.where(chained, gathered, tokens[:, 0])[:, None], tokens[:, 1:]], dim=1)
+    idx = (sample_steps - 1).clamp(0, history.shape[1] - 1).long()[:, None]
+    cur = history.gather(1, idx)[:, 0]
+    history = history.scatter(1, idx, torch.where(chained, gathered, cur)[:, None])
+    return tokens, history
 
 
 @dataclasses.dataclass
@@ -67,6 +113,63 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
+class DeviceStepTokens:
+    """Handle to one dispatched step's sampled tokens and optional logprob
+    arrays (``dynamo_tpu/engine/runner.py:DeviceStepTokens``): the copy to
+    host is already enqueued; ``result()`` waits for it (a CUDA event) and
+    returns ``(tokens i32[B_real, 1], lp_aux | None)``."""
+
+    def __init__(self, host: torch.Tensor, event, b_real: int, bp: int, lp_k: int) -> None:
+        self._host = host  # int32: tokens [bp], then chosen, top_ids, top_lps (f32 as bits)
+        self._event = event  # None on the CPU: host already holds the values
+        self._b_real, self._bp, self._lp_k = b_real, bp, lp_k
+        self._value = None
+
+    def result(self) -> tuple[np.ndarray, dict | None]:
+        if self._value is None:
+            if self._event is not None:
+                self._event.synchronize()
+            flat, b, bp, k = self._host.numpy(), self._b_real, self._bp, self._lp_k
+            toks = flat[:bp][:b, None].copy()
+            aux = None
+            if k:
+                aux = {
+                    "logprob": flat[bp:2 * bp].view(np.float32)[:b].copy(),
+                    "top_ids": flat[2 * bp:2 * bp + bp * k].reshape(bp, k)[:b].copy(),
+                    "top_lps": flat[2 * bp + bp * k:2 * bp * (1 + k)].view(np.float32).reshape(bp, k)[:b].copy(),
+                }
+            self._value = (toks, aux)
+            self._host = None  # the pinned buffer goes back to the runner
+        return self._value
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured dispatch key: the graph, its static outputs (``(packed
+    int32 results, draw tensors)``) and the kernel launches its capture
+    recorded, counted again at every replay."""
+
+    graph: object
+    outputs: tuple
+    launches: dict
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One of the two alternating pinned host buffers of the pipeline: the
+    packed step inputs (reusable once ``staged`` completes) and the results
+    (handed out through ``handle``)."""
+
+    stage: torch.Tensor | None = None
+    staged: torch.cuda.Event | None = None
+    out: torch.Tensor | None = None
+    handle: DeviceStepTokens | None = None
+
+
+def _pinned(n: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(next_pow2(n), dtype=dtype, pin_memory=True)
+
+
 class TorchModelRunner:
     """Owns device state (params + paged KV cache) and runs engine steps."""
 
@@ -81,6 +184,7 @@ class TorchModelRunner:
         prefill_bucket: int = 64,
         cache_dtype: torch.dtype | None = None,
         device: str | torch.device = "cuda",
+        graphs: bool | None = None,
     ) -> None:
         self.device = resolve_device(device)
         llama.check_supported(cfg)
@@ -89,7 +193,7 @@ class TorchModelRunner:
         self.page_size = page_size
         self.max_batch_size = max_batch_size
         self.prefill_bucket = prefill_bucket
-        # Held by every entry point that touches the KV cache (today: step).
+        # Held by every entry point that touches the KV cache (step, step_async).
         self.io_lock = threading.RLock()
         # (phase, path) of the most recent dispatch — phase in {decode,
         # verify, prefill}, path "kernel" on the card (every phase of a GQA
@@ -97,6 +201,11 @@ class TorchModelRunner:
         # EngineCore consumes it into its dispatch-path counters.
         self.last_attn_dispatch: tuple[str, str] | None = None
         self._attn_path = "kernel" if self.device.type == "cuda" else "plain"
+        # CUDA graphs: always on the card unless the caller asks for the
+        # eager body; never on the CPU.
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError("CUDA graphs need the card: pass graphs=False (or nothing) with device='cpu'")
         dt = cache_dtype or llama.param_dtype(cfg)
         if dt not in CACHE_DTYPES:
             raise ValueError(f"unsupported KV cache dtype {dt} (want {', '.join(map(str, CACHE_DTYPES))})")
@@ -106,6 +215,27 @@ class TorchModelRunner:
         self.k_cache, self.v_cache = llama.init_kv_cache(
             cfg, num_pages, page_size, dtype=dt, device=self.device
         )
+        self._inv_freq = llama.rope_table(cfg, self.device)
+        # The latest step_async's samples, one row per padded batch row, and
+        # how many rows of it are live (0: nothing to chain from).
+        self._chain_buf = torch.zeros(max_batch_size, dtype=torch.int32, device=self.device)
+        self._chain_rows = 0
+        self._inputs: dict[tuple, torch.Tensor] = {}  # key -> its device input buffer
+        self._slots = [_Slot(), _Slot()]
+        self._slot = 0
+        # Called after every dispatch with the padded host batch and the
+        # step's draw tensors (``_body``): the sampled-from logits, the
+        # Gumbel noise (None when no row samples), the tokens and, with
+        # penalties, the history and penalty arrays the sampler read. The
+        # tensors are the step's own (under replay, a graph's static
+        # outputs), valid until the next dispatch: copy what you keep.
+        self.draw_hook: Callable[[StepBatch, dict], None] | None = None
+        self._graphs: dict[tuple, _Graph] = {}
+        self.capture_seconds = 0.0
+        if self.graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+            self._warm_chain = torch.empty_like(self._chain_buf)  # the warm-up's samples go here
 
     @staticmethod
     def _check_kernels_take(cfg: ModelConfig, cache_dtype: torch.dtype, page_size: int) -> None:
@@ -190,12 +320,80 @@ class TorchModelRunner:
         Rows may carry different real token counts: a mixed step fuses
         1-token decode rows with prefill-chunk rows, each row's logits taken
         at its ``last_token_index``. ``lp_k > 0`` additionally returns
-        ``{"logprob": f32[B], "top_ids": i32[B, k], "top_lps": f32[B, k]}``."""
+        ``{"logprob": f32[B], "top_ids": i32[B, k], "top_lps": f32[B, k]}``.
+        The step overwrites the device-resident samples, so nothing can
+        chain across it."""
         with self.io_lock:
-            return self._step(batch, lp_k)
+            self._chain_rows = 0
+            toks, aux = self._dispatch(batch, lp_k, None).result()
+            return (toks[:, 0], aux) if lp_k else toks[:, 0]
 
-    def _step(self, batch: StepBatch, lp_k: int):
+    def step_async(self, batch: StepBatch, lp_k: int = 0, *, chain: bool = False,
+                   chain_src: np.ndarray | None = None) -> DeviceStepTokens:
+        """Dispatch ONE (possibly mixed prefill+decode) step without waiting
+        for its result (``dynamo_tpu/engine/runner.py:step_async``).
+
+        The sampled tokens stay on the device, so the next step can be
+        dispatched with ``chain=True`` before this one's tokens reach the
+        host: ``chain_src`` i32[B_real] names, per row, the row of this
+        dispatch whose sample is its column-0 input token, or -1 to feed the
+        row from the host (prefill chunks, fresh admissions); ``None`` with
+        ``chain=True`` chains row i from row i. Returns a
+        :class:`DeviceStepTokens` whose ``result()`` waits for the
+        already-started copy to host."""
+        with self.io_lock:
+            src = self._chain_src_padded(chain_src, batch.batch_size, self._bucket_batch(batch.batch_size)) \
+                if chain else None
+            handle = self._dispatch(batch, lp_k, src)
+            self._chain_rows = self._bucket_batch(batch.batch_size)
+            return handle
+
+    def _chain_src_padded(self, chain_src, b_real: int, bp: int) -> np.ndarray:
+        """Pad a per-row chain source vector to the batch bucket (-1 = host).
+
+        ``chain_src=None`` with chaining requested means the whole-batch
+        form: row i chains from row i of the previous dispatch."""
+        src = np.full(bp, -1, np.int32)
+        if chain_src is None:
+            src[:b_real] = np.arange(b_real, dtype=np.int32)
+        else:
+            src[:b_real] = np.asarray(chain_src, np.int32)
+        if int(src.max()) >= self._chain_rows:
+            raise ValueError(f"chain_src points past the {self._chain_rows} device-resident samples")
+        return src
+
+    def can_chain(self, batch_size: int) -> bool:
+        """True if a chained step of ``batch_size`` real rows lines up with
+        the previous dispatch's padded samples."""
+        return self._chain_rows > 0 and self._chain_rows == self._bucket_batch(batch_size)
+
+    def chain_len(self) -> int:
+        """Rows of the device-resident sample buffer (0 = nothing to chain)."""
+        return self._chain_rows
+
+    def reset_chain(self) -> None:
+        self._chain_rows = 0
+
+    def graph_stats(self) -> dict:
+        """Captured keys, seconds spent warming up and capturing them, and
+        the bytes the shared graph pool holds on the card."""
+        pool = None
+        if self.graphs:
+            pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
+        return {"keys": len(self._graphs), "capture_s": self.capture_seconds, "pool_bytes": pool}
+
+    def _layout(self, key: tuple) -> tuple[list[int], int]:
+        """The int32 fields of a key's packed input buffer, and its bytes
+        (the fields, then the logit mask's bytes when the key has one)."""
+        b, t, n, h, _, _, _, _, masked = key
+        sizes = [b * t, b * t, b * n, b * t] + [b] * 8 + [b * h, b]
+        return sizes, 4 * sum(sizes) + (b * self.cfg.vocab_size if masked else 0)
+
+    def _dispatch(self, batch: StepBatch, lp_k: int, chain_src: np.ndarray | None) -> DeviceStepTokens:
         b_real = batch.batch_size
+        if b_real > self.max_batch_size:
+            raise ValueError(f"a step of {b_real} rows exceeds max_batch_size {self.max_batch_size}")
         padded = self._pad(batch)
         b, t = padded.tokens.shape
         if t > 1:
@@ -203,56 +401,142 @@ class TorchModelRunner:
             if bad:
                 raise ValueError(f"step rows {bad} have non-contiguous positions")
         self.last_attn_dispatch = (attention_phase(t, True), self._attn_path)
+        # Decided on the host: a captured step never reads a flag back.
+        key = (b, t, padded.block_tables.shape[1], padded.history.shape[1], lp_k, chain_src is not None,
+               bool((padded.temperature > 0).any()), bool(padded.freq_pen.any() or padded.pres_pen.any()),
+               padded.logit_mask is not None)
+        sizes, nbytes = self._layout(key)
+        n_out = b * (2 + 2 * lp_k) if lp_k else b
+        slot = self._take_slot(nbytes, n_out)
+        host = slot.stage.numpy()[:nbytes] if slot.stage is not None else np.empty(nbytes, np.uint8)
+        self._pack(host, padded, sizes, chain_src)
+        if self.device.type == "cpu":
+            buf = torch.from_numpy(host)
+        else:
+            buf = self._inputs.get(key)
+            if buf is None:
+                buf = self._inputs[key] = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            buf.copy_(slot.stage[:nbytes], non_blocking=True)
+            slot.staged = torch.cuda.Event()
+            slot.staged.record()
+        with torch.inference_mode():
+            if self.graphs:
+                graph = self._graphs.get(key) or self._capture(key, buf)
+                graph.graph.replay()
+                build.add_launches(graph.launches)
+                packed_out, draw = graph.outputs
+            else:
+                packed_out, draw = self._body(buf, key, self._chain_buf)
+        if self.draw_hook is not None:
+            self.draw_hook(padded, draw)
+        if self.device.type == "cpu":
+            slot.handle = DeviceStepTokens(packed_out, None, b_real, b, lp_k)
+        else:
+            out = slot.out[:n_out]
+            out.copy_(packed_out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            slot.handle = DeviceStepTokens(out, done, b_real, b, lp_k)
+        return slot.handle
+
+    def _take_slot(self, nbytes: int, n_out: int) -> _Slot:
+        """The next pipeline slot, once its previous use is over: its result
+        materialized (waiting for that copy, long done in a depth-1
+        pipeline) and its staged inputs copied; its pinned buffers grown to
+        fit (on the card)."""
+        self._slot ^= 1
+        slot = self._slots[self._slot]
+        if slot.handle is not None:
+            slot.handle.result()
+            slot.handle = None
+        if self.device.type == "cuda":
+            if slot.staged is not None:
+                slot.staged.synchronize()
+            if slot.stage is None or slot.stage.numel() < nbytes:
+                slot.stage = _pinned(nbytes, torch.uint8)
+            if slot.out is None or slot.out.numel() < n_out:
+                slot.out = _pinned(n_out, torch.int32)
+        return slot
+
+    def _pack(self, host: np.ndarray, padded: StepBatch, sizes: list[int], chain_src: np.ndarray | None) -> None:
+        """Write the padded batch into ``host`` (uint8, the key's layout)."""
+        b = padded.tokens.shape[0]
+        n_ints = sum(sizes)
         # Finish-line clamp: a column at/past its row's position limit writes
         # KV to the null page instead of a live slot.
         slots = np.where(padded.positions < padded.pos_limit[:, None], padded.slot_mapping, 0)
-        n = padded.block_tables.shape[1]
-        packed = np.concatenate([
-            padded.tokens.ravel(), padded.positions.ravel(), padded.block_tables.ravel(),
-            slots.astype(np.int32).ravel(), padded.last_token_index.astype(np.int32),
-            padded.temperature.astype(np.float32).view(np.int32),
-            padded.top_k.astype(np.int32), padded.top_p.astype(np.float32).view(np.int32),
-            padded.seeds.astype(np.uint32).view(np.int32), padded.sample_steps.astype(np.int32),
-        ])
-        dev = torch.from_numpy(packed).to(self.device)
-        sizes = [b * t, b * t, b * n, b * t, b, b, b, b, b, b]
-        parts = torch.split(dev, sizes)
-        tokens = parts[0].view(b, t)
-        positions = parts[1].view(b, t)
-        tables = parts[2].view(b, n)
-        slot_mapping = parts[3].view(b, t)
-        last_idx = parts[4]
-        temperature = parts[5].view(torch.float32)
-        top_k = parts[6]
-        top_p = parts[7].view(torch.float32)
-        seeds, sample_steps = parts[8], parts[9]
-        with torch.inference_mode():
-            logits, _, _ = llama.forward(
-                self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache,
-                tables, slot_mapping, last_idx,
-            )
-            sample_logits = logits
-            if padded.logit_mask is not None:
-                mask = torch.from_numpy(padded.logit_mask).to(self.device)
-                sample_logits = torch.where(mask, logits, NEG_INF)
-            gumbel = None
-            if (padded.temperature > 0).any():
-                width = min(CANDIDATES, logits.shape[-1])
-                gumbel = gumbel_noise(seeds, sample_steps, temperature, width)
-            pen = {}
-            if padded.freq_pen.any() or padded.pres_pen.any():
-                pen = dict(
-                    history=torch.from_numpy(padded.history.astype(np.int32)).to(self.device),
-                    frequency_penalty=torch.from_numpy(padded.freq_pen.astype(np.float32)).to(self.device),
-                    presence_penalty=torch.from_numpy(padded.pres_pen.astype(np.float32)).to(self.device),
-                )
-            next_tokens = sample_tokens(sample_logits, temperature, top_k, top_p, gumbel=gumbel, **pen)
-            if lp_k:
-                chosen, top_ids, top_lps = token_logprobs(logits, next_tokens, lp_k)
-                # .cpu() waits for this thread's stream: the kernels ran there.
-                return next_tokens.cpu().numpy()[:b_real], {
-                    "logprob": chosen.cpu().numpy()[:b_real],
-                    "top_ids": top_ids.cpu().numpy()[:b_real],
-                    "top_lps": top_lps.cpu().numpy()[:b_real],
-                }
-            return next_tokens.cpu().numpy()[:b_real]
+        fields = [
+            padded.tokens, padded.positions, padded.block_tables, slots, padded.last_token_index,
+            padded.temperature.astype(np.float32).view(np.int32), padded.top_k,
+            padded.top_p.astype(np.float32).view(np.int32), padded.seeds.astype(np.uint32).view(np.int32),
+            padded.sample_steps, padded.freq_pen.astype(np.float32).view(np.int32),
+            padded.pres_pen.astype(np.float32).view(np.int32), padded.history,
+            chain_src if chain_src is not None else np.full(b, -1, np.int32),
+        ]
+        ints = host[:4 * n_ints].view(np.int32)
+        off = 0
+        for size, a in zip(sizes, fields):
+            ints[off:off + size] = np.asarray(a).reshape(-1)
+            off += size
+        if padded.logit_mask is not None:
+            host[4 * n_ints:] = padded.logit_mask.reshape(-1)
+
+    def _capture(self, key: tuple, buf: torch.Tensor) -> _Graph:
+        """Warm ``key`` up eagerly on a side stream (first launches build
+        and load the kernels, raise their shared-memory limits and encode
+        their tensor maps: none of that may happen inside a capture), then
+        capture it into the shared pool. The warm-up writes the same KV the
+        replay writes and keeps its samples apart, so the replay that
+        follows computes this step from the same state."""
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            self._body(buf, key, self._warm_chain)
+        main.wait_stream(self._side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another worker's thread may run its own steps meanwhile.
+        with build.capture_launches() as tally, \
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            outputs = self._body(buf, key, self._chain_buf)
+        captured = self._graphs[key] = _Graph(graph, outputs, tally)
+        self.capture_seconds += time.perf_counter() - t0
+        return captured
+
+    def _body(self, buf: torch.Tensor, key: tuple, chain_out: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The step itself, from the device input buffer to the packed int32
+        results: chain, forward, sample, logprobs. Writes the samples into
+        ``chain_out``. Copies nothing to or from the host and branches only
+        on ``key``, so it can be captured."""
+        b, t, n, h, lp_k, chain, sampled, penalized, masked = key
+        sizes, _ = self._layout(key)
+        ints = buf[:4 * sum(sizes)].view(torch.int32)
+        (tokens, positions, tables, slot_mapping, last_idx, temperature, top_k, top_p, seeds, sample_steps,
+         freq_pen, pres_pen, history, chain_src) = torch.split(ints, sizes)
+        tokens, positions, slot_mapping = tokens.view(b, t), positions.view(b, t), slot_mapping.view(b, t)
+        tables, history = tables.view(b, n), history.view(b, h)
+        temperature, top_p = temperature.view(torch.float32), top_p.view(torch.float32)
+        if chain:
+            tokens, history = _apply_chain(tokens, history, sample_steps, self._chain_buf, chain_src)
+        logits, _, _ = llama.forward(
+            self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache,
+            tables, slot_mapping, last_idx, inv_freq=self._inv_freq,
+        )
+        sample_logits = logits
+        if masked:
+            vocab = self.cfg.vocab_size
+            mask = buf[4 * sum(sizes):4 * sum(sizes) + b * vocab].view(torch.bool).view(b, vocab)
+            sample_logits = torch.where(mask, logits, NEG_INF)
+        gumbel = gumbel_noise(seeds, sample_steps, temperature, min(CANDIDATES, logits.shape[-1])) \
+            if sampled else None
+        pen = dict(history=history, frequency_penalty=freq_pen.view(torch.float32),
+                   presence_penalty=pres_pen.view(torch.float32)) if penalized else {}
+        next_tokens = sample_tokens(sample_logits, temperature, top_k, top_p, gumbel=gumbel,
+                                    all_greedy=not sampled, **pen)
+        chain_out[:b].copy_(next_tokens)
+        packed = next_tokens
+        if lp_k:
+            chosen, top_ids, top_lps = token_logprobs(logits, next_tokens, lp_k)
+            packed = torch.cat([next_tokens, chosen.view(torch.int32), top_ids.reshape(-1),
+                                top_lps.reshape(-1).view(torch.int32)])
+        return packed, {"logits": sample_logits, "gumbel": gumbel, "tokens": next_tokens, **pen}

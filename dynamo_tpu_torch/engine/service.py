@@ -4,9 +4,11 @@
 One background loop owns the EngineCore (single writer): it drains the
 intake queue, runs each engine step in a worker thread (so the event loop
 keeps serving streams while the card computes), and fans step outputs out to
-per-request asyncio queues. The step's kernels launch on the worker
-thread's current stream; the runner synchronises on it before handing
-tokens back.
+per-request asyncio queues. The step's kernels (a CUDA graph's replay on
+the card) launch on the worker thread's current stream; the runner waits
+for a step's tokens (an event after their copy to host) before handing
+them back, and with ``EngineConfig.overlap`` the next step is already on
+the stream by then.
 """
 
 from __future__ import annotations

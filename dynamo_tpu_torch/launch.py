@@ -16,7 +16,10 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
 - CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
   --router-mode kv --http-port 8080`` (``--platform cpu`` runs on the CPU;
   ``--kv-cache-dtype fp8``, or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV
-  cache as fp8 e4m3, served by the kernels' fp8 forms).
+  cache as fp8 e4m3, served by the kernels' fp8 forms; ``--overlap``, or
+  ``DYN_OVERLAP=1``, runs the engine's overlapped pipeline).
+
+On the card every engine step replays a CUDA graph (``TorchModelRunner``).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
@@ -38,6 +41,7 @@ from typing import Any
 import torch
 
 from dynamo_tpu_torch.backend import Backend
+from dynamo_tpu_torch.config import env_flag
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.core import EngineConfig, EngineCore
 from dynamo_tpu_torch.engine.runner import TorchModelRunner
@@ -78,6 +82,12 @@ def _kv_cache_dtype():
     raise ValueError(f"unsupported kv cache dtype: {name!r} (want bf16 or fp8)")
 
 
+def _overlap() -> bool:
+    """Resolve DYN_OVERLAP / DYN_WORKER_OVERLAP (``--overlap`` sets the
+    latter): the engine's overlapped pipeline, off unless either is truthy."""
+    return env_flag(os.environ, "DYN_OVERLAP") or env_flag(os.environ, "DYN_WORKER_OVERLAP")
+
+
 async def build_engine_service(
     model: str,
     *,
@@ -85,6 +95,7 @@ async def build_engine_service(
     params: dict | None = None,
     seed: int = 0,
     cache_dtype: torch.dtype | None = None,
+    graphs: bool | None = None,
     on_kv_event=None,
     **engine_kw,
 ) -> TorchEngineService:
@@ -94,9 +105,10 @@ async def build_engine_service(
     without them the weights are random-init from ``seed``. ``engine_kw``
     overrides :class:`EngineConfig` fields; the defaults are the JAX build's
     for a preset (byte-tokenizer EOS, 16-token pages, context capped at
-    4096). ``cache_dtype`` None takes :func:`_kv_cache_dtype` (the
-    environment; unset keeps the model's dtype). Raises without a GPU unless
-    ``device="cpu"``."""
+    4096; ``overlap`` from :func:`_overlap`). ``cache_dtype`` None takes
+    :func:`_kv_cache_dtype` (the environment; unset keeps the model's
+    dtype). ``graphs`` is the runner's (None: CUDA graphs on the card).
+    Raises without a GPU unless ``device="cpu"``."""
     if model not in PRESETS:
         raise ValueError(f"unknown preset {model!r} (ported presets: {', '.join(PRESETS)})")
     dev = resolve_device(device)
@@ -107,6 +119,7 @@ async def build_engine_service(
         "max_seq_len": min(cfg.max_position, CONTEXT_LENGTH_CAP),
         "eos_token_ids": tuple(sorted(ByteTokenizer().eos_token_ids)),
         "page_size": 16,
+        "overlap": _overlap(),
         **engine_kw,
     })
 
@@ -116,7 +129,7 @@ async def build_engine_service(
         p = params if params is not None else llama.init_params(cfg, seed, device=dev)
         return TorchModelRunner(
             cfg, p, num_pages=config.num_pages, page_size=config.page_size,
-            max_batch_size=config.max_batch_size, cache_dtype=cache_dtype, device=dev,
+            max_batch_size=config.max_batch_size, cache_dtype=cache_dtype, device=dev, graphs=graphs,
         )
 
     runner = await asyncio.get_running_loop().run_in_executor(None, _build)
@@ -337,6 +350,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="device to serve on (default: the card)")
     parser.add_argument("--kv-cache-dtype", default="bf16", choices=["bf16", "fp8"],
                         help="KV-cache storage dtype; fp8 halves KV memory (attention upcasts at the matmul)")
+    parser.add_argument("--overlap", action="store_true", default=False,
+                        help="overlapped execution: depth-1 pipeline with device-resident token feedback "
+                             "(DYN_OVERLAP); output streams stay bit-identical to off")
     return parser
 
 
@@ -353,6 +369,8 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda", 
         parser.error(f"not supported by dynamo_tpu_torch yet: {' '.join(unknown)}")
     if args.kv_cache_dtype != "bf16":
         os.environ["DYN_WORKER_KV_CACHE_DTYPE"] = args.kv_cache_dtype
+    if args.overlap:
+        os.environ["DYN_WORKER_OVERLAP"] = "1"
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     asyncio.run(_amain(args, device=device, seed=seed, params=params))
 

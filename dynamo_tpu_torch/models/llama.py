@@ -134,6 +134,14 @@ def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return x.float() @ head.float()
 
 
+def rope_table(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
+    """The model's rope inverse frequencies ``f32[rope_dim // 2]`` on
+    ``device`` (MLA: its rope lanes). A caller that runs many steps builds it
+    once and passes it to :func:`forward`: building it copies from the host."""
+    rope_dim = cfg.qk_rope_head_dim if cfg.attn_type == "mla" else cfg.head_dim
+    return torch.from_numpy(rope_frequencies(rope_dim, theta=cfg.rope_theta, scaling=cfg.rope_scaling)).to(device)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -148,12 +156,14 @@ def forward(
     logit_indices: torch.Tensor | None = None,  # i32[B, V] token columns to score
     contiguous_positions: bool = True,
     attn_impl: str | None = None,  # None: kernel dispatch; "reference": gather formulation
+    inv_freq: torch.Tensor | None = None,  # rope_table(cfg, device); built here when None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward step. Returns (logits f32[B, vocab] — or f32[B, V, vocab]
     with ``logit_indices`` — , k_cache, v_cache); the caches are the same
     tensors, written in place. ``attn_impl="reference"`` runs attention as
     ``paged_attention_reference``, or MLA's gather formulation (the JAX
-    build's ``attn_impl`` switch)."""
+    build's ``attn_impl`` switch). With ``inv_freq`` given the step copies
+    nothing from the host, so it can be captured in a CUDA graph."""
     if attn_impl not in (None, "reference"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (want None or 'reference')")
     check_supported(cfg)
@@ -161,10 +171,8 @@ def forward(
     nl, npages, ps, w = k_cache.shape
     dev = tokens.device
     mla = cfg.attn_type == "mla"
-    rope_dim = cfg.qk_rope_head_dim if mla else cfg.head_dim
-    inv_freq = torch.from_numpy(
-        rope_frequencies(rope_dim, theta=cfg.rope_theta, scaling=cfg.rope_scaling)
-    ).to(dev)
+    if inv_freq is None:
+        inv_freq = rope_table(cfg, dev)
     attn_mscale = rope_attention_factor(cfg.rope_scaling) ** 2
     # Ids past the vocabulary read its last row, as the JAX build's clamped
     # gather does (the byte tokenizer's specials on the 256-token test models).

@@ -11,11 +11,13 @@ process per source, all started together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -144,6 +146,44 @@ def stream_of(t: torch.Tensor) -> int:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# Launch counting. Each wrapper counts its launches in its module's
+# ``launches`` / ``launches_fp8``. A launch recorded into a CUDA graph runs
+# at each replay instead: while this thread captures, it is tallied apart
+# (``capture_launches``) and the runner adds the tally at every replay
+# (``add_launches``).
+_capturing = threading.local()
+
+
+def count_launch(module_globals: dict, counter: str) -> None:
+    """One launch of the kernel whose wrapper lives in ``module_globals``."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        module_globals[counter] += 1
+    else:
+        key = (module_globals["__name__"], counter)
+        tally[key] = tally.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Tally this thread's launches apart for as long as the context lasts
+    (a graph capture, which records them but runs none); yields the tally
+    ``{(module, counter): launches}``."""
+    prev = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose capture tallied ``tally``."""
+    for (module, counter), n in tally.items():
+        mod = sys.modules[module]
+        setattr(mod, counter, getattr(mod, counter) + n)
 
 
 def check_paged_args(q, k_cache, v_cache, block_tables, positions) -> None:

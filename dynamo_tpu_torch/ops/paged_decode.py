@@ -35,7 +35,8 @@ HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)  # queries
 
 # Kernel launches through paged_decode_attention (CUDA only): bf16/f32 caches,
-# and the fp8 form.
+# and the fp8 form. A CUDA-graph replay counts the launches its
+# capture recorded (``build.count_launch``).
 launches = 0
 launches_fp8 = 0
 
@@ -177,7 +178,6 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
     ``q [B, T_q, H, hd]``, caches ``[P, ps, n_kv*hd]``, ``block_tables
     i32[B, N]`` (-1 tails allowed), ``positions i32[B, T_q]`` (gappy rows
     allowed). ``num_splits`` 0 = auto (:func:`decode_split_plan`)."""
-    global launches, launches_fp8
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_cache, v_cache, block_tables, positions,
                                   scale=scale, num_splits=num_splits)
@@ -201,8 +201,5 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, positions, *, scal
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_decode", err)
-    if k_cache.dtype == FP8:
-        launches_fp8 += 1
-    else:
-        launches += 1
+    build.count_launch(globals(), "launches_fp8" if k_cache.dtype == FP8 else "launches")
     return out

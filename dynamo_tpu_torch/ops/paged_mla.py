@@ -48,7 +48,8 @@ LATENT_DIMS = (128, 512)
 DTYPES = (torch.bfloat16, torch.float32)  # queries
 
 # Kernel launches through paged_mla (CUDA only): bf16/f32 caches, and the
-# fp8 form.
+# fp8 form. A CUDA-graph replay counts the launches its
+# capture recorded (``build.count_launch``).
 launches = 0
 launches_fp8 = 0
 
@@ -216,7 +217,6 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
     per query token). ``num_splits`` 0 = auto (:func:`mla_split_plan`).
     ``walk``: ``walk_facts(positions)``, for a caller that runs several
     layers on one step's positions; computed here when not given."""
-    global launches, launches_fp8
     if q_lat.device.type == "cpu":
         return paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions,
                                scale=scale, num_splits=num_splits)
@@ -240,8 +240,5 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
              b, t, h, r_kv, dr, r_width, ps, block_tables.shape[1], c_cache.shape[0], splits, bps,
              build.DTYPE_CODES[c_cache.dtype], build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
     build.check_launch("paged_mla", err)
-    if c_cache.dtype == FP8:
-        launches_fp8 += 1
-    else:
-        launches += 1
+    build.count_launch(globals(), "launches_fp8" if c_cache.dtype == FP8 else "launches")
     return out

@@ -30,7 +30,8 @@ HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)  # queries
 
 # Kernel launches through paged_prefill_attention (CUDA only): bf16/f32
-# caches, and the fp8 form.
+# caches, and the fp8 form. A CUDA-graph replay counts the launches its
+# capture recorded (``build.count_launch``).
 launches = 0
 launches_fp8 = 0
 
@@ -107,7 +108,6 @@ def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *, scale: 
 
 def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, scale: float) -> torch.Tensor:
     """Prefill-phase (T > 1) paged flash attention; returns [B, T, H, hd] in q's dtype."""
-    global launches, launches_fp8
     if q.device.type == "cpu":
         return paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, scale=scale)
     build.check_paged_args(q, k_cache, v_cache, block_tables, positions)
@@ -125,8 +125,5 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, sca
              build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_prefill", err)
-    if k_cache.dtype == FP8:
-        launches_fp8 += 1
-    else:
-        launches += 1
+    build.count_launch(globals(), "launches_fp8" if k_cache.dtype == FP8 else "launches")
     return out

@@ -33,6 +33,7 @@ _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 _TINY = float(np.finfo(np.float32).tiny)
+_SPAN = float(np.float32(1.0) - np.float32(_TINY))  # maxval - minval, in f32
 
 
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
@@ -74,9 +75,10 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     bits as the mantissa of a float in ``[1, 2)``, minus 1, scaled and
     shifted, then at least ``tiny``."""
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(_TINY, dtype=torch.float32, device=bits.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - lo
-    return torch.maximum(lo, mant * span + lo)
+    # Python scalars, each an exact f32 value, so nothing is copied to the
+    # device (a step may be captured in a CUDA graph): the f32 products and
+    # sums are those of f32 tensors.
+    return torch.clamp(mant * _SPAN + _TINY, min=_TINY)
 
 
 def gumbel_noise(seeds: torch.Tensor, sample_steps: torch.Tensor, temperature: torch.Tensor,
@@ -99,13 +101,17 @@ def sample_tokens(
     history: torch.Tensor | None = None,  # i32[B, H] generated-so-far (pad -1)
     frequency_penalty: torch.Tensor | None = None,  # f32[B]
     presence_penalty: torch.Tensor | None = None,  # f32[B]
+    all_greedy: bool | None = None,
 ) -> torch.Tensor:
     """Sample one token per row; returns i32[B].
 
     Penalties follow the OpenAI semantics over generated tokens
     (``logit -= freq * count + pres * (count > 0)``), counted inside the
     candidate window; a penalized greedy row takes the penalized window
-    argmax. ``gumbel=None`` is allowed only when every row is greedy."""
+    argmax. ``gumbel=None`` is allowed only when every row is greedy:
+    ``all_greedy`` is what the caller knows of that (the runner decides it
+    on the host, so a captured step never reads ``temperature`` back);
+    None checks ``temperature``, which waits for the device."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     penalized = history is not None and frequency_penalty is not None and presence_penalty is not None
@@ -124,7 +130,9 @@ def sample_tokens(
         has_pen = (frequency_penalty != 0) | (presence_penalty != 0)
         greedy = torch.where(has_pen, top_idx[:, 0].to(torch.int32), greedy)
     if gumbel is None:
-        if bool((temperature > 0).any()):
+        if all_greedy is None:
+            all_greedy = not bool((temperature > 0).any())
+        if not all_greedy:
             raise ValueError("non-greedy rows need gumbel noise")
         return greedy
     safe_temp = torch.where(temperature > 0, temperature, torch.ones_like(temperature))

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy]
+    python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy] [--no-graphs] [--no-overlap]
 
 Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
 script so the two stay the same (llama-3.2-1b by default, or mla-8b-proxy;
 random init, 8 concurrent completions of 16..1500 prompt tokens, 32 output
-tokens each), after the same warm-up request, under ``torch.profiler``
-(CPU + CUDA activities).
+tokens each), after the same warm-up request and untimed pass of other
+prompts (so CUDA graphs are captured before the window), under
+``torch.profiler`` (CPU + CUDA activities). By default the main path: CUDA
+graphs behind the overlapped engine; ``--no-graphs`` runs the eager runner,
+``--no-overlap`` the synchronous engine.
 Prints one JSON line: wall time, engine steps, device busy share (union of
-CUDA kernel intervals over the profiled wall), kernel launches per step, and
-the device time by kernel family. Writes the Chrome trace to
+CUDA kernel intervals over the profiled wall), CUDA kernels per step (a
+graph replay's kernels included), the host's launch calls per step (the
+calls that put a kernel or a graph on a stream, by name), and the
+device time by kernel family. Writes the Chrome trace to
 ``DIR/serve_trace_<model>.json`` (tens of MB). The profiler adds host overhead of
 its own, so the wall time here is not a throughput number;
 ``chip_smoke.py`` measures that without the profiler.
@@ -40,6 +45,9 @@ FAMILIES = (  # kernel name fragment -> family, first match wins
     ("reduce", "reduction"), ("softmax", "sampling/softmax"), ("topk", "sampling/softmax"),
     ("sort", "sampling/softmax"), ("Memcpy", "copy"), ("copy", "copy"), ("cat", "elementwise"),
 )
+# Host calls that put a kernel or a graph on a stream.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def family(name: str) -> str:
@@ -49,8 +57,8 @@ def family(name: str) -> str:
     return "other"
 
 
-async def main(out_dir: str, model: str) -> dict:
-    service, pipeline = await chip_smoke.build_serving(model)
+async def main(out_dir: str, model: str, graphs: bool, overlap: bool) -> dict:
+    service, pipeline = await chip_smoke.build_serving(model, graphs=graphs, overlap=overlap)
     bodies = chip_smoke.serve_bodies(np.random.default_rng(3), model)
     steps = {"n": 0}
     step = service.core.step
@@ -62,19 +70,28 @@ async def main(out_dir: str, model: str) -> dict:
     service.core.step = counted_step
     try:
         await chip_smoke.warm_up(pipeline, model)  # not profiled
+        await chip_smoke.send_all(pipeline, chip_smoke.serve_bodies(np.random.default_rng(4), model))
         torch.cuda.synchronize()
         steps["n"] = 0
+        overlap0 = dict(service.core.overlap_step_counts)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             await chip_smoke.send_all(pipeline, bodies)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        overlap_steps = {k: n - overlap0.get(k, 0) for k, n in service.core.overlap_step_counts.items()}
+        graph_stats = service.core.runner.graph_stats()
     finally:
         await service.close()
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}.json"))
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    launch_calls: dict[str, int] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS:
+            launch_calls[e.name] = launch_calls.get(e.name, 0) + 1
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:  # union of kernel intervals (us)
@@ -90,10 +107,14 @@ async def main(out_dir: str, model: str) -> dict:
     for e in kernels:
         fam = family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    n_steps = max(1, steps["n"])
     return {
-        "model": model, "device": torch.cuda.get_device_name(0), "profiled_wall_s": wall,
-        "engine_steps": steps["n"], "cuda_kernels": len(kernels),
-        "kernels_per_step": len(kernels) / max(1, steps["n"]),
+        "model": model, "device": torch.cuda.get_device_name(0), "graphs": graphs, "overlap": overlap,
+        "profiled_wall_s": wall, "engine_steps": steps["n"], "overlap_steps": overlap_steps,
+        "graph_keys": graph_stats["keys"], "cuda_kernels": len(kernels),
+        "kernels_per_step": len(kernels) / n_steps,
+        "host_launch_calls_per_step": sum(launch_calls.values()) / n_steps,
+        "host_launch_calls_by_name": launch_calls,
         "device_busy_share": busy / 1e6 / wall,
         "device_ms_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
     }
@@ -104,8 +125,12 @@ if __name__ == "__main__":
     ap.add_argument("--out", required=True, help="directory for the Chrome trace")
     ap.add_argument("--model", default=chip_smoke.MODEL, choices=sorted(chip_smoke.SERVE_KERNELS),
                     help="the served preset (default %(default)s)")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction, default=True,
+                    help="replay each step as a CUDA graph (default on)")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
+                    help="the overlapped engine pipeline (default on)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    print(json.dumps(asyncio.run(main(args.out, args.model))), flush=True)
+    print(json.dumps(asyncio.run(main(args.out, args.model, args.graphs, args.overlap))), flush=True)
