@@ -7,7 +7,10 @@ Phases, one JSON line each (with ``t_s``, seconds since the start); any
 failure exits non-zero:
 
 1. build    — compile every CUDA kernel of the serving paths from ``csrc/``,
-              one nvcc per source, all started together.
+              one nvcc per source, all started together; every wgmma
+              instantiation of paged_prefill and paged_mla, bf16 and fp8,
+              must compile without register spills (nvcc's report per
+              instantiation is on the line).
    fp8_casts, sampling — the fp8 cache write (``to_fp8_like_jax``) on
               the card bitwise the CPU's over all 65,536 bf16 patterns, the
               kernels' on-chip e4m3 -> bf16 conversion over all 256 codes;
@@ -41,8 +44,14 @@ failure exits non-zero:
               relative to the row's largest plain output. The fp8 forms
               (phases "kernels_fp8", "kernels_mla_fp8") the same way on
               fp8 caches with bf16 and f32 queries (``fp8_kernel_checks``,
-              ``fp8_mla_kernel_checks``), and timed beside bf16, with no
-              library yardstick (none attends over fp8 K/V).
+              ``fp8_mla_kernel_checks``), with at least 264 and 1164
+              bitwise verify columns (paged_mla's unsplit verify rows run
+              in a share group of 2 row tiles, a cluster that converts each
+              key tile once, their T_q=1 columns in none), and
+              ``share_soak``: thousands of back-to-back paged_mla launches
+              in share groups, each bitwise the first; timed beside bf16
+              (each entry's ``vs_bf16`` ratio), with no library yardstick
+              (none attends over fp8 K/V).
 3. forward  — one prefill and one decode step at full width, with the
               kernels and with plain attention, same inputs; logits
               compared: llama-3.2-1b, then mla-8b-proxy, each on a bf16 and
@@ -129,6 +138,7 @@ SERVE_ENGINE = dict(num_pages=2048, max_batch_size=16)
 # 512-token bucket: a chunk after 1024 cached tokens, a whole chunk from 0,
 # a short last chunk, and 1-token decode rows (start = kv_len - 1).
 MIXED_SPANS = [(1024, 512), (0, 512), (1400, 100), (1530, 1), (799, 1), (15, 1), (250, 1), (1199, 1)]
+SOAK_LAUNCHES = 3000  # share_soak: back-to-back paged_mla launches of each shape
 
 
 _T0 = time.perf_counter()
@@ -529,7 +539,7 @@ def folded_sdpa(q_lat, q_rope, kg, vg, mask, scale):
     raise RuntimeError(f"no SDPA backend takes the folded MLA shapes: {refusals}")
 
 
-def mla_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
+def mla_timings(dev, cache: torch.dtype = torch.bfloat16, bf16: dict | None = None) -> dict:
     """paged_mla at the MLA main path's shapes (mla-8b-proxy, bf16 queries on
     a ``cache`` cache, 16-token pages): decode at batch 8 over 2048-token contexts on 128-page tables
     (the serve phase's table width, so the same split plan), a 512-token
@@ -538,9 +548,11 @@ def mla_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
     timed inputs first. The library yardstick is ``folded_sdpa``: no mask at
     full-context decode, the per-row horizon mask at prefill and the mixed
     step; an fp8 cache has none (no PyTorch call attends over fp8 latents).
-    Beside the device times, the wrapper's host µs per call. At T > 1 the
+    Beside the device times, the wrapper's host µs per call, and (``bf16``:
+    the bf16 cache's record) each time's ratio to bf16's. At T > 1 the
     walk facts are computed once beforehand, as the forward computes them
-    once per step for all its layers."""
+    once per step for all its layers. Each entry names the share group its
+    launch ran in (``share``)."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     rng = torch.Generator(device=dev).manual_seed(11)
@@ -599,9 +611,12 @@ def mla_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
     out["prefill"] = _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
                                 shape=f"B=1 T={t} start={start} heads={h} r_kv={r_kv} rope={dr}/{r_width} {tag} "
                                       f"page={ps}",
-                                device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
+                                device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern),
+                                share=pm.mla_share_plan(t, h, 1, cache))
     del q_lat, q_rope, c, r, lib
     out["mixed_step"] = mla_mixed_step_timing(dev, rng, cache)
+    if bf16 is not None:
+        _vs_bf16(out, bf16)
     emit({"phase": "kernel_timing_mla" if cache == dtype else f"kernel_timing_mla_{tag}", **out})
     return out
 
@@ -662,7 +677,8 @@ def mla_mixed_step_timing(dev, rng, cache: torch.dtype = torch.bfloat16) -> dict
     return _mla_entry(kern, plain, lib, nbytes, flops, 20, max_abs_err=err, library_backend=backend,
                       shape=f"B=8 T={t} spans={spans} heads={h} r_kv={r_kv} rope={dr}/{r_width} "
                             f"{str(cache).removeprefix('torch.')} page={ps}",
-                      device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern))
+                      device_us_by_kernel=device_us_by_kernel(kern, 5), host_us_per_call=host_us(kern),
+                      share=pm.mla_share_plan(t, h, 1, cache))
 
 
 def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int, cache: torch.dtype = torch.bfloat16) -> dict:
@@ -802,18 +818,32 @@ def mixed_step_timing(dev, rng, cache: torch.dtype = torch.bfloat16) -> dict:
                 device_us_by_kernel=device_us_by_kernel(kern, 5))
 
 
-def kernel_timings(dev, cache: torch.dtype = torch.bfloat16) -> dict:
+def kernel_timings(dev, cache: torch.dtype = torch.bfloat16, bf16: dict | None = None) -> dict:
     """Each GQA kernel at the main path's geometry (llama-3.2-1b: 32/8 heads,
     hd 64) and at llama-3-8b's (32/8, hd 128), and the prefill kernel at the
-    serve's mixed-step shape, on a ``cache`` cache. Returns the main
-    geometry's entries."""
+    serve's mixed-step shape, on a ``cache`` cache. ``bf16``: the bf16
+    cache's record, beside whose times each entry states its ratio
+    (``vs_bf16``). Returns the record."""
     rng = torch.Generator(device=dev).manual_seed(1)
     out = _gqa_timings(dev, rng, 32, 8, 64, cache)
-    hd128 = _gqa_timings(dev, rng, 32, 8, 128, cache)
+    out["paged_prefill_mixed_step"] = mixed_step_timing(dev, rng, cache)
+    out["hd128"] = _gqa_timings(dev, rng, 32, 8, 128, cache)
+    if bf16 is not None:
+        _vs_bf16(out, bf16)
     tag = str(cache).removeprefix("torch.")
-    emit({"phase": "kernel_timing" if cache == torch.bfloat16 else f"kernel_timing_{tag}", **out,
-          "paged_prefill_mixed_step": mixed_step_timing(dev, rng, cache), "hd128": hd128})
+    emit({"phase": "kernel_timing" if cache == torch.bfloat16 else f"kernel_timing_{tag}", **out})
     return out
+
+
+def _vs_bf16(record: dict, bf16: dict) -> None:
+    """Beside each timed entry of ``record`` (nested records too), its
+    device time over the same entry's in the bf16 record."""
+    for key, entry in record.items():
+        if isinstance(entry, dict) and key in bf16:
+            if "ms" in entry:
+                entry["vs_bf16"] = entry["ms"] / bf16[key]["ms"]
+            else:
+                _vs_bf16(entry, bf16[key])
 
 
 # -- fp8 caches: casts, sampling, the kernels' fp8 forms ----------------------------
@@ -888,12 +918,12 @@ def sampling_check(dev) -> dict:
 def fp8_kernel_checks(dev) -> dict:
     """The fp8 forms of paged_decode and paged_prefill against their plain
     versions: the GQA geometries of ``kernel_checks`` with bf16 queries on
-    pages of 16 (TMA), 12 (TMA boxes of 4 rows, lookups by division) and 5
-    (cp.async), f32 queries on pages of 16; decode at gappy T_q 1, 4 and 8,
-    splits 1 and auto, with the bitwise T_q=1 / verify-column check;
-    prefill chunks after a cached prefix beside 1-token rows; the serve's
-    mixed step. Outputs are held at the bf16 tolerance (queries and p are
-    staged in bf16)."""
+    pages of 16 (decode: TMA), 12 (TMA boxes of 4 rows, lookups by division)
+    and 5 (cp.async), llama-3.2-1b's also on pages of 8 and 4, f32 queries
+    on pages of 16; decode at gappy T_q 1, 4 and 8, splits 1 and auto, with
+    the bitwise T_q=1 / verify-column check; prefill chunks after a cached
+    prefix beside 1-token rows; the serve's mixed step. Outputs are held at
+    the bf16 tolerance (queries and p are staged in bf16)."""
     from dynamo_tpu_torch.ops import paged_decode as pd
     from dynamo_tpu_torch.ops import paged_prefill as pp
 
@@ -901,6 +931,7 @@ def fp8_kernel_checks(dev) -> dict:
     errs = {"paged_decode_fp8": 0.0, "paged_prefill_fp8": 0.0}
     bitwise = []
     runs = [(g, torch.bfloat16, ps) for g in ((32, 8, 64), (32, 8, 128), (64, 8, 64)) for ps in (16, 12, 5)]
+    runs += [((32, 8, 64), torch.bfloat16, ps) for ps in (8, 4)]
     runs += [((32, 8, 64), torch.float32, 16), ((32, 8, 128), torch.float32, 16)]
     for (h, n_kv, hd), q_dtype, ps in runs:
         scale = hd**-0.5
@@ -934,6 +965,8 @@ def fp8_kernel_checks(dev) -> dict:
     emit({"phase": "kernels_fp8", "max_abs_err": errs,
           "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row",
           "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    if len(bitwise) < 264 or not all(bitwise):
+        raise AssertionError(f"fp8: {sum(bitwise)}/{len(bitwise)} bitwise verify columns")
     return errs
 
 
@@ -950,17 +983,21 @@ MLA_PATHS_FP8 = {
 
 def fp8_mla_kernel_checks(dev) -> dict:
     """The fp8 form of paged_mla against its plain version: the MLA_GEOMS
-    geometries on pages of 16 and 4, and MLA_PATHS_FP8, at gappy T_q 1, 4
+    geometries on pages of 16, 8 and 4, and MLA_PATHS_FP8, at gappy T_q 1, 4
     and 8 (at 4 heads also 20), splits 1, 2 and auto, with the bitwise
-    T_q=1 / verify-column check; chunks after a cached prefix beside
-    1-token rows; a 512-token chunk after 1024 cached tokens; the serve's
-    mixed step. Held at the bf16 tolerance."""
+    T_q=1 / verify-column check (an unsplit verify row of two or more row
+    tiles runs in a share group of 2, its T_q=1 columns in none: the plan
+    must pick both sizes); chunks after a cached prefix beside 1-token rows
+    (share groups whose ranks' walks end at different tiles, and padding
+    ranks that only help fill); a 512-token chunk after 1024 cached tokens;
+    the serve's mixed step; then ``share_soak``. Held at the bf16
+    tolerance."""
     from dynamo_tpu_torch.ops import paged_mla as pm
 
     rng = torch.Generator(device=dev).manual_seed(21)
     err = 0.0
-    bitwise = []
-    runs = [(geom, dims, torch.bfloat16, ps) for geom, dims in MLA_GEOMS.items() for ps in (16, 4)]
+    bitwise, shares = [], set()
+    runs = [(geom, dims, torch.bfloat16, ps) for geom, dims in MLA_GEOMS.items() for ps in (16, 8, 4)]
     runs += [(geom, dims[:5], dims[5], dims[6]) for geom, dims in MLA_PATHS_FP8.items()]
     for geom, (h, r_kv, dr, r_width, dn), q_dtype, ps in runs:
         scale = (dn + dr) ** -0.5
@@ -974,6 +1011,8 @@ def fp8_mla_kernel_checks(dev) -> dict:
             for ns in (1, 2, 0):
                 tag = f"mla fp8 {geom} q {q_dtype} ps{ps} T{t} splits{ns}"
                 got = pm.paged_mla(q_lat, q_rope, c, r, tb[0], posd, scale=scale, num_splits=ns)
+                splits = pm.mla_split_plan(len(lengths), t, tb.shape[2], ps, ns, dev)[0]
+                shares.add(pm.mla_share_plan(t, h, splits, FP8))
                 want = pm.paged_mla_plain(q_lat, q_rope, c, r, tb[0], posd, scale=scale, num_splits=ns)
                 err = max(err, compare(tag, got, want, list(enumerate(real)), torch.bfloat16))
                 if t == 1 or (ns == 0 and t > pm.MAX_SPLIT_T):
@@ -1000,10 +1039,53 @@ def fp8_mla_kernel_checks(dev) -> dict:
     err = max(err, compare("mla fp8 512 after 1024", pm.paged_mla(*case, scale=(dn + dr) ** -0.5),
                            pm.paged_mla_plain(*case, scale=(dn + dr) ** -0.5), [(0, 512)], torch.bfloat16))
     err = max(err, mla_mixed_step_check(dev, rng, FP8))
+    soak = share_soak(dev, rng)
     emit({"phase": "kernels_mla_fp8", "max_abs_err": err,
           "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row",
-          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}", "share_groups": sorted(shares),
+          "share_soak": soak})
+    if len(bitwise) < 1164 or not all(bitwise) or shares != {1, 2}:
+        raise AssertionError(f"mla fp8: {sum(bitwise)}/{len(bitwise)} bitwise verify columns, share groups "
+                             f"{sorted(shares)}")
     return {"paged_mla_fp8": err}
+
+
+def share_soak(dev, rng, n: int = SOAK_LAUNCHES) -> dict:
+    """paged_mla's fp8 share groups launched back to back, with no host
+    synchronisation between launches: the serve's mixed step (groups whose
+    ranks' walks end at different tiles, the 1-token rows' groups a rank
+    with rows and a padding helper) and a 512-token chunk after 1024 cached
+    tokens (mla-8b-proxy, bf16 queries, pages of 16), ``n`` launches each,
+    every output's real rows bitwise the first launch's (checked on the
+    device). A lost arrival or byte count in the cluster protocol hangs a
+    launch, and the phase with it. Returns the launches, their share group
+    and the seconds each shape took."""
+    from dynamo_tpu_torch.ops import paged_mla as pm
+
+    h, r_kv, dr, r_width, dn = MLA_GEOMS[MLA_MODEL]
+    out = {}
+    for name, spans in (("mixed_step", MIXED_SPANS), ("chunk", [(1024, 512)])):
+        case = _mla_case(rng, dev, _spans(spans, 512), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16, npp=128,
+                         dtype=FP8, q_dtype=torch.bfloat16)
+        q_lat, q_rope, c, r, tb, posd = case
+        tb0, walk = tb[0].contiguous(), pm.walk_facts(posd)
+        real = torch.zeros(posd.shape, dtype=torch.bool, device=dev)
+        for i, (_, k) in enumerate(spans):
+            real[i, :k] = True
+        ref = pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=(dn + dr) ** -0.5, walk=walk)
+        bad = torch.zeros((), dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            got = pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=(dn + dr) ** -0.5, walk=walk)
+            bad |= ((got != ref).flatten(2).any(-1) & real).any()
+        torch.cuda.synchronize()
+        out[name] = {"launches": n, "share": pm.mla_share_plan(512, h, 1, FP8),
+                     "seconds": time.perf_counter() - t0}
+        if bool(bad):
+            raise AssertionError(f"share soak, {name}: a launch's output differs from the first's")
+        del case, q_lat, q_rope, c, r, tb, ref, got
+    return out
 
 
 # -- phase 3: forward -----------------------------------------------------------
@@ -1762,6 +1844,37 @@ async def serve_http(in_process: dict) -> dict:
     return record
 
 
+def ptxas_functions(log: str) -> dict:
+    """nvcc's -Xptxas -v report, per compiled entry function: {mangled name:
+    {"registers": n, "spill_stores": bytes}}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": 0}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                out[fn]["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def _short(fn: str) -> str:
+    """A mangled kernel instantiation's name and its template arguments,
+    shortened (e.g. ``mla_wgmma_kernel<512,64,4,true>``)."""
+    m = re.search(r"\d([a-z][a-z0-9_]*_kernel)I(.*?)EEv", fn)
+    if not m:
+        return fn
+    args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)(?=[^a-z]|$)", m.group(2))
+    text = [a or ("true" if b == "1" else "false" if b else "") or ("bf16" if c.startswith("13") else "f32")
+            for a, b, c in args]
+    return f"{m.group(1)}<{','.join(text)}>"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1783,10 +1896,16 @@ def main() -> int:
             for name, log in built["ptxas"].items()}
     spills = {name: max([int(n) for n in re.findall(r"(\d+) bytes spill stores", log)] or [0])
               for name, log in built["ptxas"].items()}
+    wgmma = {fn: rs for name in ("paged_prefill", "paged_mla")
+             for fn, rs in ptxas_functions(built["ptxas"].get(name, "")).items() if "wgmma" in fn}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs,
-          "nvcc_max_spill_store_bytes": spills})
-    if spills.get("paged_mla", 0):  # its consumers' registers are budgeted by setmaxnreg: a spill is a regression
-        raise AssertionError(f"paged_mla spills registers: {spills['paged_mla']} bytes of spill stores")
+          "nvcc_max_spill_store_bytes": spills,
+          "wgmma_instantiations": {_short(fn): rs for fn, rs in sorted(wgmma.items())}})
+    # Their consumers' registers are budgeted by setmaxnreg: a spill in any
+    # instantiation (bf16 or fp8) is a regression.
+    spilled = {_short(fn): rs for fn, rs in wgmma.items() if rs["spill_stores"]}
+    if spilled or (any(name in built["ptxas"] for name in ("paged_prefill", "paged_mla")) and not wgmma):
+        raise AssertionError(f"the wgmma kernels spill registers (or none were reported): {spilled}")
 
     fp8_cast_checks(dev)
     sampling_check(dev)
@@ -1794,12 +1913,15 @@ def main() -> int:
     mla_errs = mla_kernel_checks(dev)
     errs.update({f"paged_mla/{k}": e for k, e in mla_errs.items()})
     errs.update({f"{k}/": e for k, e in {**fp8_kernel_checks(dev), **fp8_mla_kernel_checks(dev)}.items()})
-    timing = kernel_timings(dev)
-    timing.update({f"{k}_fp8": v for k, v in kernel_timings(dev, FP8).items()})
+    gqa = kernel_timings(dev)
+    gqa_fp8 = kernel_timings(dev, FP8, bf16=gqa)
+    timing = {k: gqa[k] for k in ("paged_decode", "paged_prefill")}
+    timing.update({f"{k}_fp8": gqa_fp8[k] for k in ("paged_decode", "paged_prefill")})
     # The kernels line carries paged_mla's decode time; its prefill and
     # mixed-step times are on the kernel_timing_mla lines.
-    timing["paged_mla"] = mla_timings(dev)["decode"]
-    timing["paged_mla_fp8"] = mla_timings(dev, FP8)["decode"]
+    mla = mla_timings(dev)
+    timing["paged_mla"] = mla["decode"]
+    timing["paged_mla_fp8"] = mla_timings(dev, FP8, bf16=mla)["decode"]
     launches, served = {}, {}
     for model in (MODEL, MLA_MODEL):  # each model's weights are freed before the next is made
         from dynamo_tpu_torch.models import llama

@@ -1,5 +1,6 @@
 // Hopper-only building blocks (sm_90a): warpgroup matrix multiply (wgmma),
-// its shared-memory matrix descriptors, mbarriers and proxy fences.
+// its shared-memory matrix descriptors, mbarriers and proxy fences, thread
+// block clusters, and the fp8 forms' tile conversion and share groups.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
@@ -48,6 +49,45 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+// ---- thread block clusters -------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster meets here (release / acquire
+// at cluster scope); also a barrier over this block's threads.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The shared::cluster address of the same shared-memory location in the
+// block of rank `rank` (addr: a shared::cta address of this block).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Arrive on an mbarrier of any block of the cluster (a shared::cluster
+// address), releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// mbar_wait for a phase completed by other blocks of the cluster (remote
+// arrivals, bulk-copy transactions): acquire at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAITC;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---- TMA ---------------------------------------------------------------------
@@ -146,6 +186,96 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+
+// ---- fp8 key tiles ------------------------------------------------------------
+//
+// The fp8 forms of the wgmma kernels read e4m3 tiles and convert them on
+// chip (fp8x8_to_bf16x8, exact) into the bf16 ring their wgmma descriptors
+// read, in the 128-byte swizzle: 16-byte bf16 chunk k of a 128-byte atom
+// row r sits in slot k ^ (r % 8). Two ways in:
+// - paged_mla (no room beside its 64-key bf16 stages) converts in place: a
+//   16-byte fp8 chunk (16 values, bf16 chunks 2q and 2q + 1 of its atom
+//   row) lands by cp.async in slot x = 2q ^ (r % 8), its own, and is
+//   converted there into slots x and x ^ 1.
+// - paged_prefill lands whole fp8 tiles by TMA in an fp8 ring of its own
+//   and converts each 16-byte chunk into its two slots of the bf16 stage.
+// paged_mla's row tiles that walk the same keys form a share group (a
+// thread block cluster): each rank converts only its 1/n of every tile (a
+// run of whole key rows) into its own stage, then copies those rows into
+// the same stage of every other rank that consumes the tile (cp.async.bulk
+// shared::cta -> shared::cluster), completing the bytes on that rank's full
+// mbarrier.
+
+// Waits until at most n (0..3) of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) {
+    cp_async_wait<0>();
+  } else if (n == 1) {
+    cp_async_wait<1>();
+  } else if (n == 2) {
+    cp_async_wait<2>();
+  } else {
+    cp_async_wait<3>();
+  }
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared16(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The landed 16-byte fp8 chunk in slot x of the 128-byte atom row at
+// shared address `row`, converted in place into slots x and x ^ 1.
+__device__ __forceinline__ void f8_convert_in_place(uint32_t row, int x) {
+  const uint32_t a = row + (x << 4);
+  const uint4 v = ld_shared16(a);
+  st_shared16(a, fp8x8_to_bf16x8(make_uint2(v.x, v.y)));
+  st_shared16(a ^ 16, fp8x8_to_bf16x8(make_uint2(v.z, v.w)));
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory to a block of
+// the cluster (dst and bar: shared::cluster addresses), completing them on
+// the mbarrier `bar` there.
+__device__ __forceinline__ void bulk_to_cluster(uint32_t dst, uint32_t src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// Publishes a converted tile (stage at shared::cta address `stage`, full
+// mbarrier `full`, one arrival a phase) once every producer thread has
+// converted its chunks, fenced them for the async proxy and met the others
+// at a named barrier; called by the producer warpgroup's threads (ptid of
+// 128). Alone (consumers == 0): thread 0 arrives. In a share group: the
+// first warp copies the share's `nreg` regions (offset off(r), `bytes`
+// each) to every other consumer, and a consuming rank's thread 0 arms its
+// own full mbarrier with the bytes the other ranks deliver.
+struct F8Share {
+  uint32_t consumers;  // ranks (bit k) that consume the group's tiles; 0: this block alone
+  uint32_t rank;
+  int share;
+  template <typename Off>
+  __device__ __forceinline__ void publish(uint32_t stage, uint64_t* full, int nreg, uint32_t bytes, Off off,
+                                          int ptid) const {
+    if (ptid >= 32) return;
+    if (consumers == 0) {
+      if (ptid == 0) mbar_arrive(full);
+      return;
+    }
+    const uint32_t bar = smem_u32(full);
+    for (uint32_t m = consumers & ~(1u << rank); m; m &= m - 1) {
+      const uint32_t k = __ffs(m) - 1;
+      for (int r = ptid; r < nreg; r += 32) bulk_to_cluster(mapa(stage + off(r), k), stage + off(r), bytes, mapa(bar, k));
+    }
+    if (ptid == 0 && (consumers >> rank & 1)) mbar_arrive_expect_tx(full, (uint32_t)(share - 1) * nreg * bytes);
+  }
+};
 
 // ---- wgmma -----------------------------------------------------------------
 

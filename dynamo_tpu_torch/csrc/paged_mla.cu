@@ -68,15 +68,24 @@
 // between them (both warpgroups in step); at decode also the block's
 // start-up and the merge.
 // fp8 e4m3 caches (pallas_mla.py:200, latents and rope keys read at 1 byte
-// an element, the matmuls in bf16): the same kernel with a.f8 set. Warp 0
-// keeps a second, fp8 ring full (TMA boxes of up to 256 bytes of a key
-// row, unswizzled, in blocks [part][keys][box]; cp.async where a box would
-// land misaligned), and the whole producer warpgroup converts each landed
-// fp8 stage (fp8x8_to_bf16x8, exact) into the bf16 ring stage in the
-// swizzled layout the wgmma descriptors read. The consumers run unchanged,
-// queries and p in bf16 as the TPU kernel keeps them (pallas_mla.py:273-276,
-// :221). At D = 512 the two rings fit beside Q and p only with 32-key
-// stages (ops/paged_mla.py _tile_keys makes the same choice).
+// an element, the matmuls in bf16): mla_wgmma_kernel<F8 = true>, the same
+// consumers on the same layout and 64-key stages, queries and p in bf16 as
+// the TPU kernel keeps them (pallas_mla.py:273-276, :221). No fp8 ring: the
+// producer warpgroup's 128 threads land each 16-byte fp8 chunk by cp.async
+// in the first of the two bf16 slots it converts into and convert it there
+// (hopper.cuh f8_convert_in_place, exact), so the conversion needs no smem
+// of its own, a tile's chunks are all in flight at once, and the 64-key
+// bf16 stages keep the whole budget. A tile's fill (landing, conversion)
+// overlaps the consumers' work on the tile before it. A sequence's row
+// tiles (a prefill chunk, a mixed step's chunk rows) all walk one latent
+// stream; with one split (S == 1) two adjacent ones form a share group, one
+// cluster along z (ops/paged_mla.py mla_share_plan; groups of 4 and 8
+// measured slower than none, PERF.md): each rank lands and converts
+// 1/share of every key tile's rows and bulk-copies them into the rings of
+// the other ranks with rows, completing the bytes on their full mbarriers;
+// consumers release a stage to every rank's producer by remote arrivals.
+// The group walks its longest walk; a rank computes only its own tiles, and
+// a padding rank (a 1-token row's tiles past its token) only helps fill.
 // f32 caches (mla_f32_kernel), kept to check the algorithm without bf16
 // rounding: 32-row blocks on scalar FMA, 32-key sub-tiles, the same walk
 // facts and cluster merge.
@@ -91,6 +100,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kBlockTokens = 64;  // split granularity (ops/paged_mla.py BLOCK_TOKENS)
 constexpr int kMaxSplits = 8;     // a cluster's portable size (ops/paged_decode.py MAX_SPLITS)
+constexpr int kMaxShare = 2;      // row tiles of an fp8 share group (ops/paged_mla.py mla_share_plan)
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use (ops/paged_decode.py SMEM_BYTES)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -106,7 +116,7 @@ struct MlaArgs {
   float* out;                 // [B, T, H, D]
   int T, H, DR, RW, ps, N, S, bps, q_f32;
   float scale;
-  int f8;  // the caches are fp8 e4m3 (bf16 otherwise, or f32 for mla_f32_kernel)
+  int share;  // fp8 caches, S == 1: the row tiles of a share group (a cluster along z, 1 or 2); 1 otherwise
 };
 
 // What one block walks: rows [r0, r0 + rows) of sequence b and keys
@@ -120,17 +130,19 @@ struct Walk {
 // dispatched before block z + 1 of any, and z counts down from the tile
 // holding the sequence's last real token (its longest walk) to tile 0, then
 // up through the padding tiles past it. The long walks of every sequence of
-// a mixed step start first, the padding blocks last.
+// a mixed step start first, the padding blocks last. A share group rounds
+// the row tiles up to whole groups: the tiles past the last row have no
+// rows at all (padding that writes nothing).
 template <int ROWS>
-__device__ __forceinline__ Walk plan_walk(const MlaArgs& a) {
+__device__ __forceinline__ Walk plan_walk(const MlaArgs& a, int z) {
   Walk w;
   const int b = blockIdx.y;
   w.b = b;
-  const int R = a.T * a.H, z = blockIdx.z;
+  const int R = a.T * a.H;
   const int last = a.walk_first != nullptr ? (((int)a.walk_first[b] + 1) * a.H - 1) / ROWS : (R - 1) / ROWS;
   const int tile = z <= last ? last - z : z;
   w.r0 = tile * ROWS;
-  w.rows = min(ROWS, R - w.r0);
+  w.rows = max(min(ROWS, R - w.r0), 0);
   w.padding = tile > last;
   const int t_first = w.r0 / a.H, t_last = (w.r0 + w.rows - 1) / a.H;
   const int* prow = a.positions + (size_t)b * a.T;
@@ -148,6 +160,10 @@ __device__ __forceinline__ Walk plan_walk(const MlaArgs& a) {
   w.sh = __ffs(a.ps) - 1;
   w.last_page = min((a.walk_max != nullptr ? a.walk_max[b] : prow[0]) >> w.sh, a.N - 1);
   return w;
+}
+template <int ROWS>
+__device__ __forceinline__ Walk plan_walk(const MlaArgs& a) {
+  return plan_walk<ROWS>(a, blockIdx.z);
 }
 
 // A padding tile's rows are zeros (written once, by split 0).
@@ -231,27 +247,22 @@ constexpr int kStages = 2;
 constexpr int kBarConsumers = 1;  // named barriers over the two consumer warpgroups
 constexpr int kBarMax = 2;        // both halves of a tile's row maxima are exchanged
 constexpr int kBarP = 3;          // both halves of a tile's p are in the p tile
-constexpr int kBarProducer = 4;   // the producer warpgroup is done reading an fp8 stage
-
-// Bytes of an fp8 TMA box along a key row of w bytes (w a multiple of 16):
-// the widest multiple of 16 that divides w, at most 256 (a box's limit).
-__host__ __device__ constexpr int fp8_box_bytes(int w) {
-  for (int k = (w < 256 ? w : 256) / 16; k > 1; --k)
-    if (w % (16 * k) == 0) return 16 * k;
-  return 16;
-}
+constexpr int kBarProducers = 4;  // fp8: the producer warpgroup has converted a tile
+// fp8: registers a thread after setmaxnreg, producers and consumers (128 x 72 + 256 x 216 = 384 x 168;
+// the in-place conversion's producer needs more than the bf16 loader's 56, the consumers no more than 216).
+constexpr int kF8ProducerRegs = 72;
+constexpr int kF8ConsumerRegs = 216;
 
 // Shared-memory layout of mla_wgmma_kernel (bytes from a 1024-aligned base)
 // for rows of `na` 64-lane atoms (D / 64 latent, then ceil(DR / 64) rope) and
 // stages of `keys` keys: Q [na][64 rows][128 B], the ring kStages x [na][keys]
 // [128 B], the p tile [64][128 B], the ring's mbarriers and the Q tile's, the
 // row exchange [2][64] f32, the rows' positions, the block's (m, l)
-// partial; fp8 caches then the fp8 ring's mbarriers and, 128-byte aligned,
-// the fp8 ring kStages x [keys][f8row bytes] (in blocks, see load_f8).
+// partial. fp8 caches use the same layout: their tiles are converted in
+// place in the ring (f8_convert_in_place), with no fp8 ring beside it.
 // ops/paged_mla.py _wg_smem_bytes mirrors bytes().
 struct WgLayout {
   int na, keys;
-  int f8row = 0;  // bytes of an fp8 key row (D + DR); 0 for bf16 caches
   __host__ __device__ int stage_bytes() const { return na * keys * 128; }
   __host__ __device__ int ring() const { return na * kRows * 128; }
   __host__ __device__ int p() const { return ring() + kStages * stage_bytes(); }
@@ -259,12 +270,7 @@ struct WgLayout {
   __host__ __device__ int red() const { return bar() + (2 * kStages + 1) * 8; }
   __host__ __device__ int qpos() const { return red() + 4 * 2 * kRows; }
   __host__ __device__ int ml() const { return qpos() + 4 * kRows; }
-  __host__ __device__ int f8bar() const { return ml() + 4 * 2 * kRows; }
-  __host__ __device__ int f8ring() const { return (f8bar() + kStages * 8 + 127) / 128 * 128; }
-  __host__ __device__ int f8stage_bytes() const { return keys * f8row; }
-  __host__ __device__ size_t bytes() const {
-    return 1024 + (f8row ? f8ring() + kStages * f8stage_bytes() : f8bar());
-  }
+  __host__ __device__ size_t bytes() const { return 1024 + ml() + 4 * 2 * kRows; }
 };
 
 // Eight elements scaled in f32 and rounded to bf16, packed.
@@ -324,8 +330,9 @@ __device__ __forceinline__ void stage_q_swizzled(const MlaArgs& a, const Walk& w
 
 // RSTEPS: the rope lanes' k-steps (DR / 16), so the score product is one
 // unrolled run of wgmma that ptxas pipelines; 0 takes any DR in a loop,
-// which ptxas serialises (geometries outside the serving ones).
-template <int D, int KEYS, int RSTEPS>
+// which ptxas serialises (geometries outside the serving ones). F8: the
+// caches are fp8 e4m3 (see the note at the top).
+template <int D, int KEYS, int RSTEPS, bool F8>
 __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs a,
                                                                   const __grid_constant__ CUtensorMap tmc,
                                                                   const __grid_constant__ CUtensorMap tmr,
@@ -343,7 +350,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
   static_assert((size_t)(DA + 1) * 128 * (kRows + kStages * KEYS) >= sizeof(float) * (size_t)kRows * AS,
                 "the merge's partial outgrows the Q tile and the ring");
   const int DR = a.DR, NA = DA + (DR + 63) / 64;
-  const WgLayout L{NA, KEYS, a.f8 ? D + DR : 0};
+  const WgLayout L{NA, KEYS};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -351,7 +358,6 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bar());
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
-  uint64_t* full8 = reinterpret_cast<uint64_t*>(base + L.f8bar());  // fp8: the fp8 ring's stages landed
   float* red = reinterpret_cast<float*>(base + L.red());
   int* qpos = reinterpret_cast<int*>(base + L.qpos());
   float* m_s = reinterpret_cast<float*>(base + L.ml());
@@ -359,11 +365,33 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
 
   const Walk w = plan_walk<kRows>(a);
   const int b = w.b;
+  int ntiles = w.nkeys / KEYS;
+  // fp8, a.share > 1: the share group, a.share row tiles of one sequence in
+  // one cluster (a.S == 1, so every rank walks keys from 0). Each rank fills
+  // its 1/share of every tile of the group's longest walk (NT tiles) into
+  // the ring of every rank with rows (`consumers`); a rank walks only its own
+  // ntiles of them and releases the rest. A padding rank of a group with
+  // work helps fill. The ranks' walks come from the positions alone, so
+  // every rank computes the same group plan.
+  const bool shared = F8 && a.share > 1;
+  int NT = ntiles;
+  uint32_t consumers = 0, rank = 0;
+  if (shared) {
+    rank = cluster_rank();
+    NT = 0;
+    for (int k = 0; k < a.share; ++k) {
+      const Walk wk = plan_walk<kRows>(a, blockIdx.z - rank + k);
+      if (!wk.padding) {
+        consumers |= 1u << k;
+        NT = max(NT, wk.nkeys / KEYS);
+      }
+    }
+  }
   if (w.padding) {
     write_zeros(a, w, D);
-    return;
+    if (!shared || NT == 0) return;
+    ntiles = 0;
   }
-  const int ntiles = w.nkeys / KEYS;
   const int* trow = a.tables + (size_t)b * a.N;
   // The producer's copy of ring tile i: TMA boxes (lane l issues boxes l,
   // l + 32, ...: box e is atom e % NA of the box_rows keys at e / NA *
@@ -400,57 +428,67 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
       mbar_arrive_cp_async(&full[s]);
     }
   };
-  // fp8 caches: warp 0's copy of tile i into fp8 stage i % kStages, blocks
-  // [D / lb][KEYS][lb] of latent bytes, then [DR / rb][KEYS][rb] of rope
-  // bytes (f8_off). TMA: box e is block part e % nb8 of the box_rows keys at
-  // e / nb8 * box_rows; cp.async: 16-byte chunks, as load_tile's.
-  // The rope width is a constant of the unrolled (RSTEPS > 0) instantiations,
-  // so their fp8 address arithmetic folds to shifts and multiplies.
-  constexpr int lb = fp8_box_bytes(D);
-  const int DRf = RSTEPS > 0 ? RSTEPS * 16 : DR;
-  constexpr int kRopeBox = fp8_box_bytes(RSTEPS > 0 ? RSTEPS * 16 : 16);
-  const int rb = RSTEPS > 0 ? kRopeBox : fp8_box_bytes(DR), nb8 = D / lb + DRf / rb;
-  auto f8_off = [&](int j, int x) {  // byte x of key j's row in a stage
-    return x < D ? (x / lb) * (KEYS * lb) + j * lb + x % lb
-                 : KEYS * D + ((x - D) / rb) * (KEYS * rb) + j * rb + (x - D) % rb;
+  // fp8: this rank's share of tile i (key rows [key0, key0 + KEYS /
+  // share) of the tile's KEYS x (D + DR) cache bytes, cpk 16-byte chunks a
+  // row), producer thread tid's part. Chunk e is row chunk c of key row j:
+  // e = ((j / 2) * cpk + c) * 2 + j % 2, so a quarter-warp lands and
+  // converts four chunks of one atom in two adjacent rows, eight distinct
+  // 16-byte bank groups. land_f8 starts the chunks' cp.async into their
+  // slots (one commit group a tile; `page`: lane l holds the id of the
+  // tile's page l, at most 32 with pages of 2+ tokens, passed by shuffle);
+  // convert_f8 converts them in place once they have landed.
+  constexpr int CPK = RSTEPS > 0 ? (D + 16 * RSTEPS) / 16 : 0;  // 16-byte chunks of a key row (serving rope)
+  const int cpk = RSTEPS > 0 ? CPK : (D + DR) / 16;
+  const int key0 = (int)rank * (KEYS / a.share), lo = key0 * cpk, hi = lo + (KEYS / a.share) * cpk;
+  auto chunk_of = [&](int e, int& j, int& c) {
+    const int t = e >> 1;
+    const int jp = t / cpk;
+    c = t - jp * cpk;
+    j = 2 * jp + (e & 1);
   };
-  auto load_f8 = [&](int i) {
-    const int s = i % kStages, k0 = w.kbeg + i * KEYS, pmask = a.ps - 1;
-    unsigned char* st = base + L.f8ring() + s * L.f8stage_bytes();
-    if (box_rows) {
-      if (lane == 0) mbar_arrive_expect_tx(&full8[s], L.f8stage_bytes());
-      __syncwarp();
-      for (int e = lane; e < (KEYS / box_rows) * nb8; e += 32) {
-        const int run = e / nb8, part = e - run * nb8, j = run * box_rows, kpos = k0 + j;
-        const int row = trow[min(kpos >> w.sh, w.last_page)] * a.ps + (kpos & pmask);
-        if (part < D / lb) {
-          tma_load_2d(st + f8_off(j, part * lb), &tmc, part * lb, row, &full8[s]);
-        } else {
-          tma_load_2d(st + f8_off(j, D + (part - D / lb) * rb), &tmr, (part - D / lb) * rb, row, &full8[s]);
-        }
+  auto land_f8 = [&](int i) {
+    const int k0 = w.kbeg + i * KEYS, p0 = k0 >> w.sh, pmask = a.ps - 1;
+    const int page = trow[min(p0 + lane, w.last_page)];
+    unsigned char* st = base + L.ring() + (i % kStages) * L.stage_bytes();
+    const unsigned char* cc = static_cast<const unsigned char*>(a.cc);
+    const unsigned char* rc = static_cast<const unsigned char*>(a.rc);
+    for (int e0 = lo; e0 < hi; e0 += 128) {
+      int j, c;
+      chunk_of(e0 + tid, j, c);
+      const int kpos = k0 + j;
+      const int pg = __shfl_sync(0xffffffffu, page, (kpos >> w.sh) - p0);
+      if (e0 + tid < hi) {
+        const size_t slot = (size_t)pg * a.ps + (kpos & pmask);
+        cp_async16(st + (c >> 2) * (KEYS * 128) + j * 128 + (((2 * (c & 3)) ^ (j & 7)) << 4),
+                   c < D / 16 ? cc + slot * D + c * 16 : rc + slot * a.RW + (c - D / 16) * 16);
       }
-    } else {
-      const unsigned char* cc = static_cast<const unsigned char*>(a.cc);
-      const unsigned char* rc = static_cast<const unsigned char*>(a.rc);
-      const int cpk = (D + DRf) / 16;
-      for (int e = lane; e < KEYS * cpk; e += 32) {
-        const int j = e / cpk, x = (e - j * cpk) * 16, kpos = k0 + j;
-        const size_t slot = (size_t)trow[min(kpos >> w.sh, w.last_page)] * a.ps + (kpos & pmask);
-        cp_async16(st + f8_off(j, x), x < D ? cc + slot * D + x : rc + slot * a.RW + (x - D));
-      }
-      mbar_arrive_cp_async(&full8[s]);
+    }
+    cp_async_commit();
+  };
+  auto convert_f8 = [&](int i) {
+    const uint32_t st = smem_u32(base + L.ring() + (i % kStages) * L.stage_bytes());
+    for (int e = lo + tid; e < hi; e += 128) {
+      int j, c;
+      chunk_of(e, j, c);
+      f8_convert_in_place(st + (c >> 2) * (KEYS * 128) + j * 128, (2 * (c & 3)) ^ (j & 7));
     }
   };
+  const F8Share group{consumers, rank, a.share};
   if (warp == 0) {
-    // Warp 0 starts the Q tile and the ring's first stage before the
+    // Warp 0 starts the Q tile and (bf16) the ring's first stage before the
     // block-wide barrier (the second would compete with Q for bandwidth).
     if (lane == 0) {
       for (int s = 0; s < kStages; ++s) {
-        // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes;
-        // fp8: the producer warpgroup's 128 threads, each once it converted.
-        mbar_init(&full[s], a.f8 ? 128 : box_rows ? 1 : 32);
-        mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
-        if (a.f8) mbar_init(&full8[s], box_rows ? 1 : 32);
+        if constexpr (F8) {
+          // The producer's one arrival once the tile is converted (a share
+          // group: armed with the bytes the other ranks' bulk copies complete).
+          mbar_init(&full[s], 1);
+          mbar_init(&empty[s], 4 * kConsumers * (shared ? __popc(consumers) : 1));
+        } else {
+          // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes.
+          mbar_init(&full[s], box_rows ? 1 : 32);
+          mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
+        }
       }
       mbar_init(qbar, 1);
       mbar_init_fence();
@@ -473,50 +511,58 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
       }
     }
     __syncwarp();
-    if (ntiles > 0) {
-      if (a.f8) {
-        load_f8(0);
-      } else {
-        load_tile(0);
-      }
+    if constexpr (!F8) {
+      if (ntiles > 0) load_tile(0);
     }
   }
   if (tid < kRows) qpos[tid] = tid < w.rows ? a.positions[(size_t)b * a.T + (w.r0 + tid) / a.H] : -1;
-  __syncthreads();
+  if (shared) {
+    cluster_sync();  // every rank's barriers are initialised before any rank copies into it
+  } else {
+    __syncthreads();
+  }
   const size_t row0 = (size_t)b * a.T * a.H + w.r0;
   float* accs = reinterpret_cast<float*>(base);  // S > 1: the split's partial, over Q and the ring
 
   if (warp < 4) {
-    // ---- producer warpgroup: its warp 0 keeps the ring full ----
-    setmaxnreg_dec<kProducerRegs>();
-    if (a.f8) {
-      // Convert each landed fp8 stage into the bf16 ring stage of the same
-      // index (all 128 threads), then refill the fp8 stage kStages tiles on.
-      if (warp == 0 && ntiles > 1) load_f8(1);
-      const int cpk = (D + DRf) / 8;  // 8-byte chunks of a key row
-      for (int i = 0; i < ntiles; ++i) {
-        const int s = i % kStages;
-        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-        mbar_wait(&full8[s], (i / kStages) & 1);
-        const unsigned char* st8 = base + L.f8ring() + s * L.f8stage_bytes();
-        bf16* st = reinterpret_cast<bf16*>(base + L.ring() + s * L.stage_bytes());
-        for (int e = tid; e < KEYS * cpk; e += 128) {
-          const int j = e / cpk, c = e - j * cpk;
-          *reinterpret_cast<uint4*>(st + (c >> 3) * (KEYS * 64) + j * 64 + swz128(c & 7, j)) =
-              fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(st8 + f8_off(j, c * 8)));
+    // ---- producer warpgroup: its warp 0 keeps the ring full (fp8: all four
+    // warps land and convert it) ----
+    setmaxnreg_dec<F8 ? kF8ProducerRegs : kProducerRegs>();
+    if constexpr (F8) {
+      // Land the first kStages tiles at once (every stage is free); then
+      // for each tile: wait for its chunks, convert, publish, and land tile
+      // i - 1 + kStages into the stage tile i - 1 leaves once every
+      // consumer has released it (its fill overlaps their work on tile i).
+      int landed = 0;
+      for (; landed < kStages && landed < NT; ++landed) land_f8(landed);
+      for (int i = 0; i < NT; ++i) {
+        cp_async_wait_upto(landed - 1 - i);
+        convert_f8(i);
+        fence_proxy_async();  // the converted chunks are read by wgmma and the bulk copies (the async proxy)
+        named_bar_sync(kBarProducers, 128);
+        group.publish(smem_u32(base + L.ring() + (i % kStages) * L.stage_bytes()), &full[i % kStages], NA,
+                      (KEYS / a.share) * 128, [&](int r) { return (uint32_t)(r * (KEYS * 128) + key0 * 128); },
+                      tid);
+        if (i >= 1 && landed < NT) {
+          const int f = (i - 1) % kStages;
+          if (shared) {
+            mbar_wait_cluster(&empty[f], ((i - 1) / kStages) & 1);
+          } else {
+            mbar_wait(&empty[f], ((i - 1) / kStages) & 1);
+          }
+          land_f8(landed++);
         }
-        fence_proxy_async();  // the converted stage is read by wgmma (the async proxy)
-        mbar_arrive(&full[s]);
-        named_bar_sync(kBarProducer, 128);  // every producer thread is done reading fp8 stage s
-        if (warp == 0 && i + kStages < ntiles) load_f8(i + kStages);
       }
-      if (warp == 0 && !box_rows) cp_async_wait<0>();
     } else if (warp == 0) {
       for (int i = 1; i < ntiles; ++i) {
         if (i >= kStages) mbar_wait(&empty[i % kStages], ((i / kStages) - 1) & 1);
         load_tile(i);
       }
       if (!box_rows) cp_async_wait<0>();
+    }
+    if (shared) {
+      cluster_sync();  // no rank leaves while another still stores into it or arrives on it
+      return;
     }
     if (a.S == 1) return;
     cg::this_cluster().sync();  // the consumers' cluster_merge: its two cluster barriers
@@ -525,7 +571,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
     // ---- consumers: warpgroup wg scores keys [wg * KEYS/2, +KEYS/2) of each
     // tile against all 64 rows and owns output columns [wg * D/2, +D/2);
     // row maxima and p go through shared memory. ----
-    setmaxnreg_inc<kConsumerRegs>();
+    if (shared && w.padding) {  // a helper of its share group: no rows
+      cluster_sync();
+      return;
+    }
+    setmaxnreg_inc<F8 ? kF8ConsumerRegs : kConsumerRegs>();
     const int wg = (warp >> 2) - 1, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
     const int ctid = tid - 128;
     const int ra = wl * 16 + g, rb = ra + 8;  // this thread's rows (the same in both warpgroups)
@@ -554,11 +604,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
     float sc[NS] = {};
     float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;  // l: this thread's partial row sums
 
-    // Issue tile i's score product once its stage has landed.
+    // Issue tile i's score product (its stage has landed).
     auto issue_scores = [&](int i) {
       const int s = i % kStages;
-      mbar_wait(&full[s], (i / kStages) & 1);
-      if (!box_rows || a.f8) fence_proxy_async();  // cp.async and converted stages are the generic proxy's
+      if (!F8 && !box_rows) fence_proxy_async();  // cp.async stages are the generic proxy's (fp8: the producer fenced)
       const uint32_t kst = ring_addr + s * L.stage_bytes();
       auto score_step = [&](int kk) {
         const uint32_t off = (kk & 3) * 32;  // 16-lane step inside the 128-byte row
@@ -580,94 +629,109 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
       }
       wgmma_commit();
     };
-    for (int i = 0; i < ntiles; ++i) {
-      const uint32_t kst = ring_addr + (i % kStages) * L.stage_bytes();
-      issue_scores(i);
-      wgmma_wait<0>();
-      fence_regs(sc);
+    for (int i = 0; i < NT; ++i) {
+      const int s = i % kStages;
+      const uint32_t kst = ring_addr + s * L.stage_bytes();
+      if (shared) {
+        mbar_wait_cluster(&full[s], (i / kStages) & 1);
+      } else {
+        mbar_wait(&full[s], (i / kStages) & 1);
+      }
+      if (!shared || i < ntiles) {
+        issue_scores(i);
+        wgmma_wait<0>();
+        fence_regs(sc);
 
-      // Scores in log2 units; the mask only on a tile crossing the smallest horizon.
-      const int k0 = w.kbeg + i * KEYS, kw = k0 + wg * (KEYS / 2);
+        // Scores in log2 units; the mask only on a tile crossing the smallest horizon.
+        const int k0 = w.kbeg + i * KEYS, kw = k0 + wg * (KEYS / 2);
 #pragma unroll
-      for (int x = 0; x < NS; ++x) sc[x] *= kLog2e;
-      if (k0 + KEYS - 1 > w.tmin) {
+        for (int x = 0; x < NS; ++x) sc[x] *= kLog2e;
+        if (k0 + KEYS - 1 > w.tmin) {
 #pragma unroll
-        for (int j = 0; j < NS / 4; ++j)
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = kw + 8 * j + 2 * t4 + e;
+              if (kpos > qa) sc[4 * j + e] = -INFINITY;
+              if (kpos > qb) sc[4 * j + 2 + e] = -INFINITY;
+            }
+        }
+        float xa = -INFINITY, xb = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
+          xa = fmaxf(xa, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          xb = fmaxf(xb, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, off));
+          xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, off));
+        }
+        if (t4 == 0) {
+          red[wg * kRows + ra] = xa;
+          red[wg * kRows + rb] = xb;
+        }
+        named_bar_sync(kBarMax, 128 * kConsumers);
+        const float na = fmaxf(ma, fmaxf(red[ra], red[kRows + ra]));
+        const float nb = fmaxf(mb, fmaxf(red[rb], red[kRows + rb]));
+        // A row with no key yet keeps m = -inf: subtract 0 so p = exp2(-inf) = 0.
+        const float sa = na == -INFINITY ? 0.f : na, sb = nb == -INFINITY ? 0.f : nb;
+        const float aa = fast_exp2(ma - sa), ab = fast_exp2(mb - sb);
+        ma = na;
+        mb = nb;
+        float suma = 0.f, sumb = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int kpos = kw + 8 * j + 2 * t4 + e;
-            if (kpos > qa) sc[4 * j + e] = -INFINITY;
-            if (kpos > qb) sc[4 * j + 2 + e] = -INFINITY;
+            sc[4 * j + e] = fast_exp2(sc[4 * j + e] - sa);
+            sc[4 * j + 2 + e] = fast_exp2(sc[4 * j + 2 + e] - sb);
+            suma += sc[4 * j + e];
+            sumb += sc[4 * j + 2 + e];
           }
-      }
-      float xa = -INFINITY, xb = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NS / 4; ++j) {
-        xa = fmaxf(xa, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        xb = fmaxf(xb, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, off));
-        xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, off));
-      }
-      if (t4 == 0) {
-        red[wg * kRows + ra] = xa;
-        red[wg * kRows + rb] = xb;
-      }
-      named_bar_sync(kBarMax, 128 * kConsumers);
-      const float na = fmaxf(ma, fmaxf(red[ra], red[kRows + ra]));
-      const float nb = fmaxf(mb, fmaxf(red[rb], red[kRows + rb]));
-      // A row with no key yet keeps m = -inf: subtract 0 so p = exp2(-inf) = 0.
-      const float sa = na == -INFINITY ? 0.f : na, sb = nb == -INFINITY ? 0.f : nb;
-      const float aa = fast_exp2(ma - sa), ab = fast_exp2(mb - sb);
-      ma = na;
-      mb = nb;
-      float suma = 0.f, sumb = 0.f;
-#pragma unroll
-      for (int j = 0; j < NS / 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[4 * j + e] = fast_exp2(sc[4 * j + e] - sa);
-          sc[4 * j + 2 + e] = fast_exp2(sc[4 * j + 2 + e] - sb);
-          suma += sc[4 * j + e];
-          sumb += sc[4 * j + 2 + e];
+          // p (bf16) into the swizzled p tile: rows ra / rb, keys kw - k0 + 8j + 2t4 (+1).
+          const int chunk = wg * (KEYS / 16) + j;
+          const int sw = ((chunk ^ (ra & 7)) << 4) + t4 * 4;  // rb & 7 == ra & 7
+          *reinterpret_cast<uint32_t*>(pt + ra * 128 + sw) = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(pt + rb * 128 + sw) = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
         }
-        // p (bf16) into the swizzled p tile: rows ra / rb, keys kw - k0 + 8j + 2t4 (+1).
-        const int chunk = wg * (KEYS / 16) + j;
-        const int sw = ((chunk ^ (ra & 7)) << 4) + t4 * 4;  // rb & 7 == ra & 7
-        *reinterpret_cast<uint32_t*>(pt + ra * 128 + sw) = pack_bf16(sc[4 * j], sc[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(pt + rb * 128 + sw) = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
-      }
-      la = aa * la + suma;
-      lb = ab * lb + sumb;
-      fence_proxy_async();
-      named_bar_sync(kBarP, 128 * kConsumers);  // both halves of p are in the tile
+        la = aa * la + suma;
+        lb = ab * lb + sumb;
+        fence_proxy_async();
+        named_bar_sync(kBarP, 128 * kConsumers);  // both halves of p are in the tile
 
 #pragma unroll
-      for (int j = 0; j < NO / 4; ++j) {
-        o[4 * j] *= aa;
-        o[4 * j + 1] *= aa;
-        o[4 * j + 2] *= ab;
-        o[4 * j + 3] *= ab;
-      }
-      fence_regs(o);
-      wgmma_fence();
-      const uint32_t c_addr = kst + wg * (DA / 2) * (KEYS * 128);  // this warpgroup's first latent atom
-#pragma unroll
-      for (int kk = 0; kk < KEYS / 16; ++kk) {
-        const uint64_t da = sw128_desc(p_addr + kk * 32);
-        const uint64_t db = sw128_desc_mn(c_addr + kk * 16 * 128, KEYS * 128);
-        if constexpr (D == 512) {
-          wgmma_m64n256k16_ss_mn(o, da, db);
-        } else {
-          wgmma_m64n64k16_ss_mn(o, da, db);
+        for (int j = 0; j < NO / 4; ++j) {
+          o[4 * j] *= aa;
+          o[4 * j + 1] *= aa;
+          o[4 * j + 2] *= ab;
+          o[4 * j + 3] *= ab;
         }
+        fence_regs(o);
+        wgmma_fence();
+        const uint32_t c_addr = kst + wg * (DA / 2) * (KEYS * 128);  // this warpgroup's first latent atom
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          const uint64_t da = sw128_desc(p_addr + kk * 32);
+          const uint64_t db = sw128_desc_mn(c_addr + kk * 16 * 128, KEYS * 128);
+          if constexpr (D == 512) {
+            wgmma_m64n256k16_ss_mn(o, da, db);
+          } else {
+            wgmma_m64n64k16_ss_mn(o, da, db);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty[i % kStages]);
+      if (shared) {
+        // Release the stage to every rank's producer (none waits for the
+        // last kStages tiles' releases).
+        if (i + kStages < NT && lane == 0)
+          for (int k = 0; k < a.share; ++k) mbar_arrive_cluster(mapa(smem_u32(&empty[s]), k));
+      } else if (lane == 0) {
+        mbar_arrive(&empty[s]);
+      }
     }
 
     // Row sums: the quad's partials, then the two warpgroups' in order.
@@ -695,6 +759,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mla_wgmma_kernel(const MlaArgs 
           *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) =
               make_float2(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
       }
+      if (shared) cluster_sync();
       return;
     }
     if (wg == 0 && t4 == 0) {
@@ -964,8 +1029,10 @@ cudaError_t allow_smem(K kern, size_t smem, size_t& allowed) {
   return e;
 }
 
-// One launch: grid (S splits, B sequences, row tiles; see plan_walk), the S
-// splits of a row tile one thread block cluster.
+// One launch: grid (S splits, B sequences, row tiles rounded up to whole
+// share groups; see plan_walk), one thread block cluster of S x 1 x share:
+// the S splits of a row tile (merged in the cluster), or (fp8, S == 1) a
+// share group of `share` row tiles.
 template <typename K, typename... Args>
 cudaError_t launch_clustered(K kern, const MlaArgs& a, int B, int rows, int threads, size_t smem,
                              cudaStream_t stream, Args... args) {
@@ -973,9 +1040,10 @@ cudaError_t launch_clustered(K kern, const MlaArgs& a, int B, int rows, int thre
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = a.S;
   cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
+  cluster.val.clusterDim.z = a.share;
+  const int tiles = (a.T * a.H + rows - 1) / rows;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(a.S, B, (a.T * a.H + rows - 1) / rows);
+  cfg.gridDim = dim3(a.S, B, (tiles + a.share - 1) / a.share * a.share);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -986,30 +1054,21 @@ cudaError_t launch_clustered(K kern, const MlaArgs& a, int B, int rows, int thre
   return cudaGetLastError();
 }
 
-template <int D, int KEYS, int RSTEPS>
+template <int D, int KEYS, int RSTEPS, bool F8>
 cudaError_t launch_wgmma(const MlaArgs& a, int B, int P, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  const WgLayout L{D / 64 + (a.DR + 63) / 64, KEYS, a.f8 ? D + a.DR : 0};
-  auto kern = mla_wgmma_kernel<D, KEYS, RSTEPS>;
-  // Latent and rope tiles by TMA where the page size allows a box (bf16: 8
-  // rows into the swizzle, the rope stream a box wide; fp8: every box
-  // landing 128-byte aligned), else cp.async. A tensor map the driver
-  // refuses is an error, never a silent switch to cp.async.
+  const WgLayout L{D / 64 + (a.DR + 63) / 64, KEYS};
+  auto kern = mla_wgmma_kernel<D, KEYS, RSTEPS, F8>;
+  // bf16: latent and rope tiles by TMA where the page size allows an 8-row
+  // box and the rope stream is a box wide, else cp.async. A tensor map the
+  // driver refuses is an error, never a silent switch to cp.async. fp8
+  // tiles land by cp.async and are converted in place.
   CUtensorMap tmc{}, tmr{}, tmq{}, tmqr{};
   const long long cache_rows = (long long)P * a.ps;
-  int box_rows;
-  if (a.f8) {
-    const int lb = fp8_box_bytes(D), rb = fp8_box_bytes(a.DR), r = std::gcd(a.ps, KEYS);
-    box_rows = (r * lb) % 128 == 0 && (r * rb) % 128 == 0 ? r : 0;
-    if (box_rows && !(encode_map(&tmc, a.cc, cache_rows, D, true, lb, box_rows) &&
-                      encode_map(&tmr, a.rc, cache_rows, a.RW, true, rb, box_rows)))
-      return cudaErrorNotSupported;
-  } else {
-    box_rows = a.RW >= 64 ? tma_box_rows(a.ps, KEYS) : 0;
-    if (box_rows && !(encode_cache_map(&tmc, a.cc, cache_rows, D, box_rows) &&
-                      encode_cache_map(&tmr, a.rc, cache_rows, a.RW, box_rows)))
-      return cudaErrorNotSupported;
-  }
+  const int box_rows = !F8 && a.RW >= 64 ? tma_box_rows(a.ps, KEYS) : 0;
+  if (box_rows && !(encode_cache_map(&tmc, a.cc, cache_rows, D, box_rows) &&
+                    encode_cache_map(&tmr, a.rc, cache_rows, a.RW, box_rows)))
+    return cudaErrorNotSupported;
   // bf16 queries whose rope lanes fill whole boxes arrive by TMA too.
   const int q_tma = !a.q_f32 && a.DR % 64 == 0;
   const long long rows = (long long)B * a.T * a.H;
@@ -1019,6 +1078,18 @@ cudaError_t launch_wgmma(const MlaArgs& a, int B, int P, cudaStream_t stream) {
   const cudaError_t e = allow_smem(kern, L.bytes(), allowed);
   if (e != cudaSuccess) return e;
   return launch_clustered(kern, a, B, kRows, kWgThreads, L.bytes(), stream, tmc, tmr, tmq, tmqr, box_rows, q_tma);
+}
+
+// The wgmma kernel for D, DR and `keys`-key stages; the rope width of every
+// serving geometry (64) gets an unrolled score product.
+template <bool F8>
+cudaError_t launch_wgmma_for(const MlaArgs& a, int D, int keys, int B, int P, cudaStream_t st) {
+  if (D == 512) {
+    if (a.DR == 64 && keys == 64) return launch_wgmma<512, 64, 4, F8>(a, B, P, st);
+    return keys == 64 ? launch_wgmma<512, 64, 0, F8>(a, B, P, st) : launch_wgmma<512, 32, 0, F8>(a, B, P, st);
+  }
+  if (a.DR == 64 && keys == 64) return launch_wgmma<128, 64, 4, F8>(a, B, P, st);
+  return keys == 64 ? launch_wgmma<128, 64, 0, F8>(a, B, P, st) : launch_wgmma<128, 32, 0, F8>(a, B, P, st);
 }
 
 template <int D>
@@ -1034,35 +1105,33 @@ cudaError_t launch_f32(const MlaArgs& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // Launches the MLA attention on `stream`: one launch, the S <= 8 splits of a
-// row tile one thread block cluster that merges them. Returns the CUDA error
-// code (0 = launched). No synchronisation, no allocation. walk_max /
-// walk_first: each sequence's largest position (int32) and the first token
-// holding it (int64), from ops/paged_mla.py walk_facts; both null at T = 1.
-// Output f32 [B, T, H, D].
+// row tile one thread block cluster that merges them, or (fp8 caches, S ==
+// 1) `share` (1 or 2) row tiles one cluster that fills each key tile once
+// (ops/paged_mla.py mla_share_plan). Returns the CUDA error code (0 =
+// launched). No synchronisation, no allocation. walk_max / walk_first: each
+// sequence's largest position (int32) and the first token holding it
+// (int64), from ops/paged_mla.py walk_facts; both null at T = 1. Output f32
+// [B, T, H, D].
 extern "C" int dyn_paged_mla(const void* q_lat, const void* q_rope, const void* c_cache, const void* r_cache,
                              const int* tables, const int* positions, const int* walk_max,
                              const long long* walk_first, float* out, int B, int T, int H, int D, int DR, int RW,
-                             int ps, int N, int P, int S, int bps, int cache_dtype, int q_dtype, float scale,
-                             void* stream) {
+                             int ps, int N, int P, int S, int bps, int share, int cache_dtype, int q_dtype,
+                             float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S < 1 || S > kMaxSplits || (D != 128 && D != 512) || (q_dtype != 0 && q_dtype != 1))
     return (int)cudaErrorInvalidValue;
+  if (share < 1 || share > kMaxShare || (share > 1 && (cache_dtype != 2 || S != 1)))
+    return (int)cudaErrorInvalidValue;
   const MlaArgs a{q_lat, q_rope, c_cache, r_cache, tables, positions, walk_max, walk_first, out,
-                  T, H, DR, RW, ps, N, S, bps, q_dtype == 0, scale, cache_dtype == 2};
+                  T, H, DR, RW, ps, N, S, bps, q_dtype == 0, scale, share};
   if (cache_dtype == 1 || cache_dtype == 2) {
-    // 64-key stages where they fit the shared memory, else 32 (wider rows,
-    // fp8 at D = 512); ops/paged_mla.py _tile_keys makes the same choice.
-    const int na = D / 64 + (DR + 63) / 64, f8row = a.f8 ? D + DR : 0;
-    const int keys = WgLayout{na, 64, f8row}.bytes() <= kMaxSmem ? 64 : 32;
-    if (WgLayout{na, keys, f8row}.bytes() > kMaxSmem) return (int)cudaErrorInvalidValue;
-    // The rope width of every serving geometry (64) gets an unrolled score product.
-    if (D == 512) {
-      if (DR == 64)
-        return (int)(keys == 64 ? launch_wgmma<512, 64, 4>(a, B, P, st) : launch_wgmma<512, 32, 4>(a, B, P, st));
-      return (int)(keys == 64 ? launch_wgmma<512, 64, 0>(a, B, P, st) : launch_wgmma<512, 32, 0>(a, B, P, st));
-    }
-    if (DR == 64 && keys == 64) return (int)launch_wgmma<128, 64, 4>(a, B, P, st);
-    return (int)(keys == 64 ? launch_wgmma<128, 64, 0>(a, B, P, st) : launch_wgmma<128, 32, 0>(a, B, P, st));
+    // 64-key stages where they fit the shared memory, else 32 (rows of more
+    // than nine atoms); ops/paged_mla.py _tile_keys makes the same choice.
+    const int na = D / 64 + (DR + 63) / 64;
+    const int keys = WgLayout{na, 64}.bytes() <= kMaxSmem ? 64 : 32;
+    if (WgLayout{na, keys}.bytes() > kMaxSmem) return (int)cudaErrorInvalidValue;
+    return (int)(cache_dtype == 2 ? launch_wgmma_for<true>(a, D, keys, B, P, st)
+                                  : launch_wgmma_for<false>(a, D, keys, B, P, st));
   }
   if (cache_dtype == 0) return (int)(D == 512 ? launch_f32<512>(a, B, st) : launch_f32<128>(a, B, st));
   return (int)cudaErrorInvalidValue;

@@ -47,14 +47,15 @@
 // only with each other.
 // fp8 e4m3 caches (pallas_prefill.py:189, the cache read at 1 byte an
 // element, the matmuls in bf16): the same kernel, prefill_wgmma_kernel<F8 =
-// true>, with a producer warpgroup. Its first warp keeps a second, fp8 ring
-// full (TMA boxes of whole head-strip rows, unswizzled, or cp.async); all
-// four warps (one on each SM sub-partition, whose conversion units they
-// share) convert each landed fp8 tile (fp8x8_to_bf16x8, exact) into the
-// bf16 ring stage in the swizzled layout the wgmma descriptors read, while
-// the consumers work on earlier stages. setmaxnreg hands the producers'
-// registers to the consumers, which run unchanged: queries and p in bf16 as
-// the TPU kernel keeps them (pallas_prefill.py:277, :210).
+// true>, its consumers unchanged (queries and p in bf16 as the TPU kernel
+// keeps them, pallas_prefill.py:277, :210), with a producer warpgroup. Its
+// first warp keeps an fp8 ring full (TMA boxes of whole head-strip rows,
+// unswizzled, or cp.async), four stages deep at hd 64 and two at hd 128 (the
+// page ids come from the table, so the ring takes their room); all four
+// warps convert each landed tile (fp8x8_to_bf16x8, exact) into the bf16
+// stage in the swizzled layout the wgmma descriptors read, then one thread
+// publishes it and the fp8 stage is refilled. setmaxnreg hands the
+// producers' registers to the consumers.
 // f32 caches, which exist to check the algorithm without bf16 rounding, run
 // a register-tiled scalar-FMA kernel (prefill_kernel) of 64-row blocks.
 
@@ -257,21 +258,24 @@ constexpr int kBlockRows = kWgRows * kConsumers;    // 128 (ops/paged_prefill.py
 constexpr int kProducerWarp = 4 * kConsumers;       // warp index of the producer
 constexpr int kWgThreads = 128 * kConsumers + 32;
 constexpr int kWgThreadsF8 = 128 * (kConsumers + 1);  // fp8: a producer warpgroup
-constexpr int kF8ProducerRegs = 56;                    // registers a thread after setmaxnreg (fp8): producers
-constexpr int kF8ConsumerRegs = 224;                   // and consumers (128 x 56 + 256 x 224 = 384 x 168)
+constexpr int kF8ProducerRegs = 72;                    // registers a thread after setmaxnreg (fp8): producers
+constexpr int kF8ConsumerRegs = 216;                   // and consumers (128 x 72 + 256 x 216 <= 384 x 168)
 constexpr int kTileKeys = 128;                      // keys per ring stage (ops/paged_prefill.py TILE_KEYS)
+constexpr int kBarProducers = 2;                    // fp8: the producer warpgroup has converted a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory layout (bytes from a 1024-aligned base): Q [CH][128 rows][64],
-// kStages x (K [CH][TK keys][64], V [CH][TK][64]), fp8 caches: kF8Stages x
-// (K [TK][HD], V [TK][HD]) bytes; full/empty mbarriers (fp8: and the fp8
-// ring's), the position scan, then the page ids of the walk (one per table
-// entry at most). ops/paged_prefill.py _smem_bytes mirrors bytes().
+// kStages x (K [CH][TK keys][64], V [CH][TK][64]), full/empty mbarriers,
+// the position scan, then (bf16) the page ids of the walk (one per table
+// entry at most). fp8 caches read their page ids from the table and spend
+// the room on an fp8 ring beside the bf16 one: kF8Stages x (K [TK][HD], V
+// [TK][HD]) bytes (4 stages at hd 64, 2 at hd 128) and its full mbarriers.
+// ops/paged_prefill.py _smem_bytes mirrors bytes().
 template <int HD, bool F8>
 struct WgSmem {
   static constexpr int CH = HD / 64;  // 64-column atoms per row
   static constexpr int kStages = HD == 64 ? 4 : 2;  // ops/paged_prefill.py _stages
-  static constexpr int kF8Stages = F8 ? (HD == 64 ? 2 : 1) : 0;  // ops/paged_prefill.py _fp8_stages
+  static constexpr int kF8Stages = F8 ? (HD == 64 ? 4 : 2) : 0;  // ops/paged_prefill.py _fp8_stages
   static constexpr int kQBytes = CH * kBlockRows * 128;
   static constexpr int kHalf = CH * kTileKeys * 128;  // K (or V) of one stage
   static constexpr int kStageBytes = 2 * kHalf;
@@ -280,7 +284,7 @@ struct WgSmem {
   static constexpr int kBar = kF8Ring + kF8Stages * kF8StageBytes;
   static constexpr int kSpan = kBar + (2 * kStages + kF8Stages) * 8;
   static constexpr int kPids = kSpan + 16;
-  static size_t bytes(int table_width) { return 1024 + kPids + sizeof(int) * (size_t)table_width; }
+  static size_t bytes(int table_width) { return 1024 + kPids + (F8 ? 0 : sizeof(int) * (size_t)table_width); }
 };
 
 static_assert(kTileKeys == 128, "the score product is one wgmma m64n128k16 per 16-deep step");
@@ -294,7 +298,6 @@ __global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgm
   using L = WgSmem<HD, F8>;
   constexpr int CH = L::CH;
   constexpr int kStages = L::kStages;
-  constexpr int kF8Stages = L::kF8Stages;
   constexpr int NT = F8 ? kWgThreadsF8 : kWgThreads;
   constexpr int CPR = HD / 8;          // 16-byte chunks per row
   constexpr int NJ = kTileKeys / 8;    // n8 column groups of a score tile
@@ -321,11 +324,12 @@ __global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgm
     span[0] = 0;
     for (int s = 0; s < kStages; ++s) {
       // TMA: the producer's one expect_tx arrival; cp.async: its 32 lanes;
-      // fp8 (the converted tile): the producer warpgroup's 128 threads.
-      mbar_init(&full[s], F8 ? 128 : box_rows ? 1 : 32);
+      // fp8: the producer warpgroup's one arrival once the tile is converted.
+      mbar_init(&full[s], F8 || box_rows ? 1 : 32);
       mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
     }
-    for (int s = 0; s < kF8Stages; ++s) mbar_init(&full8[s], box_rows ? 1 : 32);
+    // fp8 ring, TMA: the loader's one expect_tx arrival; cp.async: its 32 lanes.
+    for (int f = 0; f < L::kF8Stages; ++f) mbar_init(&full8[f], box_rows ? 1 : 32);
     mbar_init_fence();
   }
   __syncthreads();
@@ -333,11 +337,11 @@ __global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgm
   const int t0 = qi * TQ;
   int mx = 0;
   for (int t = tid; t < T; t += NT) mx = max(mx, prow[t]);
-  {
+  const int* trow = tables + (size_t)b * N;
+  if constexpr (!F8) {
     // Page ids of every tile the walk can reach (kend <= start + t0 + TQ),
     // staged while the position scan is in flight; an entry past the row's
     // last page may be staged, and is never used.
-    const int* trow = tables + (size_t)b * N;
     const int tiles = (max(start + t0 + TQ, 1) + kTileKeys - 1) / kTileKeys;
     const int np = min(N, (tiles * kTileKeys - 1) / ps + 1);
     for (int j = tid; j < np; j += NT) pids[j] = trow[j];
@@ -352,107 +356,138 @@ __global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgm
   const int ntiles = has_work ? (kend + kTileKeys - 1) / kTileKeys : 0;
   const int last_page = min((kv_len - 1) / ps, N - 1);
 
-  if (warp >= kProducerWarp) {  // the producer warp (fp8: warpgroup; its first warp loads)
+  if (warp >= kProducerWarp) {  // the producer warp (fp8: warpgroup)
     if (ntiles == 0) return;
-    if constexpr (F8) setmaxnreg_dec<kF8ProducerRegs>();
-    const bool loader = warp == kProducerWarp;
     const PageWalk pw(ps, last_page);
-    // TMA: lane l loads box l of the tile's K and V (kTileKeys / box_rows
-    // boxes of box_rows keys per 64-column atom).
-    const int nbox = box_rows ? (kTileKeys / box_rows) * (F8 ? 1 : CH) : 0;
-    // bf16: into ring stage i % kStages; fp8: into fp8 stage i % kF8Stages.
-    auto tma_tile = [&](int i, auto pow2) {
-      uint64_t* bar = F8 ? &full8[i % kF8Stages] : &full[i % kStages];
-      unsigned char* st = F8 ? base + L::kF8Ring + (i % kF8Stages) * L::kF8StageBytes
-                             : base + L::kQBytes + (i % kStages) * L::kStageBytes;
-      for (int e = lane; e < nbox; e += 32) {
-        if constexpr (F8) {
-          const int j = e * box_rows;
-          const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
-          tma_load_2d(st + j * HD, &tmk, kvh * HD, row, bar);
-          tma_load_2d(st + kTileKeys * HD + j * HD, &tmv, kvh * HD, row, bar);
+    if constexpr (F8) {
+      setmaxnreg_dec<kF8ProducerRegs>();
+      // The producer warpgroup's first warp keeps the fp8 ring full (K
+      // then V of each tile, packed head strips): TMA boxes of box_rows
+      // whole rows, or cp.async. All 128 threads convert each landed tile
+      // into its bf16 stage; once they all have (a named barrier) the tile
+      // is published and its fp8 stage refilled kF8Stages tiles on.
+      constexpr int kF8Stages = L::kF8Stages;
+      constexpr int C16 = HD / 16;  // 16-byte fp8 chunks of a key's K (or V) strip
+      const int ptid = tid - kProducerWarp * 32;
+      const bool loader = warp == kProducerWarp;
+      auto load8 = [&](int i, auto pow2) {
+        const int f = i % kF8Stages;
+        unsigned char* st8 = base + L::kF8Ring + f * L::kF8StageBytes;
+        if (HD == 128 || box_rows) {  // hd 128: every page size allows a box (rows of 128 bytes)
+          if (lane == 0) mbar_arrive_expect_tx(&full8[f], L::kF8StageBytes);
+          __syncwarp();
+          for (int e = lane; e < kTileKeys / box_rows; e += 32) {
+            const int j = e * box_rows;
+            const int row = (int)pw.row<decltype(pow2)::value>(trow, i * kTileKeys + j);
+            tma_load_2d(st8 + j * HD, &tmk, kvh * HD, row, &full8[f]);
+            tma_load_2d(st8 + kTileKeys * HD + j * HD, &tmv, kvh * HD, row, &full8[f]);
+          }
+        } else if constexpr (HD == 64) {
+          // lane l copies 16-byte chunk l % C16 of key rows l / C16, + 32 / C16, ...
+          const int c = lane % C16;
+          for (int j0 = 0; j0 < kTileKeys; j0 += 32 / C16) {
+            const int j = j0 + lane / C16;
+            const size_t off = pw.row<decltype(pow2)::value>(trow, i * kTileKeys + j) * W + kvh * HD + c * 16;
+            cp_async16(st8 + j * HD + c * 16, kc + off);
+            cp_async16(st8 + kTileKeys * HD + j * HD + c * 16, vc + off);
+          }
+          mbar_arrive_cp_async(&full8[f]);
+        }
+      };
+      auto load_tile8 = [&](int i) {
+        if (pw.pow2) {
+          load8(i, Bool<true>());
         } else {
+          load8(i, Bool<false>());
+        }
+      };
+      if (loader)
+        for (int i = 0; i < kF8Stages && i < ntiles; ++i) load_tile8(i);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages, f = i % kF8Stages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        mbar_wait(&full8[f], (i / kF8Stages) & 1);
+        // Chunk e: 16 bytes c of key row j's K and V strips, bf16 chunks 2c
+        // and 2c + 1 of its atom row (at hd 64 a quarter-warp writes two
+        // rows' even, then odd, slots: eight distinct bank groups).
+        const uint32_t s8 = smem_u32(base + L::kF8Ring + f * L::kF8StageBytes);
+        const uint32_t sb = smem_u32(base + L::kQBytes + s * L::kStageBytes);
+        auto convert = [&](uint32_t src, uint32_t dst) {
+          const uint4 x = ld_shared16(src);
+          st_shared16(dst, fp8x8_to_bf16x8(make_uint2(x.x, x.y)));
+          st_shared16(dst ^ 16, fp8x8_to_bf16x8(make_uint2(x.z, x.w)));
+        };
+        for (int e = ptid; e < kTileKeys * C16; e += 128) {
+          const int j = e / C16, c = e % C16;
+          const uint32_t dst = sb + (c >> 2) * (kTileKeys * 128) + j * 128 + ((((2 * c) ^ j) & 7) << 4);
+          convert(s8 + e * 16, dst);
+          convert(s8 + kTileKeys * HD + e * 16, dst + L::kHalf);
+        }
+        fence_proxy_async();  // the converted tile is read by wgmma (the async proxy)
+        named_bar_sync(kBarProducers, 128);  // every producer thread is done with fp8 stage f
+        if (ptid == 0) mbar_arrive(&full[s]);
+        if (loader && i + kF8Stages < ntiles) load_tile8(i + kF8Stages);
+      }
+      if (HD == 64 && loader && !box_rows) cp_async_wait<0>();
+      return;
+    } else {
+      // TMA: lane l loads box l of the tile's K and V (kTileKeys / box_rows
+      // boxes of box_rows keys per 64-column atom) into ring stage i % kStages.
+      const int nbox = box_rows ? (kTileKeys / box_rows) * CH : 0;
+      auto tma_tile = [&](int i, auto pow2) {
+        uint64_t* bar = &full[i % kStages];
+        unsigned char* st = base + L::kQBytes + (i % kStages) * L::kStageBytes;
+        for (int e = lane; e < nbox; e += 32) {
           const int a = e % CH, j = (e / CH) * box_rows;
           const int row = (int)pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j);
           const int dst = 2 * (a * (kTileKeys * 64) + j * 64);
           tma_load_2d(st + dst, &tmk, kvh * HD + a * 64, row, bar);
           tma_load_2d(st + L::kHalf + dst, &tmv, kvh * HD + a * 64, row, bar);
         }
-      }
-    };
-    // cp.async: lane l copies 16-byte chunk c = l % C16 of keys l / C16,
-    // + 32 / C16, ... (bf16: into the swizzled layout; fp8: packed rows).
-    constexpr int kElem = F8 ? 1 : 2;
-    constexpr int C16 = HD * kElem / 16;  // 16-byte chunks per row
-    constexpr int KPI = 32 / C16;  // keys per pass of the warp
-    const int c = lane % C16;
-    const size_t col = (size_t)kvh * HD * kElem + c * 16;  // bytes into a cache row
-    const int dcol = (c >> 3) * (kTileKeys * 64);
-    auto copy_tile = [&](int i, auto pow2) {
-      unsigned char* ks = F8 ? base + L::kF8Ring + (i % kF8Stages) * L::kF8StageBytes
-                             : base + L::kQBytes + (i % kStages) * L::kStageBytes;
-      unsigned char* vs = ks + (F8 ? kTileKeys * HD : L::kHalf);
+      };
+      // cp.async: lane l copies 16-byte chunk c = l % C16 of keys l / C16,
+      // + 32 / C16, ... into the swizzled layout.
+      constexpr int C16 = HD * 2 / 16;  // 16-byte chunks per row
+      constexpr int KPI = 32 / C16;     // keys per pass of the warp
+      const int c = lane % C16;
+      const size_t col = (size_t)kvh * HD * 2 + c * 16;  // bytes into a cache row
+      const int dcol = (c >> 3) * (kTileKeys * 64);
+      auto copy_tile = [&](int i, auto pow2) {
+        unsigned char* ks = base + L::kQBytes + (i % kStages) * L::kStageBytes;
+        unsigned char* vs = ks + L::kHalf;
 #pragma unroll 8
-      for (int j0 = 0; j0 < kTileKeys; j0 += KPI) {
-        const int j = j0 + lane / C16;
-        const size_t off = pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j) * W * kElem + col;
-        const int dst = F8 ? j * HD + c * 16 : 2 * (dcol + j * 64 + swz128(c & 7, j));
-        cp_async16(ks + dst, kc + off);
-        cp_async16(vs + dst, vc + off);
-      }
-    };
-    auto load = [&](int i) {  // tile i's copies, completing its (bf16 or fp8) stage's full barrier
-      uint64_t* bar = F8 ? &full8[i % kF8Stages] : &full[i % kStages];
-      if (box_rows) {
-        if (lane == 0) mbar_arrive_expect_tx(bar, F8 ? L::kF8StageBytes : L::kStageBytes);
-        __syncwarp();
-        if (pw.pow2) {
-          tma_tile(i, Bool<true>());
+        for (int j0 = 0; j0 < kTileKeys; j0 += KPI) {
+          const int j = j0 + lane / C16;
+          const size_t off = pw.row<decltype(pow2)::value>(pids, i * kTileKeys + j) * W * 2 + col;
+          const int dst = 2 * (dcol + j * 64 + swz128(c & 7, j));
+          cp_async16(ks + dst, kc + off);
+          cp_async16(vs + dst, vc + off);
+        }
+      };
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        uint64_t* bar = &full[s];
+        if (box_rows) {
+          if (lane == 0) mbar_arrive_expect_tx(bar, L::kStageBytes);
+          __syncwarp();
+          if (pw.pow2) {
+            tma_tile(i, Bool<true>());
+          } else {
+            tma_tile(i, Bool<false>());
+          }
         } else {
-          tma_tile(i, Bool<false>());
+          if (pw.pow2) {
+            copy_tile(i, Bool<true>());
+          } else {
+            copy_tile(i, Bool<false>());
+          }
+          mbar_arrive_cp_async(bar);
         }
-      } else {
-        if (pw.pow2) {
-          copy_tile(i, Bool<true>());
-        } else {
-          copy_tile(i, Bool<false>());
-        }
-        mbar_arrive_cp_async(bar);
       }
-    };
-    if constexpr (F8) {
-      if (loader)
-        for (int i = 0; i < kF8Stages && i < ntiles; ++i) load(i);
+      cp_async_wait<0>();
+      return;
     }
-    for (int i = 0; i < ntiles; ++i) {
-      const int s = i % kStages;
-      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-      if constexpr (F8) {
-        // Convert the landed fp8 tile into ring stage s (all 128 producer
-        // threads), then refill its fp8 stage.
-        const int f = i % kF8Stages;
-        mbar_wait(&full8[f], (i / kF8Stages) & 1);
-        const unsigned char* k8 = base + L::kF8Ring + f * L::kF8StageBytes;
-        __nv_bfloat16* kd = reinterpret_cast<__nv_bfloat16*>(base + L::kQBytes + s * L::kStageBytes);
-        constexpr int CPR8 = HD / 8;  // 8-element chunks per row
-#pragma unroll 4
-        for (int e = tid - kProducerWarp * 32; e < kTileKeys * CPR8; e += 128) {
-          const int j = e / CPR8, cc = e - j * CPR8;
-          const int dst = (cc >> 3) * (kTileKeys * 64) + j * 64 + swz128(cc & 7, j);
-          *reinterpret_cast<uint4*>(kd + dst) = fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + j * HD + cc * 8));
-          *reinterpret_cast<uint4*>(kd + L::kHalf / 2 + dst) =
-              fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + kTileKeys * HD + j * HD + cc * 8));
-        }
-        fence_proxy_async();  // the converted tile is read by wgmma (the async proxy)
-        mbar_arrive(&full[s]);
-        named_bar_sync(2, 128);  // every producer thread is done reading fp8 stage f
-        if (loader && i + kF8Stages < ntiles) load(i + kF8Stages);
-      } else {
-        load(i);
-      }
-    }
-    cp_async_wait<0>();
-    return;
   }
 
   // ---- consumers: warpgroup wg owns block rows [64 wg, 64 wg + 64) ----
@@ -507,7 +542,7 @@ __global__ void __launch_bounds__(F8 ? kWgThreadsF8 : kWgThreads, 1) prefill_wgm
       if (lane == 0) mbar_arrive(&empty[s]);
       continue;
     }
-    if (F8 || !box_rows) fence_proxy_async();  // cp.async and converted tiles are the generic proxy's
+    if (!F8 && !box_rows) fence_proxy_async();  // cp.async tiles are the generic proxy's (fp8: the producer fenced)
     const uint32_t k_addr = ring + s * L::kStageBytes;
     fence_regs(sc);
     wgmma_fence();

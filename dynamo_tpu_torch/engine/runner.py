@@ -56,6 +56,12 @@ from dynamo_tpu_torch.ops.paged_prefill import prefill_kernel_supported
 from dynamo_tpu_torch.ops.sampling import CANDIDATES, gumbel_noise, sample_tokens, token_logprobs
 
 
+# One CUDA-graph capture at a time in the process (the runners of several
+# workers share it): entering and leaving a capture synchronizes the device,
+# which another thread's capture in flight forbids.
+_CAPTURE_LOCK = threading.Lock()
+
+
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
@@ -495,8 +501,9 @@ class TorchModelRunner:
             self._body(buf, key, self._warm_chain)
         main.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
-        # thread_local: another worker's thread may run its own steps meanwhile.
-        with build.capture_launches() as tally, \
+        # thread_local: another worker's thread may run its own steps
+        # meanwhile, but not a capture of its own (_CAPTURE_LOCK).
+        with _CAPTURE_LOCK, build.capture_launches() as tally, \
                 torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             outputs = self._body(buf, key, self._chain_buf)
         captured = self._graphs[key] = _Graph(graph, outputs, tally)

@@ -51,7 +51,7 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     ),
     "paged_mla": (
         "dyn_paged_mla",
-        [_P] * 9 + [_I] * 13 + [_F, _P],
+        [_P] * 9 + [_I] * 14 + [_F, _P],
     ),
     # The fp8 kernels' on-chip e4m3 -> bf16 conversion alone, for checks.
     "fp8_convert": (

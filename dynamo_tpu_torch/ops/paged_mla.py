@@ -6,7 +6,8 @@ Replaces ``dynamo_tpu/ops/pallas_mla.py:_mla_decode_kernel`` (launched at
 ``csrc/paged_mla.cu``, whose header note gives the bound (the shared latent
 stream's bytes at decode, operations at prefill chunks and mixed steps) and
 what the Hopper design does about it (64-row tiles on wgmma, a TMA ring,
-splits merged inside a thread block cluster).
+splits merged inside a thread block cluster; fp8 key tiles converted in
+place in the bf16 ring, once per share group of two row tiles).
 
 Both versions compute the same function. MLA in the absorbed form is
 multi-query attention: per (sequence, query token, head) the scores are
@@ -59,25 +60,21 @@ def _row_atoms(r_kv: int, dr: int) -> int:
     return r_kv // 64 + -(-dr // 64)
 
 
-def _wg_smem_bytes(r_kv: int, dr: int, keys: int, fp8: bool = False) -> int:
-    """Mirror of ``WgLayout::bytes`` (the wgmma kernel): alignment slack, the
-    Q tile, the ring of ``keys``-key stages, the p tile, the ring's and the
-    Q tile's mbarriers, the row exchange, the rows' positions and the (m, l)
-    partial; for an fp8 cache then the fp8 ring's mbarriers and, 128-byte
-    aligned, the fp8 ring (``r_kv + dr`` bytes a key)."""
+def _wg_smem_bytes(r_kv: int, dr: int, keys: int) -> int:
+    """Mirror of ``WgLayout::bytes`` (the wgmma kernel, bf16 and fp8 caches
+    alike: fp8 tiles land in the bf16 ring and are converted there): alignment slack,
+    the Q tile, the ring of ``keys``-key stages, the p tile, the ring's and
+    the Q tile's mbarriers, the row exchange, the rows' positions and the
+    (m, l) partial."""
     na = _row_atoms(r_kv, dr)
-    end = (na * ROW_TILE * 128 + STAGES * na * keys * 128 + ROW_TILE * 128 + (2 * STAGES + 1) * 8
-           + 4 * 2 * ROW_TILE + 4 * ROW_TILE + 4 * 2 * ROW_TILE)
-    if fp8:
-        end = -(-(end + 8 * STAGES) // 128) * 128 + STAGES * keys * (r_kv + dr)
-    return 1024 + end
+    return (1024 + na * ROW_TILE * 128 + STAGES * na * keys * 128 + ROW_TILE * 128 + (2 * STAGES + 1) * 8
+            + 4 * 2 * ROW_TILE + 4 * ROW_TILE + 4 * 2 * ROW_TILE)
 
 
-def _tile_keys(r_kv: int, dr: int, fp8: bool = False) -> int:
+def _tile_keys(r_kv: int, dr: int) -> int:
     """Keys per ring stage of the wgmma kernel: 64 where they fit the shared
-    memory, else 32 (rows of more than nine atoms; fp8 at a 512-wide
-    latent)."""
-    return 64 if _wg_smem_bytes(r_kv, dr, 64, fp8) <= SMEM_BYTES else 32
+    memory, else 32 (rows of more than nine atoms)."""
+    return 64 if _wg_smem_bytes(r_kv, dr, 64) <= SMEM_BYTES else 32
 
 
 def _smem_bytes(r_kv: int, dr: int, itemsize: int) -> int:
@@ -85,8 +82,7 @@ def _smem_bytes(r_kv: int, dr: int, itemsize: int) -> int:
     fp8) or ``f32_smem_bytes`` (the query tile, a key sub-tile, scores,
     stats and positions)."""
     if itemsize <= 2:
-        fp8 = itemsize == 1
-        return _wg_smem_bytes(r_kv, dr, _tile_keys(r_kv, dr, fp8), fp8)
+        return _wg_smem_bytes(r_kv, dr, _tile_keys(r_kv, dr))
     return (4 * ((F32_ROW_TILE + F32_KEYS) * (r_kv + dr + 4) + F32_ROW_TILE * (F32_KEYS + 1) + 3 * F32_ROW_TILE)
             + 4 * F32_ROW_TILE)
 
@@ -137,6 +133,16 @@ def mla_split_plan(batch: int, t_q: int, pages_per_seq: int, page_size: int, num
             sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
             num_splits = max(1, sms // max(1, batch))
     return split_plan(batch, 1, pages_per_seq, page_size, min(num_splits, MAX_SPLITS), device)
+
+
+def mla_share_plan(t_q: int, n_heads: int, splits: int, cache_dtype: torch.dtype) -> int:
+    """Row tiles of one sequence that fill each key tile once between them
+    (a share group, one thread block cluster; ``csrc/paged_mla.cu``): 2 for
+    an fp8 cache with an unsplit walk over at least 2 row tiles, 1
+    otherwise (groups of 4 and 8 measured slower than none on an H100:
+    PERF.md §6, PR 8). The plan changes no row's arithmetic: every rank
+    walks the same key tiles in the same order."""
+    return 2 if cache_dtype == FP8 and splits == 1 and t_q * n_heads > ROW_TILE else 1
 
 
 def paged_mla_plain(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale: float,
@@ -238,7 +244,8 @@ def paged_mla(q_lat, q_rope, c_cache, r_cache, block_tables, positions, *, scale
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(), r_cache.data_ptr(), block_tables.data_ptr(),
              positions.data_ptr(), *(x.data_ptr() if x is not None else None for x in walk), out.data_ptr(),
              b, t, h, r_kv, dr, r_width, ps, block_tables.shape[1], c_cache.shape[0], splits, bps,
-             build.DTYPE_CODES[c_cache.dtype], build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
+             mla_share_plan(t, h, splits, c_cache.dtype), build.DTYPE_CODES[c_cache.dtype],
+             build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
     build.check_launch("paged_mla", err)
     build.count_launch(globals(), "launches_fp8" if c_cache.dtype == FP8 else "launches")
     return out

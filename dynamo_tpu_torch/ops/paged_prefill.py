@@ -37,39 +37,38 @@ launches_fp8 = 0
 
 
 def _stages(head_dim: int) -> int:
-    """The bf16 kernel's K/V ring depth (``WgSmem::kStages``)."""
+    """The tensor-core kernel's bf16 K/V ring depth (``WgSmem::kStages``)."""
     return 4 if head_dim == 64 else 2
 
 
 def _fp8_stages(head_dim: int) -> int:
     """The fp8 form's fp8 ring depth (``WgSmem::kF8Stages``)."""
-    return 2 if head_dim == 64 else 1
+    return 4 if head_dim == 64 else 2
 
 
-def _smem_bytes(head_dim: int, table_width: int, itemsize: int = 2) -> int:
+def _smem_bytes(head_dim: int, table_width: int, fp8: bool = False) -> int:
     """Mirror of ``WgSmem::bytes`` (the tensor-core kernel) in the kernel
     source: alignment slack, the 128-row query tile, the ring of K/V tiles
     of TILE_KEYS keys (128 bytes per key and 64 columns, each), for an fp8
-    cache (``itemsize`` 1) the fp8 ring of K/V tiles (head_dim bytes a key),
-    the mbarriers and position scan, and one staged page id per table
-    entry."""
+    cache the fp8 ring of K/V tiles (head_dim bytes a key), the mbarriers
+    and position scan, and (bf16) one staged page id per table entry (the
+    fp8 form reads them from the table)."""
     atoms, stages = head_dim // 64, _stages(head_dim)
-    f8 = _fp8_stages(head_dim) if itemsize == 1 else 0
+    f8 = _fp8_stages(head_dim) if fp8 else 0
     return (1024 + atoms * BLOCK_ROWS_BF16 * 128 + stages * 2 * atoms * TILE_KEYS * 128
-            + f8 * 2 * TILE_KEYS * head_dim + 8 * (2 * stages + f8) + 16 + 4 * table_width)
+            + f8 * 2 * TILE_KEYS * head_dim + 8 * (2 * stages + f8) + 16 + (0 if fp8 else 4 * table_width))
 
 
 def prefill_kernel_supported(n_heads: int, head_dim: int, width: int, *, q_dtype: torch.dtype,
                              cache_dtype: torch.dtype, table_width: int = 0) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups of at
     most BLOCK_ROWS heads, bf16 or f32 queries, bf16, f32 or fp8 caches,
-    and (bf16, fp8) a block table of ``table_width`` pages whose ids fit in
+    and (bf16) a block table of ``table_width`` pages whose ids fit in
     shared memory. The chunk width is unbounded (the grid tiles it)."""
     if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in CACHE_DTYPES:
         return False
     n_kv = width // head_dim
-    itemsize = cache_dtype.itemsize
-    if itemsize <= 2 and _smem_bytes(head_dim, table_width, itemsize) > SMEM_BYTES:
+    if cache_dtype.itemsize <= 2 and _smem_bytes(head_dim, table_width, cache_dtype == FP8) > SMEM_BYTES:
         return False
     return n_heads % n_kv == 0 and n_heads // n_kv <= BLOCK_ROWS
 
@@ -121,8 +120,7 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, positions, *, sca
     fn = build.load("paged_prefill")
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
              positions.data_ptr(), out.data_ptr(), b, t, h, w // hd, hd, ps, block_tables.shape[1],
-             k_cache.shape[0],
-             build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
+             k_cache.shape[0], build.DTYPE_CODES[k_cache.dtype], build.DTYPE_CODES[q.dtype], float(scale),
              build.stream_of(q))
     build.check_launch("paged_prefill", err)
     build.count_launch(globals(), "launches_fp8" if k_cache.dtype == FP8 else "launches")

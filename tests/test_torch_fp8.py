@@ -156,12 +156,36 @@ def test_bridge_carries_fp8_bytes():
     np.testing.assert_array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
 
 
+def _earlier_fp8_smem_bytes(kernel: str, *dims) -> int:
+    """The fp8 forms' earlier shared-memory layouts (a shallower fp8 ring
+    beside the bf16 one; MLA at 32-key stages where its 64-key rings did not
+    fit): every geometry those layouts took must stay taken."""
+    if kernel == "prefill":
+        hd, table_width = dims
+        f8 = 2 if hd == 64 else 1
+        return paged_prefill._smem_bytes(hd, table_width) + f8 * (2 * 128 * hd + 8)
+    r_kv, dr = dims
+    na = r_kv // 64 + -(-dr // 64)
+
+    def end(keys):
+        head = na * 64 * 128 + 2 * na * keys * 128 + 64 * 128 + 5 * 8 + 4 * 2 * 64 + 4 * 64 + 4 * 2 * 64
+        return 1024 + -(-(head + 16) // 128) * 128 + 2 * keys * (r_kv + dr)
+
+    return end(64) if end(64) <= paged_mla.SMEM_BYTES else end(32)
+
+
 def test_predicates_take_fp8_and_mirror_the_layouts():
     """Each predicate takes fp8 caches with bf16 or f32 queries, and its
     shared-memory mirror gives the fp8 form's layout: decode, a ring twice
     as deep at 1 byte an element plus one converted bf16 stage; prefill, an
-    fp8 ring of 2 (hd 64) or 1 (hd 128) stages beside the bf16 one; MLA,
-    32-key stages at a 512-wide latent (64 at 128)."""
+    fp8 ring of 4 (hd 64) or 2 (hd 128) stages beside the bf16 one, its page
+    ids read from the table (any table width); MLA, the bf16 form's layout,
+    its fp8 tiles converted in place in the bf16 ring, so it streams 64-key
+    stages at mla-8b-proxy's 512-wide latent. Every geometry the earlier
+    fp8 layouts took stays taken: head_dim 64 and 128 over any table, ropes
+    of 32, 80, 128 and 512 lanes over latents of 128 and 512, pages of 2 to
+    256 (the GQA predicates take any page size: 4, 8, 12, 16 and 24
+    included)."""
     for q_dtype in (torch.bfloat16, torch.float32):
         kw = dict(q_dtype=q_dtype, cache_dtype=FP8)
         assert paged_decode.decode_kernel_supported(32, 64, 512, 1, **kw)
@@ -169,19 +193,58 @@ def test_predicates_take_fp8_and_mirror_the_layouts():
         assert paged_prefill.prefill_kernel_supported(32, 64, 512, table_width=256, **kw)
         assert paged_mla.paged_mla_supported(32, 512, 128, 64, 16, **kw)
         assert not paged_decode.decode_kernel_supported(32, 64, 512, 1, q_dtype=FP8, cache_dtype=FP8)
+        for hd in (64, 128):
+            for table_width in (0, 128, 1024, 8192):
+                if _earlier_fp8_smem_bytes("prefill", hd, table_width) <= paged_prefill.SMEM_BYTES:
+                    assert paged_prefill.prefill_kernel_supported(32, hd, 8 * hd, table_width=table_width, **kw)
+            edge = (paged_prefill.SMEM_BYTES - _earlier_fp8_smem_bytes("prefill", hd, 0)) // 4
+            assert paged_prefill.prefill_kernel_supported(32, hd, 8 * hd, table_width=edge, **kw)
+        taken = 0
+        for r_kv in (128, 512):
+            for dr in (32, 64, 80, 128, 512):
+                for r_width in (dr, 128, 512):
+                    for ps in (2, 4, 8, 16, 32, 256):
+                        if dr <= r_width and _earlier_fp8_smem_bytes("mla", r_kv, dr) <= paged_mla.SMEM_BYTES:
+                            taken += 1
+                            assert paged_mla.paged_mla_supported(32, r_kv, r_width, dr, ps, **kw), (r_kv, dr, ps)
+        assert taken > 60
     assert paged_decode._smem_bytes(1, 8, 64, 1) == (1024 + 8 * 2 * 64 * 64 + 2 * 2 * 64 * 64 + 2 * 16 * 72
                                                      + 8 * 8 * 4 + 4 * 16)
-    assert paged_prefill._smem_bytes(64, 0, 1) == (1024 + 16384 + 4 * 32768 + 2 * 2 * 128 * 64
-                                                   + 8 * (8 + 2) + 16)
-    assert paged_prefill._smem_bytes(128, 0, 1) == (1024 + 32768 + 2 * 65536 + 2 * 128 * 128 + 8 * (4 + 1) + 16)
-    huge = (paged_prefill.SMEM_BYTES - paged_prefill._smem_bytes(64, 0, 1)) // 4
-    assert paged_prefill.prefill_kernel_supported(32, 64, 512, table_width=huge, q_dtype=torch.bfloat16,
+    # prefill: the page ids come from the table, their room goes to a deeper fp8 ring.
+    assert paged_prefill._fp8_stages(64) == 4 and paged_prefill._fp8_stages(128) == 2
+    assert paged_prefill._smem_bytes(64, 0, fp8=True) == 1024 + 16384 + 4 * 32768 + 4 * 2 * 128 * 64 + 8 * 12 + 16
+    assert paged_prefill._smem_bytes(128, 1 << 20, fp8=True) == (1024 + 32768 + 2 * 65536 + 2 * 2 * 128 * 128
+                                                                 + 8 * 6 + 16) <= 232448
+    assert paged_prefill.prefill_kernel_supported(32, 128, 1024, table_width=1 << 20, q_dtype=torch.bfloat16,
                                                   cache_dtype=FP8)
-    assert not paged_prefill.prefill_kernel_supported(32, 64, 512, table_width=huge + 1, q_dtype=torch.bfloat16,
-                                                      cache_dtype=FP8)
-    assert paged_mla._tile_keys(512, 64, fp8=True) == 32 and paged_mla._tile_keys(512, 64) == 64
-    assert paged_mla._tile_keys(128, 64, fp8=True) == 64
-    assert paged_mla._smem_bytes(512, 64, 1) == 1024 + 157056 + 2 * 32 * 576 <= paged_mla.SMEM_BYTES
+    # mla-8b-proxy: 64-key stages on fp8 as on bf16, the budget to within a kilobyte.
+    assert paged_mla._tile_keys(512, 64) == 64 and paged_mla._tile_keys(128, 64) == 64
+    assert paged_mla._smem_bytes(512, 64, 1) == 1024 + 73728 + 147456 + 8192 + 40 + 512 + 256 + 512 <= 232448
+
+
+@pytest.mark.parametrize("cache", ["fp8", "bf16"])
+def test_share_plans_pick_the_cluster_sizes(cache):
+    """The share group ``paged_mla`` launches (``mla_share_plan``): 2 row
+    tiles for an fp8 cache with an unsplit walk over at least 2 row tiles,
+    else 1 (and always 1 on a bf16 cache). At mla-8b-proxy (32 heads):
+    decode (split 8 ways, or one 64-row tile) 1; a 512-token chunk or the
+    serve's mixed step (256 row tiles) 2, split 1; verify rows of 4 and 8
+    tokens unsplit 2; at 4 heads 16 tokens (one tile) 1, 17 and 20 tokens
+    (two tiles) 2. The kernel takes groups of 1 and 2 only."""
+    dtype = FP8 if cache == "fp8" else torch.bfloat16
+    two = 2 if cache == "fp8" else 1
+    assert paged_mla.mla_share_plan(1, 32, 8, dtype) == 1
+    assert paged_mla.mla_share_plan(1, 32, 1, dtype) == 1
+    assert paged_mla.mla_share_plan(2, 32, 1, dtype) == 1
+    assert paged_mla.mla_share_plan(512, 32, 1, dtype) == two
+    assert paged_mla.mla_share_plan(512, 32, 2, dtype) == 1
+    assert paged_mla.mla_share_plan(4, 32, 1, dtype) == two
+    assert paged_mla.mla_share_plan(8, 32, 1, dtype) == two
+    assert paged_mla.mla_share_plan(16, 4, 1, dtype) == 1
+    assert paged_mla.mla_share_plan(17, 4, 1, dtype) == two
+    assert paged_mla.mla_share_plan(20, 4, 1, dtype) == two
+    assert {paged_mla.mla_share_plan(t, h, s, dtype) for t in (1, 3, 64, 512, 4096) for h in (1, 16, 128)
+            for s in (1, 4)} == {1, two}
 
 
 # -- the plain versions on fp8 caches against the Pallas kernels ------------------

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Two builds of the attention kernels on the same inputs, on one card.
+
+    python3 tools/kernel_ab.py --other DIR
+
+``DIR`` is another checkout of this repository (for example the parent
+commit, unpacked with ``git archive``). Its ``paged_prefill`` and
+``paged_mla`` libraries are built from its own sources with its own flags
+(its ``ops/build.py``) and called through their C entry points; this
+checkout's through its wrappers. At each timing shape of ``chip_smoke.py``
+(llama-3.2-1b's and llama-3-8b's prefill chunk, the serve's mixed step;
+mla-8b-proxy's decode, prefill chunk and mixed step), on bf16 and on fp8
+caches, both see the same inputs: the lines say whether the outputs are
+bitwise equal over the real rows (else their largest difference) and each
+version's device ms (CUDA-graph replay, ``chip_smoke.time_ms``), timed in
+turns: other, this, this, other. Prints one JSON line per shape, then the
+card's name and power limit. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402  (the shapes and the timer live there)
+from dynamo_tpu_torch.ops import build  # noqa: E402
+from dynamo_tpu_torch.ops import paged_mla as pm  # noqa: E402
+from dynamo_tpu_torch.ops import paged_prefill as pp  # noqa: E402
+
+FP8 = cs.FP8
+
+
+def other_entry_points(root: str) -> dict:
+    """The other checkout's C entry points, built by its own build module:
+    {"paged_prefill": (fn,), "paged_mla": (fn, takes_share)}, takes_share
+    saying whether its MLA entry point has this tree's share-group argument
+    (a tree without it has one int fewer). The other tree's MLA runs with
+    no share group (1)."""
+    spec = importlib.util.spec_from_file_location("other_build", os.path.join(root, "dynamo_tpu_torch/ops/build.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build(("paged_prefill", "paged_mla"))
+    takes_share = len(other.SIGNATURES["paged_mla"][1]) == len(build.SIGNATURES["paged_mla"][1])
+    return {"paged_prefill": (other.load("paged_prefill"),), "paged_mla": (other.load("paged_mla"), takes_share)}
+
+
+def other_prefill(fn, q, kc, vc, tb, pos, scale):
+    b, t, h, hd = q.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tb.data_ptr(), pos.data_ptr(), out.data_ptr(), b, t, h,
+             kc.shape[2] // hd, hd, kc.shape[1], tb.shape[1], kc.shape[0], build.DTYPE_CODES[kc.dtype],
+             build.DTYPE_CODES[q.dtype], float(scale), build.stream_of(q))
+    build.check_launch("other paged_prefill", err)
+    return out
+
+
+def other_mla(fn, takes_share, q_lat, q_rope, c, r, tb, pos, scale, walk):
+    b, t, h, r_kv = q_lat.shape
+    splits, bps = pm.mla_split_plan(b, t, tb.shape[1], c.shape[1], 0, q_lat.device)
+    walk = (None, None) if t == 1 else walk
+    out = torch.empty((b, t, h, r_kv), dtype=torch.float32, device=q_lat.device)
+    share = [1] if takes_share else []
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(), r.data_ptr(), tb.data_ptr(), pos.data_ptr(),
+             *(x.data_ptr() if x is not None else None for x in walk), out.data_ptr(), b, t, h, r_kv,
+             q_rope.shape[-1], r.shape[2], c.shape[1], tb.shape[1], c.shape[0], splits, bps, *share,
+             build.DTYPE_CODES[c.dtype], build.DTYPE_CODES[q_lat.dtype], float(scale), build.stream_of(q_lat))
+    build.check_launch("other paged_mla", err)
+    return out
+
+
+def compare(kernel: str, shape: str, cache, this, other, rows, iters: int) -> dict:
+    a, b = this(), other()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a[i, :n], b[i, :n]) for i, n in rows)
+    diff = max(float((a[i, :n].float() - b[i, :n].float()).abs().max()) for i, n in rows)
+    o1 = cs.time_ms(other, iters=iters)
+    t1 = cs.time_ms(this, iters=iters)
+    t2 = cs.time_ms(this, iters=iters)
+    o2 = cs.time_ms(other, iters=iters)
+    rec = {"kernel": kernel, "shape": shape, "cache": str(cache).removeprefix("torch."), "bitwise_equal": equal,
+           "max_abs_diff": diff, "other_ms": [o1, o2], "this_ms": [t1, t2],
+           "this_over_other": (t1 + t2) / (o1 + o2)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main(root: str) -> int:
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    other = other_entry_points(root)
+    build.build(("paged_prefill", "paged_mla"))
+    rng = torch.Generator(device=dev).manual_seed(30)
+    records = []
+    for cache in (torch.bfloat16, FP8):
+        for hd, name, spans in ((64, "chunk", [(1024, 512)]), (64, "mixed step", cs.MIXED_SPANS),
+                                (128, "chunk", [(1024, 512)])):
+            q, kc, vc, tb, _, _ = cs._case(rng, dev, b=len(spans), t=512, h=32, n_kv=8, hd=hd, ps=16, npp=128,
+                                           dtype=cache, lengths=[s + n for s, n in spans], contiguous=True,
+                                           q_dtype=torch.bfloat16)
+            pos = torch.from_numpy(cs._spans(spans, 512)).to(dev)
+            tb0 = tb[0].contiguous()
+            records.append(compare(
+                "paged_prefill", f"hd {hd} {name} {spans}", cache,
+                lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=hd**-0.5),
+                lambda: other_prefill(*other["paged_prefill"], q, kc, vc, tb0, pos, hd**-0.5),
+                [(i, n) for i, (_, n) in enumerate(spans)], 20))
+        h, r_kv, dr, r_width, dn = cs.MLA_GEOMS[cs.MLA_MODEL]
+        scale = (dn + dr) ** -0.5
+        for name, spans, t in (("decode 8 x 2048", [(2047, 1)] * 8, 1), ("chunk", [(1024, 512)], 512),
+                               ("mixed step", cs.MIXED_SPANS, 512)):
+            case = cs._mla_case(rng, dev, cs._spans(spans, t), h=h, r_kv=r_kv, dr=dr, r_width=r_width, ps=16,
+                                npp=128, dtype=cache, q_dtype=torch.bfloat16)
+            q_lat, q_rope, c, r, tb, posd = case
+            tb0 = tb[0].contiguous()
+            walk = pm.walk_facts(posd)
+            records.append(compare(
+                "paged_mla", f"{name} {spans[:3]}", cache,
+                lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk),
+                lambda: other_mla(*other["paged_mla"], q_lat, q_rope, c, r, tb0, posd, scale, walk),
+                [(i, n) for i, (_, n) in enumerate(spans)], 50 if t == 1 else 20))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    bf16 = [r for r in records if r["cache"] == "bfloat16"]
+    print(json.dumps({"bf16_bitwise_equal": all(r["bitwise_equal"] for r in bf16), "records": len(records)}))
+    return 0
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    sys.exit(main(ap.parse_args().other))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes in the PyTorch/CUDA port, on one card.
 
-    python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy] [--no-graphs] [--no-overlap]
+    python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy] [--kv-cache-dtype fp8]
+                                         [--no-graphs] [--no-overlap]
 
 Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
 script so the two stay the same (llama-3.2-1b by default, or mla-8b-proxy;
@@ -10,13 +11,14 @@ tokens each), after the same warm-up request and untimed pass of other
 prompts (so CUDA graphs are captured before the window), under
 ``torch.profiler`` (CPU + CUDA activities). By default the main path: CUDA
 graphs behind the overlapped engine; ``--no-graphs`` runs the eager runner,
-``--no-overlap`` the synchronous engine.
+``--no-overlap`` the synchronous engine; ``--kv-cache-dtype fp8`` serves
+on fp8 e4m3 KV caches (the kernels' fp8 forms), bf16 by default.
 Prints one JSON line: wall time, engine steps, device busy share (union of
 CUDA kernel intervals over the profiled wall), CUDA kernels per step (a
 graph replay's kernels included), the host's launch calls per step (the
 calls that put a kernel or a graph on a stream, by name), and the
 device time by kernel family. Writes the Chrome trace to
-``DIR/serve_trace_<model>.json`` (tens of MB). The profiler adds host overhead of
+``DIR/serve_trace_<model>_<kv cache dtype>.json`` (tens of MB). The profiler adds host overhead of
 its own, so the wall time here is not a throughput number;
 ``chip_smoke.py`` measures that without the profiler.
 """
@@ -57,8 +59,9 @@ def family(name: str) -> str:
     return "other"
 
 
-async def main(out_dir: str, model: str, graphs: bool, overlap: bool) -> dict:
-    service, pipeline = await chip_smoke.build_serving(model, graphs=graphs, overlap=overlap)
+async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_dtype: str = "bf16") -> dict:
+    cache_dtype = chip_smoke.FP8 if kv_cache_dtype == "fp8" else None
+    service, pipeline = await chip_smoke.build_serving(model, cache_dtype, graphs=graphs, overlap=overlap)
     bodies = chip_smoke.serve_bodies(np.random.default_rng(3), model)
     steps = {"n": 0}
     step = service.core.step
@@ -85,7 +88,7 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool) -> dict:
     finally:
         await service.close()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}_{kv_cache_dtype}.json"))
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     launch_calls: dict[str, int] = {}
@@ -109,7 +112,8 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool) -> dict:
         by_family[fam] = by_family.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     n_steps = max(1, steps["n"])
     return {
-        "model": model, "device": torch.cuda.get_device_name(0), "graphs": graphs, "overlap": overlap,
+        "model": model, "kv_cache_dtype": kv_cache_dtype, "device": torch.cuda.get_device_name(0), "graphs": graphs,
+        "overlap": overlap,
         "profiled_wall_s": wall, "engine_steps": steps["n"], "overlap_steps": overlap_steps,
         "graph_keys": graph_stats["keys"], "cuda_kernels": len(kernels),
         "kernels_per_step": len(kernels) / n_steps,
@@ -125,6 +129,8 @@ if __name__ == "__main__":
     ap.add_argument("--out", required=True, help="directory for the Chrome trace")
     ap.add_argument("--model", default=chip_smoke.MODEL, choices=sorted(chip_smoke.SERVE_KERNELS),
                     help="the served preset (default %(default)s)")
+    ap.add_argument("--kv-cache-dtype", default="bf16", choices=("bf16", "fp8"),
+                    help="the KV caches' dtype (default %(default)s)")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction, default=True,
                     help="replay each step as a CUDA graph (default on)")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
@@ -133,4 +139,5 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    print(json.dumps(asyncio.run(main(args.out, args.model, args.graphs, args.overlap))), flush=True)
+    print(json.dumps(asyncio.run(main(args.out, args.model, args.graphs, args.overlap, args.kv_cache_dtype))),
+          flush=True)
