@@ -728,14 +728,17 @@ def _gqa_timings(dev, rng, h: int, n_kv: int, hd: int, cache: torch.dtype = torc
               + 2 * b * h * hd * 2  # q in, out
               + b * npp * 4 + b * 4)  # tables, positions
     flops = 4 * b * h * ctx * hd
+    ms = time_ms(kern, iters=50)
     out["paged_decode"] = dict(
-        ms=time_ms(kern, iters=50), plain_ms=time_ms(plain, iters=5),
+        ms=ms, plain_ms=time_ms(plain, iters=5),
         library_ms=time_ms(lib, iters=50) if lib else None,
         host_us_per_call=host_us(kern),
         bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        achieved_gb_per_s=nbytes / ms * 1e-6,  # the bound's bytes over the measured time
         shape=f"B={b} ctx={ctx} {geom}", max_abs_err=err,
-        splits=pd.decode_split_plan(b, n_kv, npp, ps, 0, q.device), device_us_by_kernel=device_us_by_kernel(kern),
+        splits=pd.decode_split_plan(b, n_kv, npp, ps, 0, q.device),
+        device_us_by_kernel=device_us_by_kernel(kern),
     )
     del q, kc, vc, lib
 
@@ -920,8 +923,9 @@ def fp8_kernel_checks(dev) -> dict:
     versions: the GQA geometries of ``kernel_checks`` with bf16 queries on
     pages of 16 (decode: TMA), 12 (TMA boxes of 4 rows, lookups by division)
     and 5 (cp.async), llama-3.2-1b's also on pages of 8 and 4, f32 queries
-    on pages of 16; decode at gappy T_q 1, 4 and 8, splits 1 and auto, with
-    the bitwise T_q=1 / verify-column check; prefill chunks after a cached
+    on pages of 16; decode at gappy T_q 1, 4 and 8 (and 32, MAX_VERIFY_T:
+    8 row tiles, at 32/8 heads on pages of 16, hd 64 and 128), splits 1 and
+    auto, with the bitwise T_q=1 / verify-column check; prefill chunks after a cached
     prefix beside 1-token rows; the serve's mixed step. Outputs are held at
     the bf16 tolerance (queries and p are staged in bf16)."""
     from dynamo_tpu_torch.ops import paged_decode as pd
@@ -938,7 +942,7 @@ def fp8_kernel_checks(dev) -> dict:
         lengths = [1, 37, 300, 1000]
         npp = -(-1000 // ps) + 2
         tag = f"heads {h}/{n_kv} hd{hd} ps{ps} q {q_dtype}"
-        for t in (1, 4, 8):
+        for t in (1, 4, 8) + ((pd.MAX_VERIFY_T,) if (h, n_kv, ps) == (32, 8, 16) else ()):
             q, kc, vc, tb, pos, _ = _case(rng, dev, b=4, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp, dtype=FP8,
                                           lengths=lengths, contiguous=False, q_dtype=q_dtype)
             for ns in (1, 0):

@@ -51,15 +51,29 @@
 // start-up and the merge; of the knobs tried, only the split count
 // (ops/paged_decode.py decode_split_plan) moved it.
 // fp8 e4m3 caches (pallas_paged.py:368, the cache read at 1 byte an element,
-// the matmuls in bf16): the same kernel, decode_mma_kernel<F8 = true>. Each
-// warp's ring holds its fp8 slices (TMA boxes of whole head-strip rows,
-// unswizzled, or cp.async), twice as deep (kStagesF8) for the same bytes in
-// flight. Once a slice lands, the warp converts it (fp8x8_to_bf16x8, exact)
-// into its own bf16 slice in the swizzled layout the ldmatrix reads expect,
-// and the bf16 path runs on that unchanged: the queries and p stay bf16, as
-// the TPU kernel keeps them (pallas_paged.py:485-487, :388). The stream is
-// half the bf16 one's bytes; the conversion is the warp's own work, inside
-// the walk.
+// the matmuls in bf16): decode_mma_kernel<F8 = true>, the same row tiles,
+// 16-key warp slices and products, with every e4m3 -> bf16 conversion
+// (fp8x8_to_bf16x8, exact) taken off the warp's serial chain. The queries
+// and p stay bf16, as the TPU kernel keeps them (pallas_paged.py:485-487,
+// :388).
+// - K: no bf16 copy. The score product's B fragments come straight from
+//   the landed fp8 rows, converted in registers: lane (g, t4) reads the 16
+//   bytes at dims 16*t4 (+64) of key g's row and feeds four k-steps with
+//   them, so the head dimension is summed in a fixed permuted order that
+//   the query fragments read with (qa below; the same for every row and
+//   every T_q). At hd 128 lanes of odd g read their two 64-byte halves in
+//   the other order, so each quarter-warp reads 128 distinct banks.
+// - V: ldmatrix.trans does V's transpose, which fp8 bytes cannot do, so
+//   each warp converts its V slice one tile ahead into one of two bf16
+//   slices of its own, between the score product and the softmax, and the
+//   p.V product reads the slice converted the tile before.
+// - More warps on an SM: a block runs kGroupsF8 groups of 4 warps, group k
+//   walking tiles k, k + kGroupsF8, ... of the split (each warp its own
+//   ring slot and mbarrier per stage, as in the bf16 form), and merges the
+//   groups' warps in shared memory in a fixed order, over its own ring
+//   depth (kStagesF8 at hd 64, 3 at hd 128). The split plan stays the bf16 form's, one block a
+//   row tile per SM: more splits (more blocks and clusters) measured slower
+//   (PERF.md §6).
 // f32 caches, which exist to check the algorithm without bf16 rounding, run
 // a scalar-FMA kernel (decode_partials) whose rows all share one block.
 
@@ -257,33 +271,39 @@ __global__ void __launch_bounds__(kThreads) decode_partials(
 // bf16 caches on the tensor cores, see the note at the top.
 
 constexpr int kStages = 4;     // ring depth (ops/paged_decode.py STAGES)
-constexpr int kStagesF8 = 8;   // fp8 ring depth (ops/paged_decode.py STAGES_FP8): the bf16 ring's bytes
+constexpr int kStagesF8 = 4;   // fp8 ring depth at hd 64 (ops/paged_decode.py _fp8_stages)
+constexpr int kGroupsF8 = 2;   // fp8: warp groups a block (ops/paged_decode.py GROUPS_FP8)
 constexpr int kRowTile = 16;   // query rows per block (ops/paged_decode.py ROW_TILE)
-constexpr int kWarpKeys = kBlockTokens / kWarps;  // 16 keys of each tile per warp
+constexpr int kWarpKeys = kBlockTokens / kWarps;  // 16 keys of each tile per warp of a group
 static_assert(kWarpKeys == 16, "a warp's slice is one 16-deep k-step of p.V");
 
-// Shared memory, from a 1024-aligned base: the ring (NS x [K | V] x
-// [warp][HD/64 atoms][16 keys][64], 128-byte swizzled as TMA writes it; fp8:
-// NS x [K | V] x [warp][16 keys][HD] bytes, then one bf16 stage the warps
-// convert their slices into), the 16 staged query rows (padded), one
-// mbarrier per (stage, warp), the rows' positions, then the page ids of the
-// split's walk. The ring is reused for the warps' final states.
-// ops/paged_decode.py _smem_bytes mirrors bytes().
+// Shared memory, from a 1024-aligned base: the ring (NS x WG groups x [K |
+// V] x [warp][HD/64 atoms][16 keys][64], 128-byte swizzled as TMA writes it;
+// fp8: NS x WG x [K | V] x [warp][16 keys][HD] bytes, then each warp's two
+// bf16 V slices, [NW][2][HD/64 atoms][16 keys][64] swizzled), the 16
+// staged query rows (padded), one mbarrier per (stage, warp), the rows'
+// positions, then the page ids of the split's walk. The ring is reused for
+// the warps' final states. ops/paged_decode.py _smem_bytes mirrors bytes().
 template <int HD, bool F8>
 struct MmaSmem {
-  static constexpr int NS = F8 ? kStagesF8 : kStages;
+  // fp8 at hd 128: 3 stages, the bytes of the earlier 8-deep layout (one
+  // group, one converted stage), so the page ids of every table width it
+  // took still fit.
+  static constexpr int NS = F8 ? (HD == 64 ? kStagesF8 : 3) : kStages;
+  static constexpr int WG = F8 ? kGroupsF8 : 1;  // warp groups: group k walks tiles k, k + WG, ...
+  static constexpr int NW = kWarps * WG;          // warps of the block
   static constexpr int kElem = F8 ? 1 : 2;                     // bytes of a cache element
-  static constexpr int kStageElems = 2 * kBlockTokens * HD;
+  static constexpr int kStageElems = 2 * kBlockTokens * HD;    // one group's K and V of a tile
   static constexpr int kSliceBytes = 2 * kWarpKeys * HD * kElem;  // one warp's K and V of a tile
   static constexpr int kQStride = HD + 8;
-  static constexpr size_t kRingBytes = (size_t)kElem * NS * kStageElems;
-  static constexpr size_t kConvBytes = F8 ? sizeof(__nv_bfloat16) * kStageElems : 0;
+  static constexpr size_t kRingBytes = (size_t)kElem * NS * WG * kStageElems;
+  static constexpr size_t kVBytes = F8 ? sizeof(__nv_bfloat16) * NW * 2 * kWarpKeys * HD : 0;
   static constexpr size_t kQBytes = sizeof(__nv_bfloat16) * kRowTile * kQStride;
-  static constexpr size_t kBarBytes = sizeof(uint64_t) * NS * kWarps;
+  static constexpr size_t kBarBytes = sizeof(uint64_t) * NS * NW;
   static size_t bytes(int npages) {
-    return 1024 + kRingBytes + kConvBytes + kQBytes + kBarBytes + sizeof(int) * (size_t)(kRowTile + npages);
+    return 1024 + kRingBytes + kVBytes + kQBytes + kBarBytes + sizeof(int) * (size_t)(kRowTile + npages);
   }
-  static_assert(sizeof(float) * (kWarps + 1) * kRowTile * (HD + 2) <= kRingBytes, "the merges reuse the ring");
+  static_assert(sizeof(float) * (NW + 1) * kRowTile * (HD + 2) <= kRingBytes, "the merges reuse the ring");
 };
 
 // Element offset of 16-byte chunk c of key j inside a warp's [atoms][16][64] slice.
@@ -293,28 +313,30 @@ __device__ __forceinline__ int slice_off(int c, int j) { return (c >> 3) * (kWar
 __host__ __device__ inline int split_pages(int bps, int ps) { return (bps * kBlockTokens + ps - 1) / ps + 1; }
 
 template <typename QT, int HD, bool F8>
-__global__ void __launch_bounds__(kThreads) decode_mma_kernel(
+__global__ void __launch_bounds__(32 * MmaSmem<HD, F8>::NW) decode_mma_kernel(
     const QT* __restrict__ q, const unsigned char* __restrict__ kc, const unsigned char* __restrict__ vc,
     const int* __restrict__ tables, const int* __restrict__ positions, QT* __restrict__ out,
     int T, int H, int n_kv, int ps, int N, int S, int bps, int RT, float scale,
     const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv, int box_rows) {
   using L = MmaSmem<HD, F8>;
-  constexpr int NS = L::NS;
+  constexpr int NS = L::NS, WG = L::WG, NW = L::NW, NTH = 32 * NW;
   constexpr int CPR = HD / 8;  // 8-element chunks per row
   constexpr int KSTEPS = HD / 16;
   constexpr int NT = HD / 8;  // n8 tiles of the output
   const int G = H / n_kv, R = T * G, W = n_kv * HD;
   const int sp = blockIdx.x, kvh = blockIdx.y / RT, rt = blockIdx.y - kvh * RT, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // This warp's 16 keys of each of its group's tiles (one group: constants).
+  const int slice = WG == 1 ? warp : warp % kWarps, grp = WG == 1 ? 0 : warp / kWarps;
   const int g = lane >> 2, t4 = lane & 3;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base;  // L::kElem bytes an element
-  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes);  // fp8: the converted slices
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes + L::kConvBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kRingBytes + L::kConvBytes + L::kQBytes);  // [stage][warp]
-  int* qpos = reinterpret_cast<int*>(full + NS * kWarps);
+  __nv_bfloat16* vconv = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes);  // fp8: the V slices
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + L::kRingBytes + L::kVBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kRingBytes + L::kVBytes + L::kQBytes);  // [stage][warp]
+  int* qpos = reinterpret_cast<int*>(full + NS * NW);
   int* pids = qpos + kRowTile;
   if (tid == 32 && box_rows) {
     tma_prefetch_map(&tmk);
@@ -323,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   if (tid == 0) {
     // TMA: the warp's one expect_tx arrival; cp.async: its 32 lanes, each
     // once its copies land.
-    for (int i = 0; i < NS * kWarps; ++i) mbar_init(&full[i], box_rows ? 1 : 32);
+    for (int i = 0; i < NS * NW; ++i) mbar_init(&full[i], box_rows ? 1 : 32);
     mbar_init_fence();
   }
 
@@ -334,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   const int p0 = min(first * kBlockTokens / ps, N - 1);
   const int np = min(split_pages(bps, ps), N - p0);
   const int* trow = tables + (size_t)b * N;
-  for (int j = tid; j < np; j += kThreads) pids[j] = trow[p0 + j];
+  for (int j = tid; j < np; j += NTH) pids[j] = trow[p0 + j];
   // Walk length: the row's farthest query token (max, not last: padding
   // columns carry position 0).
   const int* prow = positions + (size_t)b * T;
@@ -343,10 +365,11 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   const int length = mx + 1;
   const int nb_total = (length + kBlockTokens - 1) / kBlockTokens;
   const int nb = min(max(nb_total - first, 0), bps);
+  const int nbl = nb > grp ? (nb - grp + WG - 1) / WG : 0;  // this warp group's tiles grp, grp + WG, ...
   const int last_page = min((length - 1) / ps, N - 1);
   // Queries pre-scaled in f32, then rounded to bf16 (the TPU kernel's
   // staging, pallas_paged.py:483-491); rows past R are zero.
-  for (int e = tid; e < kRowTile * CPR; e += kThreads) {
+  for (int e = tid; e < kRowTile * CPR; e += NTH) {
     const int rr = e / CPR, c = e - rr * CPR, r = rt * kRowTile + rr;
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
     if (r < R) {
@@ -363,8 +386,9 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   }
   __syncthreads();
 
-  // This warp's 16-key slice of tile i into ring slot i % NS, completing
-  // the slot's mbarrier of this warp. TMA: lane l loads box l (bf16: 16 /
+  // This warp's 16-key slice of its group's li-th tile (tile grp + WG * li)
+  // into ring slot li % NS, completing the slot's mbarrier of this warp.
+  // TMA: lane l loads box l (bf16: 16 /
   // box_rows boxes of box_rows keys per 64-column atom; fp8: 16 / box_rows
   // boxes of whole HD-byte rows), K and V. cp.async: lane l copies 16-byte
   // chunk l % C16 of keys l / C16, + 32 / C16, ... (C16 chunks a row).
@@ -374,12 +398,13 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   const int cc = lane % C16;
   const size_t col = ((size_t)kvh * HD) * L::kElem + cc * 16;  // bytes into a cache row
   const int nbox = box_rows ? (kWarpKeys / box_rows) * (F8 ? 1 : HD / 64) : 0;
-  auto load_slice = [&](int i, auto pow2) {
+  auto load_slice = [&](int li, auto pow2) {
     constexpr bool P2 = decltype(pow2)::value;
-    unsigned char* ks = ring + (size_t)((i % NS) * L::kStageElems + warp * kWarpKeys * HD) * L::kElem;
+    unsigned char* ks =
+        ring + (size_t)(((li % NS) * WG + grp) * L::kStageElems + slice * kWarpKeys * HD) * L::kElem;
     unsigned char* vs = ks + (size_t)kBlockTokens * HD * L::kElem;
-    uint64_t* bar = &full[(i % NS) * kWarps + warp];
-    const int kbase = (first + i) * kBlockTokens + warp * kWarpKeys;
+    uint64_t* bar = &full[(li % NS) * NW + warp];
+    const int kbase = (first + grp + WG * li) * kBlockTokens + slice * kWarpKeys;
     if (box_rows) {
       if (lane == 0) mbar_arrive_expect_tx(bar, L::kSliceBytes);
       __syncwarp();
@@ -416,16 +441,22 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
       load_slice(i, Bool<false>());
     }
   };
-  for (int i = 0; i < NS - 1 && i < nb; ++i) issue(i);
+  for (int li = 0; li < NS - 1 && li < nbl; ++li) issue(li);
 
+  // Query A fragments of the score k-steps. bf16: k-step kk sums dims
+  // 16kk..16kk+15 in the mma's order. fp8: lane t4's slots of k-step kk hold
+  // dims c..c+3 of its 16-dim chunk t4 (+ 4 chunks past k-step 3), c =
+  // 16 * (t4 + 4 * (kk / 4)) + 4 * (kk % 4): the order the K fragments below
+  // take from one 16-byte read of a key row.
   uint32_t qa[KSTEPS][4];
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + 2 * t4;
+    const int c = F8 ? 16 * (t4 + 4 * (kk >> 2)) + 4 * (kk & 3) : kk * 16 + 2 * t4;
+    constexpr int c2 = F8 ? 2 : 8;  // the second pair of each row's slots
     qa[kk][0] = ld32(qs + g * L::kQStride + c);
     qa[kk][1] = ld32(qs + (g + 8) * L::kQStride + c);
-    qa[kk][2] = ld32(qs + g * L::kQStride + c + 8);
-    qa[kk][3] = ld32(qs + (g + 8) * L::kQStride + c + 8);
+    qa[kk][2] = ld32(qs + g * L::kQStride + c + c2);
+    qa[kk][3] = ld32(qs + (g + 8) * L::kQStride + c + c2);
   }
   const int qp0 = qpos[g], qp1 = qpos[g + 8];
   float o[NT][4];
@@ -436,42 +467,81 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   // the score k-steps, V (.trans) for the p.V n-tile pairs.
   const int kkey = (lane >> 4) * 8 + (lane & 7), kcol = (lane >> 3) & 1;
   const int vkey = ((lane >> 3) & 1) * 8 + (lane & 7), vcol = lane >> 4;
-
-  for (int i = 0; i < nb; ++i) {
-    __syncwarp();  // every lane is done with the slot the next load overwrites
-    if (i + NS - 1 < nb) issue(i + NS - 1);
-    mbar_wait(&full[(i % NS) * kWarps + warp], (i / NS) & 1);
-    const __nv_bfloat16* ks;
-    if constexpr (F8) {
-      // The landed fp8 slice, converted into this warp's bf16 slice of `conv`.
-      const unsigned char* k8 = ring + (size_t)(i % NS) * L::kStageElems + warp * kWarpKeys * HD;
-      __nv_bfloat16* kd = conv + warp * kWarpKeys * HD;
+  // fp8: this warp's two bf16 V slices, and the conversion of its li-th
+  // landed V slice into slice li & 1 (8-byte reads, 16-byte swizzled
+  // stores: no bank conflict either way).
+  __nv_bfloat16* vb = vconv + warp * 2 * kWarpKeys * HD;
+  auto convert_v = [&](int li) {
+    const unsigned char* v8 =
+        ring + (size_t)((li % NS) * WG + grp) * L::kStageElems + (kBlockTokens + slice * kWarpKeys) * HD;
+    __nv_bfloat16* vd = vb + (li & 1) * kWarpKeys * HD;
 #pragma unroll
-      for (int e = lane; e < kWarpKeys * CPR; e += 32) {
-        const int j = e / CPR, c = e - j * CPR;
-        *reinterpret_cast<uint4*>(kd + slice_off(c, j)) =
-            fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + j * HD + c * 8));
-        *reinterpret_cast<uint4*>(kd + kBlockTokens * HD + slice_off(c, j)) =
-            fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(k8 + kBlockTokens * HD + j * HD + c * 8));
-      }
-      __syncwarp();
-      ks = kd;
-    } else {
-      ks = reinterpret_cast<const __nv_bfloat16*>(ring) + (i % NS) * L::kStageElems + warp * kWarpKeys * HD;
+    for (int e = lane; e < kWarpKeys * CPR; e += 32) {
+      const int j = e / CPR, c = e - j * CPR;
+      *reinterpret_cast<uint4*>(vd + slice_off(c, j)) =
+          fp8x8_to_bf16x8(*reinterpret_cast<const uint2*>(v8 + j * HD + c * 8));
     }
-    const __nv_bfloat16* vs = ks + kBlockTokens * HD;
+  };
+  if (F8 && nbl > 0) {
+    mbar_wait(&full[warp], 0);
+    convert_v(0);
+  }
+
+  for (int li = 0; li < nbl; ++li) {
+    __syncwarp();  // every lane is done with the slot the next load overwrites (fp8: and the V slice)
+    if (li + NS - 1 < nbl) issue(li + NS - 1);
     float sc[2][4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    const __nv_bfloat16* vs;
+    if constexpr (F8) {
+      // Scores from the landed fp8 K rows (slot li landed before its V was
+      // converted): per n-tile, lane (g, t4) reads 16 bytes of key 8n+g per
+      // 64 dims and converts them into the B fragments of four k-steps.
+      const unsigned char* k8 = ring + (size_t)((li % NS) * WG + grp) * L::kStageElems + slice * kWarpKeys * HD;
+      const int odd = HD == 128 ? (g & 1) : 0;
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, ks + slice_off(2 * kk + kcol, kkey));
-      mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
-      mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+      for (int n = 0; n < 2; ++n) {
+        const unsigned char* kr = k8 + (8 * n + g) * HD + 16 * t4;
+        uint4 raw[HD / 64];
+#pragma unroll
+        for (int h = 0; h < HD / 64; ++h) raw[h] = *reinterpret_cast<const uint4*>(kr + 64 * (h ^ odd));
+        if (odd) {
+          const uint4 t = raw[0];
+          raw[0] = raw[HD / 64 - 1];
+          raw[HD / 64 - 1] = t;
+        }
+#pragma unroll
+        for (int h = 0; h < HD / 64; ++h) {
+          const uint4 lo = fp8x8_to_bf16x8(make_uint2(raw[h].x, raw[h].y));
+          const uint4 hi = fp8x8_to_bf16x8(make_uint2(raw[h].z, raw[h].w));
+          mma_bf16(sc[n], qa[4 * h], lo.x, lo.y);
+          mma_bf16(sc[n], qa[4 * h + 1], lo.z, lo.w);
+          mma_bf16(sc[n], qa[4 * h + 2], hi.x, hi.y);
+          mma_bf16(sc[n], qa[4 * h + 3], hi.z, hi.w);
+        }
+      }
+      // The next tile's V, converted while the products run.
+      if (li + 1 < nbl) {
+        mbar_wait(&full[((li + 1) % NS) * NW + warp], ((li + 1) / NS) & 1);
+        convert_v(li + 1);
+      }
+      vs = vb + (li & 1) * kWarpKeys * HD;
+    } else {
+      mbar_wait(&full[(li % NS) * NW + warp], (li / NS) & 1);
+      const __nv_bfloat16* ks =
+          reinterpret_cast<const __nv_bfloat16*>(ring) + (li % NS) * L::kStageElems + slice * kWarpKeys * HD;
+      vs = ks + kBlockTokens * HD;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + slice_off(2 * kk + kcol, kkey));
+        mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+      }
     }
     // Mask, then the online softmax of rows g (elements 0, 1) and g+8 (2, 3).
-    const int k0 = (first + i) * kBlockTokens + warp * kWarpKeys;
+    const int k0 = (first + grp + WG * li) * kBlockTokens + slice * kWarpKeys;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -532,13 +602,13 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   }
   __syncthreads();  // every warp is done with the ring (all its loads were waited for): it now holds the warps' states
 
-  // Merge the four warps' states in a fixed order: ms/ls [warp][16], os
+  // Merge the NW warps' states in a fixed order: ms/ls [warp][16], os
   // [warp][16][HD]; with S > 1 into the block's partial bm/bl [16], bo
   // [16][HD] for the cluster merge.
   float* ms = reinterpret_cast<float*>(base);
-  float* ls = ms + kWarps * kRowTile;
-  float* os = ls + kWarps * kRowTile;
-  float* bm = os + kWarps * kRowTile * HD;
+  float* ls = ms + NW * kRowTile;
+  float* os = ls + NW * kRowTile;
+  float* bm = os + NW * kRowTile * HD;
   float* bl = bm + kRowTile;
   float* bo = bl + kRowTile;
   if (t4 == 0) {
@@ -557,15 +627,15 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
   }
   __syncthreads();
   const int nrows = min(kRowTile, R - rt * kRowTile);
-  for (int e = tid; e < kRowTile * HD; e += kThreads) {
+  for (int e = tid; e < kRowTile * HD; e += NTH) {
     const int rr = e / HD, d = e - rr * HD, r = rt * kRowTile + rr;
     if (rr >= nrows) break;
     float mm = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, ms[w * kRowTile + rr]);
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, ms[w * kRowTile + rr]);
     float den = 0.f, num = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < NW; ++w) {
       const float a = expf(ms[w * kRowTile + rr] - mm);
       den += a * ls[w * kRowTile + rr];
       num += a * os[(w * kRowTile + rr) * HD + d];
@@ -606,7 +676,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg{};
-  cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
@@ -614,6 +683,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
     constexpr bool F8 = std::is_same<CT, __nv_fp8_e4m3>::value;
     const int rt = (T * (H / n_kv) + kRowTile - 1) / kRowTile;
     cfg.gridDim = dim3(S, n_kv * rt, B);
+    cfg.blockDim = dim3(32 * MmaSmem<HD, F8>::NW);
     cfg.dynamicSmemBytes = MmaSmem<HD, F8>::bytes(split_pages(bps, ps));
     auto kern = decode_mma_kernel<QT, HD, F8>;
     cudaError_t e = allow_smem(kern, cfg.dynamicSmemBytes, allowed);
@@ -634,6 +704,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
     if (e != cudaSuccess) return e;
   } else {
     cfg.gridDim = dim3(S, n_kv, B);
+    cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = DecodeSmem<CT, HD>::bytes(T * (H / n_kv), T);
     auto kern = decode_partials<CT, QT, HD>;
     cudaError_t e = allow_smem(kern, cfg.dynamicSmemBytes, allowed);

@@ -26,7 +26,7 @@ from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, FP8, NEG_INF, gather_pa
 
 BLOCK_TOKENS = 64  # keys per kernel iteration (csrc/paged_decode.cu kBlockTokens)
 STAGES = 4  # bf16 kernel's K/V ring depth (csrc/paged_decode.cu kStages)
-STAGES_FP8 = 8  # fp8 form's ring depth: the same bytes in flight (csrc/paged_decode.cu kStagesF8)
+GROUPS_FP8 = 2  # fp8 form's groups of 4 warps a block (csrc/paged_decode.cu kGroupsF8)
 MAX_SPLITS = 8  # a thread block cluster's portable size: the splits of a row tile are one cluster
 ROW_TILE = 16  # bf16 kernel's query rows per block (csrc/paged_decode.cu kRowTile)
 MAX_VERIFY_T = 32  # query tokens per row the multi-query form takes
@@ -44,20 +44,30 @@ launches_fp8 = 0
 def _smem_bytes(t_q: int, group: int, head_dim: int, itemsize: int) -> int:
     """Mirror of the kernel source's shared-memory layouts, without the
     tensor-core kernel's page ids (:func:`_page_id_bytes`). bf16 and fp8
-    (``MmaSmem``): alignment slack, the K/V ring (fp8: twice as deep at 1
-    byte an element, then one bf16 stage the warps convert into), one
-    16-row query tile, the ring's mbarriers and the tile's positions,
+    (``MmaSmem``): alignment slack, the K/V ring (fp8: :func:`_fp8_stages`
+    deep for each of GROUPS_FP8 warp groups, at 1 byte an element, then
+    each warp's two bf16 V slices of 16 keys), one 16-row query tile, the
+    ring's mbarriers (one per stage and warp) and the tile's positions,
     whatever T_q. f32 (``DecodeSmem``): every row of the block's T_q x G in
     shared memory."""
     if itemsize <= 2:
-        stages = STAGES if itemsize == 2 else STAGES_FP8
-        conv = 0 if itemsize == 2 else 2 * 2 * BLOCK_TOKENS * head_dim
-        return (1024 + itemsize * stages * 2 * BLOCK_TOKENS * head_dim + conv + 2 * ROW_TILE * (head_dim + 8)
-                + 8 * stages * 4 + 4 * ROW_TILE)
+        stages, groups = (STAGES, 1) if itemsize == 2 else (_fp8_stages(head_dim), GROUPS_FP8)
+        warps = 4 * groups
+        v_slices = 0 if itemsize == 2 else 2 * warps * 2 * 16 * head_dim
+        return (1024 + itemsize * stages * groups * 2 * BLOCK_TOKENS * head_dim + v_slices
+                + 2 * ROW_TILE * (head_dim + 8) + 8 * stages * warps + 4 * ROW_TILE)
     rows = t_q * group
     vec = 16 // itemsize
     return (2 * itemsize * BLOCK_TOKENS * (2 * head_dim + vec)  # double-buffered K/V tiles
             + 4 * (2 * rows * head_dim + rows * BLOCK_TOKENS + 3 * rows) + 4 * t_q)
+
+
+def _fp8_stages(head_dim: int) -> int:
+    """The fp8 form's ring depth (csrc/paged_decode.cu ``MmaSmem::NS``): 4 at
+    hd 64; 3 at hd 128, where the layout then takes the bytes of the earlier
+    8-deep one-group layout, so the page ids of every table width that
+    layout took still fit."""
+    return 4 if head_dim == 64 else 3
 
 
 def _page_id_bytes(blocks_per_split: int, page_size: int) -> int:
@@ -108,10 +118,12 @@ def decode_split_plan(batch: int, n_kv: int, pages_per_seq: int, page_size: int,
                       device: torch.device) -> tuple[int, int]:
     """The GQA decode kernel's :func:`split_plan`: auto on the card is one
     block of one row tile per SM, ``splits = max(1, SMs // (batch * n_kv))``:
-    a block past that adds start-up and merge latency but no bandwidth. At
-    most MAX_SPLITS, auto or asked for: a row tile's splits are one thread
-    block cluster. Static shapes only, never T_q: a T_q=1 decode and a
-    verify row split alike."""
+    a block past that adds start-up and merge latency but no bandwidth. The
+    fp8 form fills an SM with one block of GROUPS_FP8 warp groups instead of
+    more splits (a second block of clusters ran slower: PERF.md §6).
+    At most MAX_SPLITS, auto or asked for: a row tile's splits are one
+    thread block cluster. Static shapes only (batch bucket, KV heads, table
+    width), never T_q: a T_q=1 decode and a verify row split alike."""
     if num_splits <= 0 and device.type == "cuda":
         sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
         num_splits = max(1, sms // max(1, batch * n_kv))

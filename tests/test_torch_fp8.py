@@ -176,8 +176,9 @@ def _earlier_fp8_smem_bytes(kernel: str, *dims) -> int:
 
 def test_predicates_take_fp8_and_mirror_the_layouts():
     """Each predicate takes fp8 caches with bf16 or f32 queries, and its
-    shared-memory mirror gives the fp8 form's layout: decode, a ring twice
-    as deep at 1 byte an element plus one converted bf16 stage; prefill, an
+    shared-memory mirror gives the fp8 form's layout: decode, a 4-deep ring
+    at 1 byte an element for each of two warp groups plus each warp's two
+    converted bf16 V slices; prefill, an
     fp8 ring of 4 (hd 64) or 2 (hd 128) stages beside the bf16 one, its page
     ids read from the table (any table width); MLA, the bf16 form's layout,
     its fp8 tiles converted in place in the bf16 ring, so it streams 64-key
@@ -208,8 +209,15 @@ def test_predicates_take_fp8_and_mirror_the_layouts():
                             taken += 1
                             assert paged_mla.paged_mla_supported(32, r_kv, r_width, dr, ps, **kw), (r_kv, dr, ps)
         assert taken > 60
-    assert paged_decode._smem_bytes(1, 8, 64, 1) == (1024 + 8 * 2 * 64 * 64 + 2 * 2 * 64 * 64 + 2 * 16 * 72
-                                                     + 8 * 8 * 4 + 4 * 16)
+    # decode: a 4-deep fp8 ring for each of 2 warp groups, each of the 8 warps' two bf16 V slices
+    # of 16 keys, the query tile, 4 x 8 mbarriers and 16 positions.
+    assert paged_decode._smem_bytes(1, 8, 64, 1) == (1024 + 4 * 2 * 2 * 64 * 64 + 8 * 2 * 2 * 16 * 64
+                                                     + 2 * 16 * 72 + 8 * 4 * 8 + 4 * 16)
+    # hd 128: 3 stages, no more than the earlier layout (an 8-deep ring, one converted stage), so the
+    # page ids of every table width it took still fit.
+    earlier = 1024 + 8 * 2 * 64 * 128 + 2 * 2 * 64 * 128 + 2 * 16 * 136 + 8 * 8 * 4 + 4 * 16
+    assert paged_decode._smem_bytes(32, 8, 128, 1) == (1024 + 3 * 2 * 2 * 64 * 128 + 8 * 2 * 2 * 16 * 128
+                                                       + 2 * 16 * 136 + 8 * 3 * 8 + 4 * 16) <= earlier
     # prefill: the page ids come from the table, their room goes to a deeper fp8 ring.
     assert paged_prefill._fp8_stages(64) == 4 and paged_prefill._fp8_stages(128) == 2
     assert paged_prefill._smem_bytes(64, 0, fp8=True) == 1024 + 16384 + 4 * 32768 + 4 * 2 * 128 * 64 + 8 * 12 + 16
@@ -220,6 +228,54 @@ def test_predicates_take_fp8_and_mirror_the_layouts():
     # mla-8b-proxy: 64-key stages on fp8 as on bf16, the budget to within a kilobyte.
     assert paged_mla._tile_keys(512, 64) == 64 and paged_mla._tile_keys(128, 64) == 64
     assert paged_mla._smem_bytes(512, 64, 1) == 1024 + 73728 + 147456 + 8192 + 40 + 512 + 256 + 512 <= 232448
+
+
+def test_fp8_decode_split_plan_is_static_and_shared_by_the_plain_version(monkeypatch):
+    """The fp8 form's split plan, pinned on a 132-SM card: one block a row
+    tile per SM, as for bf16, where the fp8 block runs GROUPS_FP8 groups of
+    4 warps over an fp8 ring 4 stages deep (3 at hd 128); at the serve's and the timed decode
+    shape (batch 8 over 8 KV heads, 128-page tables of 16 tokens) 2 splits
+    of 16 key blocks; never more than MAX_SPLITS, auto or asked for. T_q is
+    no argument of it: the wrapper (on meta tensors, its launch recorded)
+    and ``paged_decode_plain`` ask for the same plan on fp8 caches at T_q
+    1, 8 and 32, and the plain version computes with it."""
+    monkeypatch.setattr(paged_decode, "_sm_count", lambda index: 132)
+    card = torch.device("cuda", 0)
+    real = paged_decode.decode_split_plan
+    assert paged_decode.GROUPS_FP8 == 2 and paged_decode._fp8_stages(64) == 4 and paged_decode._fp8_stages(128) == 3
+
+    def plan(b, npp=128, ns=0):
+        return real(b, 8, npp, 16, ns, card)
+
+    assert plan(8) == (2, 16)
+    assert [plan(b)[0] for b in (1, 2, 4, 8, 16, 32)] == [8, 8, 4, 2, 1, 1]
+    assert all(plan(b, ns=ns)[0] <= paged_decode.MAX_SPLITS for b in (1, 2, 8) for ns in (0, 9, 64))
+    asked = []
+
+    def spy(*args):
+        got = real(*args[:5], card)
+        asked.append(got)
+        return got
+
+    launched = []
+    monkeypatch.setattr(paged_decode, "decode_split_plan", spy)
+    monkeypatch.setattr(paged_decode.build, "load", lambda name: lambda *a: launched.append(a[14:16]) or 0)
+    monkeypatch.setattr(paged_decode.build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(paged_decode, "launches_fp8", 0)
+    rng = np.random.default_rng(9)
+    b, n_kv, hd, ps, npp = 4, 8, 64, 16, 32  # 32-page tables: 8 key blocks, 4 splits of 2
+    kc, vc = (torch.from_numpy(rng.standard_normal((b * npp + 1, ps, n_kv * hd)).astype(np.float32)).to(FP8)
+              for _ in range(2))
+    tables = torch.from_numpy(1 + rng.permutation(b * npp).reshape(b, npp).astype(np.int32))
+    for t in (1, 8, paged_decode.MAX_VERIFY_T):
+        q = torch.from_numpy(rng.standard_normal((b, t, n_kv, hd)).astype(np.float32)).to(torch.bfloat16)
+        pos = torch.from_numpy(np.sort(rng.integers(0, npp * ps, (b, t)), axis=1).astype(np.int32))
+        args = (q, kc, vc, tables, pos)
+        got = paged_decode.paged_decode_plain(*args, scale=hd**-0.5)
+        assert torch.equal(got, paged_decode.paged_decode_plain(*args, scale=hd**-0.5, num_splits=4))
+        paged_decode.paged_decode_attention(*(x.to("meta") for x in args), scale=hd**-0.5)
+    assert asked == [(4, 2)] * 9  # the plain twice and the wrapper once per T_q
+    assert launched == [(4, 2)] * 3 and paged_decode.launches_fp8 == 3
 
 
 @pytest.mark.parametrize("cache", ["fp8", "bf16"])

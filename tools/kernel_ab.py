@@ -4,11 +4,14 @@
     python3 tools/kernel_ab.py --other DIR
 
 ``DIR`` is another checkout of this repository (for example the parent
-commit, unpacked with ``git archive``). Its ``paged_prefill`` and
-``paged_mla`` libraries are built from its own sources with its own flags
-(its ``ops/build.py``) and called through their C entry points; this
-checkout's through its wrappers. At each timing shape of ``chip_smoke.py``
-(llama-3.2-1b's and llama-3-8b's prefill chunk, the serve's mixed step;
+commit, unpacked with ``git archive``). Its ``paged_decode``,
+``paged_prefill`` and ``paged_mla`` libraries are built from its own
+sources with its own flags (its ``ops/build.py``) and called through their
+C entry points, the decode one with its own split plan (its
+``ops/paged_decode.py``); this checkout's through its wrappers. At each
+timing shape of ``chip_smoke.py`` (llama-3.2-1b's and llama-3-8b's decode
+of 8 x 2048 tokens, four layers' tables cycled, and a gappy verify at T_q 8
+on the same tables; their prefill chunk, the serve's mixed step;
 mla-8b-proxy's decode, prefill chunk and mixed step), on bf16 and on fp8
 caches, both see the same inputs: the lines say whether the outputs are
 bitwise equal over the real rows (else their largest difference) and each
@@ -33,24 +36,53 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402  (the shapes and the timer live there)
 from dynamo_tpu_torch.ops import build  # noqa: E402
+from dynamo_tpu_torch.ops import paged_decode as pd  # noqa: E402
 from dynamo_tpu_torch.ops import paged_mla as pm  # noqa: E402
 from dynamo_tpu_torch.ops import paged_prefill as pp  # noqa: E402
 
 FP8 = cs.FP8
 
 
+def _module(root: str, name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def other_entry_points(root: str) -> dict:
     """The other checkout's C entry points, built by its own build module:
-    {"paged_prefill": (fn,), "paged_mla": (fn, takes_share)}, takes_share
-    saying whether its MLA entry point has this tree's share-group argument
-    (a tree without it has one int fewer). The other tree's MLA runs with
-    no share group (1)."""
-    spec = importlib.util.spec_from_file_location("other_build", os.path.join(root, "dynamo_tpu_torch/ops/build.py"))
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
-    other.build(("paged_prefill", "paged_mla"))
+    {"paged_decode": (fn, split_plan), "paged_prefill": (fn,), "paged_mla":
+    (fn, takes_share)}. split_plan is the other tree's decode_split_plan;
+    takes_share says whether its MLA entry point has this tree's
+    share-group argument (a tree without it has one int fewer). The other
+    tree's MLA runs with no share group (1)."""
+    other = _module(root, "other_build", "dynamo_tpu_torch/ops/build.py")
+    other.build(("paged_decode", "paged_prefill", "paged_mla"))
+    if other.SIGNATURES["paged_decode"][1] != build.SIGNATURES["paged_decode"][1]:
+        raise RuntimeError("the other tree's paged_decode entry point takes other arguments")
+    split_plan = _module(root, "other_paged_decode", "dynamo_tpu_torch/ops/paged_decode.py").decode_split_plan
     takes_share = len(other.SIGNATURES["paged_mla"][1]) == len(build.SIGNATURES["paged_mla"][1])
-    return {"paged_prefill": (other.load("paged_prefill"),), "paged_mla": (other.load("paged_mla"), takes_share)}
+    return {"paged_decode": (other.load("paged_decode"), split_plan), "paged_prefill": (other.load("paged_prefill"),),
+            "paged_mla": (other.load("paged_mla"), takes_share)}
+
+
+def call_decode(fn, q, kc, vc, tb, pos, scale, splits: int, bps: int, what: str = "other paged_decode"):
+    """One launch of a paged_decode library's C entry point ``fn`` over
+    ``splits`` splits of ``bps`` 64-key blocks each."""
+    b, t, h, hd = q.shape
+    _, ps, w = kc.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tb.data_ptr(), pos.data_ptr(), out.data_ptr(), b, t, h,
+             w // hd, hd, ps, tb.shape[1], kc.shape[0], splits, bps, build.DTYPE_CODES[kc.dtype],
+             build.DTYPE_CODES[q.dtype], float(scale), build.stream_of(q))
+    build.check_launch(what, err)
+    return out
+
+
+def other_decode(fn, split_plan, q, kc, vc, tb, pos, scale):
+    splits, bps = split_plan(q.shape[0], kc.shape[2] // q.shape[3], tb.shape[1], kc.shape[1], 0, q.device)
+    return call_decode(fn, q, kc, vc, tb, pos, scale, splits, bps)
 
 
 def other_prefill(fn, q, kc, vc, tb, pos, scale):
@@ -99,10 +131,35 @@ def main(root: str) -> int:
         return 2
     dev = torch.device("cuda")
     other = other_entry_points(root)
-    build.build(("paged_prefill", "paged_mla"))
+    build.build(("paged_decode", "paged_prefill", "paged_mla"))
     rng = torch.Generator(device=dev).manual_seed(30)
     records = []
     for cache in (torch.bfloat16, FP8):
+        for hd in (64, 128):
+            b, ctx, layers, npp = 8, 2048, 4, 128
+            q, kc, vc, tb, pos, _ = cs._case(rng, dev, b=b, t=1, h=32, n_kv=8, hd=hd, ps=16, npp=npp, dtype=cache,
+                                             lengths=[ctx] * b, contiguous=True, layers=layers,
+                                             q_dtype=torch.bfloat16)
+            tbs = [tb[i].contiguous() for i in range(layers)]
+            # Each call reads the next layer's pages, from HBM as a serving
+            # step does; the two versions' first calls (compared) read layer 0.
+            it_this, it_other = iter(range(10**9)), iter(range(10**9))
+            records.append(compare(
+                "paged_decode", f"hd {hd} decode {b} x {ctx}", cache,
+                lambda: pd.paged_decode_attention(q, kc, vc, tbs[next(it_this) % layers], pos, scale=hd**-0.5),
+                lambda: other_decode(*other["paged_decode"], q, kc, vc, tbs[next(it_other) % layers], pos,
+                                     hd**-0.5),
+                [(i, 1) for i in range(b)], 50))
+            lengths = [1, 37, 300, 1000, 2048, 1500, 700, 64]
+            qv = torch.randn((b, 8, 32, hd), generator=rng, device=dev).to(torch.bfloat16)
+            pv_np = cs._positions(lengths, 8, contiguous=False)
+            pv = torch.from_numpy(pv_np).to(dev)
+            records.append(compare(
+                "paged_decode", f"hd {hd} verify T_q 8 {lengths}", cache,
+                lambda: pd.paged_decode_attention(qv, kc, vc, tbs[0], pv, scale=hd**-0.5),
+                lambda: other_decode(*other["paged_decode"], qv, kc, vc, tbs[0], pv, hd**-0.5),
+                [(i, min(8, n)) for i, n in enumerate(lengths)], 50))
+            del q, kc, vc, tb, tbs
         for hd, name, spans in ((64, "chunk", [(1024, 512)]), (64, "mixed step", cs.MIXED_SPANS),
                                 (128, "chunk", [(1024, 512)])):
             q, kc, vc, tb, _, _ = cs._case(rng, dev, b=len(spans), t=512, h=32, n_kv=8, hd=hd, ps=16, npp=128,
