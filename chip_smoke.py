@@ -51,7 +51,13 @@ failure exits non-zero:
               ``share_soak``: thousands of back-to-back paged_mla launches
               in share groups, each bitwise the first; timed beside bf16
               (each entry's ``vs_bf16`` ratio), with no library yardstick
-              (none attends over fp8 K/V).
+              (none attends over fp8 K/V). paged_decode past 32 query
+              tokens ("kernels_wide_verify", ``wide_verify_checks``): T_q
+              33, 64, 512 and 2048, gappy and contiguous rows, bf16 and fp8,
+              hd 64 and 128, with the bitwise T_q=1 / verify-column check;
+              timed at the spec serve's verify and widened mixed verify
+              steps beside paged_prefill on the same rows
+              ("kernel_timing_wide_verify").
 3. forward  — one prefill and one decode step at full width, with the
               kernels and with plain attention, same inputs; logits
               compared: llama-3.2-1b, then mla-8b-proxy, each on a bf16 and
@@ -63,7 +69,9 @@ failure exits non-zero:
               same prefill, mixed and two decode steps (the graph runner's
               decode rows chained on the card through ``step_async``);
               tokens, logprobs and top-20 alternatives bitwise equal, for
-              each model on a bf16 cache and llama-3.2-1b on fp8 too.
+              each model on a bf16 cache and llama-3.2-1b on fp8 too; and
+              (``spec_graph_check``, "graphs_spec") a verify of 5 columns,
+              chained, and a 4-step ``multi_step`` burst, bitwise equal.
 4. serve    — ``build_engine_service`` (random init, bf16 weights) behind
               ``build_pipeline``: 8 concurrent OpenAI completion requests,
               prompts of 16..1500 tokens, 32 tokens each, after a warm-up
@@ -101,6 +109,22 @@ failure exits non-zero:
               times) beside phase 4's, and one uncached request's times
               alone on the warm server, over HTTP and in-process.
 
+6. spec     — speculative decoding and decode bursts (``spec_phase``):
+              a mix of repeated spans served with spec_k 4 (llama-3.2-1b on
+              bf16 and fp8 caches, mla-8b-proxy on bf16; the main path, and
+              llama-3.2-1b bf16 eager + synchronous too) and with
+              decode_steps 4 (llama-3.2-1b, overlapped and synchronous),
+              each beside the plain serve of the same mix in the same mode;
+              every step's attention in a kernel, verify steps in the
+              decode kernel, drafts accepted, and every greedy token within
+              TF_LOGIT_TOL of an eager forward's argmax over the request's
+              prompt + output (the teacher-forced check).
+7. checkpoint — llama-3.2-1b's serve-phase weights saved as an HF
+              checkpoint (safetensors shards, an index, config.json, a
+              SentencePiece tokenizer.model), loaded back bitwise with
+              ``load_model``, and served from the directory through
+              ``run_local``: every position's logprobs equal the preset's.
+
 Then the kernels line, the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
 """
@@ -109,9 +133,11 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import gc
 import importlib
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -849,6 +875,129 @@ def _vs_bf16(record: dict, bf16: dict) -> None:
                 _vs_bf16(entry, bf16[key])
 
 
+# -- phase 2d: paged_decode past 32 query tokens --------------------------------
+
+WIDE_T = (33, 64, 512, 2048)  # verify widths past the earlier cap, up to the serve's prefill budget
+# The spec serve's widened mixed verify steps, (start, real tokens) a row:
+# chunks beside 5-token verify rows (spec_k 4), in a 512-token bucket (the
+# chunk budget) and in a 2048-token one (the prefill budget).
+WIDE_MIXED = {512: [(1024, 512), (0, 512), (1400, 100), (1530, 5), (799, 5), (15, 5), (250, 5), (1199, 5)],
+              2048: [(0, 2048), (1400, 100), (1530, 5), (799, 5), (15, 5), (250, 5), (1199, 5), (2000, 5)]}
+
+
+def wide_verify_checks(dev) -> dict:
+    """paged_decode's multi-query form at T_q in WIDE_T (33 to 2048 query
+    tokens a row) against its plain version: llama-3.2-1b's heads (32/8),
+    hd 64 and 128, bf16 and fp8 caches with bf16 queries, pages of 16,
+    gappy rows (sorted random columns, the last at the row's end) and
+    contiguous ones (a chunk ending at the row's end, padded with zeros),
+    splits 1 and auto; with the bitwise T_q=1 / verify-column check on every
+    column at T_q 33 and on 17 columns spread over the row past it. Returns
+    the max abs errors by cache (``paged_decode``, ``paged_decode_fp8``)."""
+    from dynamo_tpu_torch.ops import paged_decode as pd
+
+    rng = torch.Generator(device=dev).manual_seed(30)
+    h, n_kv, ps = 32, 8, 16
+    errs = {"paged_decode": 0.0, "paged_decode_fp8": 0.0}
+    bitwise = []
+    for cache in (torch.bfloat16, FP8):
+        name = "paged_decode_fp8" if cache == FP8 else "paged_decode"
+        for hd in (64, 128):
+            scale = hd**-0.5
+            for t in WIDE_T:
+                lengths = [t + 300, 2 * t + 77]
+                npp = -(-max(lengths) // ps) + 1
+                for contiguous in (False, True):
+                    q, kc, vc, tb, pos, posn = _case(rng, dev, b=2, t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                                     dtype=cache, lengths=lengths, contiguous=contiguous,
+                                                     q_dtype=torch.bfloat16)
+                    cols = range(t) if t <= 33 else sorted(set(np.linspace(0, t - 1, 17).round().astype(int)))
+                    tag = f"{str(cache).removeprefix('torch.')} hd{hd} T{t} {'contiguous' if contiguous else 'gappy'}"
+                    for ns in (1, 0):
+                        got = pd.paged_decode_attention(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                        want = pd.paged_decode_plain(q, kc, vc, tb[0], pos, scale=scale, num_splits=ns)
+                        errs[name] = max(errs[name], compare(f"wide decode {tag} splits{ns}", got, want,
+                                                             [(i, min(t, n)) for i, n in enumerate(lengths)],
+                                                             torch.bfloat16))
+                        for j in cols:
+                            one = pd.paged_decode_attention(q[:, j:j + 1].contiguous(), kc, vc, tb[0],
+                                                            pos[:, j:j + 1].contiguous(), scale=scale, num_splits=ns)
+                            bitwise.append(bool(torch.equal(one[:, 0], got[:, j])))
+                            if not bitwise[-1]:
+                                raise AssertionError(f"T_q=1 decode differs from verify column {j} ({tag} "
+                                                     f"splits{ns})")
+                    del q, kc, vc, got, want
+    emit({"phase": "kernels_wide_verify", "t_q": list(WIDE_T), "max_abs_err": errs,
+          "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row",
+          "bitwise_verify_columns": f"{sum(bitwise)}/{len(bitwise)}"})
+    return errs
+
+
+def wide_verify_timing(dev) -> dict:
+    """paged_decode at the spec serve's verify shapes, bf16 and fp8 caches:
+    a T_q = 5 verify (spec_k 4) of 8 rows at 2048-token contexts on 128-page
+    tables (the timed decode shape), and the widened mixed verify steps of
+    WIDE_MIXED, where the decode kernel takes every row, beside
+    ``paged_prefill`` on the same rows (contiguous, so the prefill kernel
+    takes them too) and their ratio. Bounds count each row's K/V once and
+    the causal (query, key) pairs' operations; the library yardstick (bf16
+    only) is SDPA over the gathered K/V with the boolean mask."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import paged_decode as pd
+    from dynamo_tpu_torch.ops import paged_prefill as pp
+    from dynamo_tpu_torch.ops.attention import gather_pages
+
+    rng = torch.Generator(device=dev).manual_seed(31)
+    h, n_kv, hd, ps = 32, 8, 64, 16
+    scale = hd**-0.5
+    record = {"phase": "kernel_timing_wide_verify", "geometry": f"heads={h}/{n_kv} hd={hd} page={ps}"}
+    for cache in (torch.bfloat16, FP8):
+        tag = str(cache).removeprefix("torch.")
+        shapes = {"verify_t5": ([(2043, 5)] * 8, 5, 128), **{f"mixed_verify_t{t}": (spans, t, 160)
+                                                             for t, spans in WIDE_MIXED.items()}}
+        out = {}
+        for key, (spans, t, npp) in shapes.items():
+            q, kc, vc, tb, _, _ = _case(rng, dev, b=len(spans), t=t, h=h, n_kv=n_kv, hd=hd, ps=ps, npp=npp,
+                                        dtype=cache, lengths=[s + n for s, n in spans], contiguous=True,
+                                        q_dtype=torch.bfloat16)
+            pos = torch.from_numpy(_spans(spans, t)).to(dev)
+            tb0 = tb[0].contiguous()
+            rows = [(i, n) for i, (_, n) in enumerate(spans)]
+            kern = lambda: pd.paged_decode_attention(q, kc, vc, tb0, pos, scale=scale)
+            plain = lambda: pd.paged_decode_plain(q, kc, vc, tb0, pos, scale=scale)
+            prefill = lambda: pp.paged_prefill_attention(q, kc, vc, tb0, pos, scale=scale)
+            err = compare(f"wide verify timing inputs {key} {tag}", kern(), plain(), rows, torch.bfloat16)
+            compare(f"prefill on the wide verify rows {key} {tag}", prefill(), plain(), rows, torch.bfloat16)
+            lib = None
+            if cache == torch.bfloat16:
+                g = h // n_kv
+                kg = gather_pages(kc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+                vg = gather_pages(vc, tb0.clamp(min=0), n_kv).repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+                qg = q.permute(0, 2, 1, 3).contiguous()
+                kpos = torch.arange(npp * ps, device=dev)
+                kv_len = pos.amax(dim=1) + 1
+                mask = ((kpos[None, None, :] <= pos[:, :, None]) & (kpos[None, None, :] < kv_len[:, None, None]))[:, None]
+                lib = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+            pairs = sum(n * s + n * (n + 1) // 2 for s, n in spans)
+            nbytes = (sum(2 * (s + n) * n_kv * hd * cache.itemsize for s, n in spans)
+                      + sum(2 * n * h * hd * 2 for _, n in spans) + len(spans) * (npp * 4 + t * 4))
+            flops = 4 * pairs * h * hd
+            iters = 50 if t <= 5 else 10
+            ms = time_ms(kern, iters=iters)
+            prefill_ms = time_ms(prefill, iters=iters)
+            out[key] = dict(ms=ms, prefill_ms=prefill_ms, vs_prefill=ms / prefill_ms,
+                            plain_ms=time_ms(plain, iters=2), library_ms=time_ms(lib, iters=iters) if lib else None,
+                            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+                            shape=f"B={len(spans)} T={t} spans={spans} {tag}", max_abs_err=err,
+                            splits=pd.decode_split_plan(len(spans), n_kv, npp, ps, 0, q.device))
+            del q, kc, vc, lib
+        record[tag] = out
+    emit(record)
+    return record
+
+
 # -- fp8 caches: casts, sampling, the kernels' fp8 forms ----------------------------
 
 
@@ -1258,16 +1407,16 @@ def graph_check(dev, model: str, params: dict, cache_dtype: torch.dtype | None =
 
 
 async def build_serving(model: str = MODEL, cache_dtype: torch.dtype | None = None, params: dict | None = None,
-                        *, graphs: bool = True, overlap: bool = True):
+                        *, graphs: bool = True, overlap: bool = True, **engine_kw):
     """The serve phase's engine and pipeline: ``build_engine_service`` of
     ``model`` (random init from seed 0, or ``params``; bf16; on the card;
-    ``cache_dtype`` caches, the model's dtype when None) behind
-    ``build_pipeline``; by default the main path, CUDA graphs behind the
-    overlapped engine."""
+    ``cache_dtype`` caches, the model's dtype when None; ``engine_kw`` on
+    top of SERVE_ENGINE) behind ``build_pipeline``; by default the main
+    path, CUDA graphs behind the overlapped engine."""
     from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
 
     service = await build_engine_service(model, cache_dtype=cache_dtype, params=params, graphs=graphs,
-                                         overlap=overlap, **SERVE_ENGINE)
+                                         overlap=overlap, **SERVE_ENGINE, **engine_kw)
     return service, build_pipeline(service)
 
 
@@ -1298,9 +1447,9 @@ async def warm_up(pipeline, model: str = MODEL) -> None:
         pass
 
 
-async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
-    """Send every body concurrently; per request its prompt length, tokens,
-    time to first token and finish reason."""
+async def send_all(pipeline, bodies: list[dict], lengths: list[int] = SERVE_LENGTHS) -> list[dict]:
+    """Send every body concurrently; per request its prompt length (from
+    ``lengths``), tokens, time to first token and finish reason."""
     from dynamo_tpu_torch.runtime.engine import Context
 
     async def one(body: dict, n: int) -> dict:
@@ -1313,7 +1462,7 @@ async def send_all(pipeline, bodies: list[dict]) -> list[dict]:
             finish = out.finish_reason
         return {"n_prompt": n, "tokens": toks, "ttft_s": first, "finish": finish}
 
-    return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, SERVE_LENGTHS)))
+    return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, lengths)))
 
 
 @contextlib.contextmanager
@@ -1848,6 +1997,377 @@ async def serve_http(in_process: dict) -> dict:
     return record
 
 
+# -- phase 6: spec -----------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_SPAN = 64  # tokens of the random span each spec prompt repeats
+SPEC_LENGTHS = [128, 192, 256, 320, 384, 512, 768, 1024]  # prompt tokens, BOS included
+SPEC_TOKENS = 64  # output tokens a request
+# Teacher-forced check: an emitted greedy token must be the argmax of an
+# eager forward over the request's own prompt + output, or its logit at most
+# this far below the argmax's (the same weights in another batch shape round
+# bf16 activations elsewhere: logits move by a few hundredths).
+TF_LOGIT_TOL = 0.125
+
+
+def spec_bodies(rng: np.random.Generator, model: str = MODEL) -> list[dict]:
+    """The spec mix: per SPEC_LENGTHS entry a prompt of one random
+    SPEC_SPAN-letter span repeated (the n-gram proposer drafts from such
+    histories), SPEC_TOKENS output tokens; greedy except one seeded
+    nucleus-sampled request of SPEC_TOKENS // 4 (its draws seldom match a
+    draft, so it would set the serve's length alone). Prompts are token ids
+    (BOS + letters, the byte tokenizer's), so a checkpoint's tokenizer sees
+    the same ids."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", dtype=np.uint8)
+    bodies = []
+    for i, n in enumerate(SPEC_LENGTHS):
+        span = rng.choice(letters, SPEC_SPAN).astype(int).tolist()
+        ids = [256] + (span * (n // SPEC_SPAN + 1))[:n - 1]
+        body = {"model": model, "prompt": ids, "max_tokens": SPEC_TOKENS, "temperature": 0.0,
+                "nvext": {"ignore_eos": True}}
+        if i == 3:
+            body.update(temperature=0.8, top_p=0.95, seed=1234, max_tokens=SPEC_TOKENS // 4)
+        bodies.append(body)
+    return bodies
+
+
+async def serve_spec(model: str, params: dict, cache_dtype: torch.dtype | None = None, *, spec_k: int = 0,
+                     decode_steps: int = 1, graphs: bool = True, overlap: bool = True) -> tuple[dict, list]:
+    """Serve the spec mix once, after a warm-up request and an untimed pass
+    of the same mix, with prefix caching off so that the timed pass steps
+    through the untimed pass's compositions and replays the graphs it
+    captured (a verify step's shape follows its drafts, which no other mix
+    reproduces): ``spec_k`` (0 = off), ``decode_steps``, the main path
+    (CUDA graphs, the overlapped engine, verify steps chained through it)
+    or, with ``graphs``/``overlap`` off, the eager runner behind the
+    synchronous engine. Counters go to 0 just before the timed pass and are
+    read just after. Every request must end with its
+    ``max_tokens``, every step's attention in a kernel, and with spec_k a verify
+    step must run in the kernel. Returns the record and each request's
+    (prompt ids, tokens)."""
+    fp8 = cache_dtype == FP8
+    counter = "launches_fp8" if fp8 else "launches"
+    kernels = {name + ("_fp8" if fp8 else ""): importlib.import_module(f"dynamo_tpu_torch.ops.{name}")
+               for name in SERVE_KERNELS[model]}
+    service, pipeline = await build_serving(model, cache_dtype, params, graphs=graphs, overlap=overlap,
+                                            spec_k=spec_k, decode_steps=decode_steps, enable_prefix_caching=False)
+    core = service.core
+    bodies = spec_bodies(np.random.default_rng(7), model)
+    try:
+        await warm_up(pipeline, model)
+        untimed = await send_all(pipeline, bodies, SPEC_LENGTHS)
+        torch.cuda.synchronize()
+        graphs0 = core.runner.graph_stats()
+        dispatch0 = dict(core.attn_dispatch_counts)
+        spec0 = (core.spec_steps, core.spec_tokens_proposed, core.spec_tokens_accepted)
+        for mod in kernels.values():
+            setattr(mod, counter, 0)
+        start = time.perf_counter()
+        results = await send_all(pipeline, bodies, SPEC_LENGTHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {name: getattr(mod, counter) for name, mod in kernels.items()}
+        dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
+        steps, drafted, accepted = (a - b for a, b in zip(
+            (core.spec_steps, core.spec_tokens_proposed, core.spec_tokens_accepted), spec0))
+        graphs1 = core.runner.graph_stats()
+    finally:
+        await service.close()
+    if [r["tokens"] for r in untimed] != [r["tokens"] for r in results]:
+        raise AssertionError(f"{model} spec_k={spec_k}: the timed pass's tokens differ from the untimed pass's")
+    for b, r in zip(bodies, results):
+        if len(r["tokens"]) != b["max_tokens"] or r["finish"] is None or r["finish"].value != "length":
+            raise AssertionError(f"{model} spec_k={spec_k} decode_steps={decode_steps}: a request of "
+                                 f"{r['n_prompt']} tokens ended with {len(r['tokens'])} tokens ({r['finish']})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    off_kernel = {k: n for k, n in dispatch.items() if n and not k.endswith("/kernel")}
+    if off_kernel:
+        raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
+    if spec_k and not dispatch.get("verify/kernel"):
+        raise AssertionError(f"spec_k={spec_k}: no verify step ran in the kernel: {dispatch}")
+    out_tokens = sum(len(r["tokens"]) for r in results)
+    record = {"model": model, "cache": str(cache_dtype or torch.bfloat16).removeprefix("torch."),
+              "mode": f"{'cuda graphs' if graphs else 'eager'}, {'overlapped' if overlap else 'synchronous'} engine",
+              "spec_k": spec_k, "decode_steps": decode_steps, "output_tokens": out_tokens, "wall_s": wall,
+              "output_tokens_per_s": out_tokens / wall, "engine_steps": sum(dispatch.values()),
+              "attn_dispatch_steps": dispatch, "kernel_launches": launches, "graph_keys": graphs1["keys"],
+              "keys_captured_in_window": graphs1["keys"] - graphs0["keys"],
+              "verify_steps": steps, "drafted_tokens": drafted, "accepted_tokens": accepted,
+              "accepted_per_verify_step": accepted / steps if steps else None,
+              "output_tokens_per_verify_step": out_tokens / steps if steps else None}
+    return record, [(b["prompt"], r["tokens"]) for b, r in zip(bodies, results)]
+
+
+def teacher_forced(dev, model: str, params: dict, cache_dtype: torch.dtype | None, served: list,
+                   greedy: list[int]) -> dict:
+    """One eager forward (speculation off, batch of one) over each greedy
+    request's prompt + output, the logits of every output position read
+    with ``logit_indices``: each emitted token must be the argmax, or its
+    logit within TF_LOGIT_TOL of it. Returns the gaps' maximum and how many
+    tokens were not the argmax."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[model]
+    ps = 16
+    worst, off_argmax, n_tok = 0.0, 0, 0
+    with torch.inference_mode():
+        for i in greedy:
+            prompt, out = served[i]
+            seq = list(prompt) + list(out)
+            n = len(seq) - 1  # the last output token is never an input
+            pages = -(-n // ps)
+            kc, vc = llama.init_kv_cache(cfg, pages + 1, ps, dtype=cache_dtype, device=dev)
+            tables = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+            pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+            slots = (tables[0, (pos[0] // ps).long()] * ps + pos[0] % ps)[None].to(torch.int32)
+            tokens = torch.tensor([seq[:n]], dtype=torch.int32, device=dev)
+            cols = torch.arange(len(prompt) - 1, n, dtype=torch.int32, device=dev)[None]
+            logits, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, cols[:, -1],
+                                         logit_indices=cols)
+            logits = logits[0].float()
+            chosen = logits.gather(1, torch.tensor(out, device=dev)[:, None].long())[:, 0]
+            gap = logits.max(dim=1).values - chosen
+            worst = max(worst, float(gap.max()))
+            off_argmax += int((gap > 0).sum())
+            n_tok += len(out)
+            del kc, vc
+    return {"tokens": n_tok, "not_argmax": off_argmax, "max_logit_gap": worst, "tolerance": TF_LOGIT_TOL,
+            "ok": worst <= TF_LOGIT_TOL}
+
+
+def spec_phase(dev, model: str, params: dict) -> list[dict]:
+    """Speculative decoding and decode bursts on the card, each serve beside
+    the same mix served without them in the same run (``serve_spec``):
+    spec_k = SPEC_K on the main path, bf16 and (llama-3.2-1b) fp8 caches,
+    llama-3.2-1b also eager + synchronous; decode_steps = 4 on llama-3.2-1b,
+    overlapped (chained sub-steps) and synchronous (the fused multi_step
+    graph). Bitwise equality with the plain serve is not expected on the
+    card (a row's arithmetic depends on the batch's shapes, and a verify
+    step's matmuls have B*V rows): each serve's greedy tokens are held to
+    the teacher-forced check instead, and counted where they equal the
+    plain serve's. Fails if no draft is accepted, a check fails or a step
+    raised (a request that did not finish with its tokens)."""
+    greedy = [i for i, b in enumerate(spec_bodies(np.random.default_rng(7), model)) if b["temperature"] == 0]
+    runs = [dict(spec_k=SPEC_K)]
+    if model == MODEL:
+        runs += [dict(spec_k=SPEC_K, cache_dtype=FP8), dict(spec_k=SPEC_K, graphs=False, overlap=False),
+                 dict(decode_steps=4), dict(decode_steps=4, overlap=False)]
+    baselines, records = {}, []
+    for run in runs:
+        cache = run.get("cache_dtype")
+        mode = dict(graphs=run.get("graphs", True), overlap=run.get("overlap", True))
+        base_key = (cache, mode["graphs"], mode["overlap"] if "spec_k" in run else True)
+        if base_key not in baselines:
+            base, base_served = asyncio.run(serve_spec(model, params, cache, graphs=base_key[1],
+                                                       overlap=base_key[2]))
+            base["teacher_forced"] = teacher_forced(dev, model, params, cache, base_served, greedy)
+            baselines[base_key] = (base, base_served)
+        base, base_served = baselines[base_key]
+        rec, served = asyncio.run(serve_spec(model, params, cache, spec_k=run.get("spec_k", 0),
+                                             decode_steps=run.get("decode_steps", 1), **mode))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["teacher_forced"] = teacher_forced(dev, model, params, cache, served, greedy)
+        rec["greedy_requests_equal_plain"] = f"{sum(served[i][1] == base_served[i][1] for i in greedy)}/{len(greedy)}"
+        rec["plain"] = {k: base[k] for k in ("mode", "decode_steps", "output_tokens_per_s", "engine_steps",
+                                             "teacher_forced")}
+        rec["vs_plain"] = rec["output_tokens_per_s"] / base["output_tokens_per_s"]
+        emit({"phase": "spec" if rec["spec_k"] else "decode_burst", **rec})
+        records.append(rec)
+        bad = [r for r in (rec, base) if not r["teacher_forced"]["ok"]]
+        if bad:
+            raise AssertionError(f"teacher-forced check failed: {[r['teacher_forced'] for r in bad]}")
+        if rec["spec_k"] and rec["accepted_tokens"] <= 0:
+            raise AssertionError(f"no draft was accepted: {rec}")
+    return records
+
+
+def spec_graph_check(dev, model: str, params: dict) -> dict:
+    """A speculative verify and a decode burst replayed from CUDA graphs
+    against the eager runner on the same inputs, at full width: after a
+    two-row prefill (``step_async`` on the graph runner), a verify of 5
+    columns (one row with 3 drafts, one with 4; the graph runner's column 0
+    chained from the prefill's samples, ``spec_step_async``) with logprobs,
+    then a 4-step ``multi_step`` burst. Targets, per-column logprobs and
+    burst tokens must be bitwise equal."""
+    from dynamo_tpu_torch.engine.runner import StepBatch, TorchModelRunner
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[model]
+    ps, npages, lp_k, v = 16, 64, 20, SPEC_K + 1
+    runners = {g: TorchModelRunner(cfg, params, num_pages=npages, page_size=ps, max_batch_size=8, device=dev,
+                                   graphs=g, verify_width=v) for g in (True, False)}
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, 64).tolist() for _ in range(2)]
+    tables = np.arange(1, 1 + 2 * 8, dtype=np.int32).reshape(2, 8)
+
+    def batch(starts, tokens, temp=(0.0, 0.8)):
+        b, t = len(tokens), max(len(x) for x in tokens)
+        tok, pos = np.zeros((b, t), np.int32), np.zeros((b, t), np.int32)
+        for i, (s, x) in enumerate(zip(starts, tokens)):
+            tok[i, :len(x)] = x
+            pos[i, :len(x)] = np.arange(s, s + len(x))
+        slots = (tables[np.arange(b)[:, None], pos // ps] * ps + pos % ps).astype(np.int32)
+        for i, x in enumerate(tokens):
+            slots[i, len(x):] = 0
+        return StepBatch(tok, pos, tables, slots, np.array([len(x) - 1 for x in tokens], np.int32),
+                         np.array(temp, np.float32), np.zeros(b, np.int32), np.full(b, 0.95, np.float32),
+                         np.full(b, 1234, np.uint32), np.array([0, 0], np.int32), np.zeros(b, np.float32),
+                         np.zeros(b, np.float32), np.full(b, 8 * ps, np.int32), np.full((b, 1), -1, np.int32))
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and np.array_equal(np.asarray(a).view(np.int32), np.asarray(b).view(np.int32))
+
+    steps = []
+    g_pre = runners[True].step_async(batch([0, 0], prompts)).result()[0][:, 0]
+    e_pre = runners[False].step(batch([0, 0], prompts))
+    steps.append({"step": "prefill", "bitwise_equal": same(g_pre, e_pre)})
+    drafts = [rng.integers(1, cfg.vocab_size, 3).tolist(), rng.integers(1, cfg.vocab_size, 4).tolist()]
+    sb_g = batch([64, 64], [[0] + d for d in drafts])
+    sb_e = batch([64, 64], [[int(e_pre[i])] + d for i, d in enumerate(drafts)])
+    for sb in (sb_g, sb_e):
+        sb.spec_start = np.zeros(2, np.int32)
+        sb.sample_steps = np.ones(2, np.int32)
+    g_t, g_aux = runners[True].spec_step_async(sb_g, v, lp_k, chain_src=np.array([0, 1])).result()
+    e_t, e_aux = runners[False].spec_step(sb_e, v, lp_k=lp_k)
+    steps.append({"step": "verify", "bitwise_equal": same(g_t, e_t) and all(
+        same(g_aux[k], e_aux[k]) for k in ("logprob", "top_ids", "top_lps"))})
+    burst = batch([69, 69], [[int(e_t[i, -1])] for i in range(2)])
+    burst.sample_steps = np.full(2, 6, np.int32)
+    g_b, e_b = runners[True].multi_step(burst, 4), runners[False].multi_step(burst, 4)
+    steps.append({"step": "multi_step", "bitwise_equal": same(g_b, e_b)})
+    stats = runners[True].graph_stats()
+    record = {"phase": "graphs_spec", "model": model, "verify_width": v, "steps": steps,
+              "keys_captured": stats["keys"], "capture_s": stats["capture_s"]}
+    emit(record)
+    if not all(st["bitwise_equal"] for st in steps) or stats["keys"] != 3:
+        raise AssertionError(f"graph replay of a verify or a burst differs from the eager runner: {record}")
+    del runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+# -- phase 7: checkpoint -------------------------------------------------------------
+
+CKPT_SHARD_BYTES = 1 << 30  # llama-3.2-1b's 2.5 GB of bf16 weights in three shards
+
+
+def _sentencepiece_model() -> bytes:
+    """A small SentencePiece model: the letters and the space as pieces,
+    byte fallback, <unk>/<s>/</s> (``sentencepiece.write_model``)."""
+    from dynamo_tpu_torch.sentencepiece import BYTE, CONTROL, NORMAL, UNKNOWN, write_model
+
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL), ("</s>", 0.0, CONTROL), ("▁", -2.0, NORMAL)]
+    pieces += [(chr(97 + i), -3.0 - i / 100, NORMAL) for i in range(26)]
+    pieces += [(f"<0x{i:02X}>", -10.0, BYTE) for i in range(256)]
+    return write_model(pieces)
+
+
+async def _serve_sequential(model: str, params: dict | None, bodies: list[dict]) -> tuple[list[dict], dict]:
+    """``launch.run_local`` of ``model`` (a preset with ``params``, or a
+    checkpoint directory; one worker, CUDA graphs behind the overlapped
+    engine, in-process HTTP on a free port), then each body alone over HTTP
+    (one request at a time, so both serves step through the same
+    compositions), streamed with the logprobs of each position and its
+    top-5 alternatives. Returns the streams and the launches of the
+    model's kernels over them."""
+    import aiohttp
+
+    from dynamo_tpu_torch.launch import run_local, shutdown
+
+    kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[MODEL]}
+    handles = await run_local(model, port=0, device="cuda", params=params, overlap=True, **SERVE_ENGINE)
+    base = f"http://127.0.0.1:{handles['port']}"
+    try:
+        async with aiohttp.ClientSession() as session:
+            name = (await http_get(session, base, "/v1/models"))["data"][0]["id"]
+            warm = {"model": name, "prompt": [256] + [119] * 599, "max_tokens": 4, "temperature": 0.0,
+                    "nvext": {"ignore_eos": True}}
+            await stream_completion(session, base, warm)
+            for mod in kernels.values():
+                mod.launches = 0
+            streams = [await stream_completion(session, base, {**b, "model": name, "logprobs": 5}) for b in bodies]
+            launches = {k: mod.launches for k, mod in kernels.items()}
+    finally:
+        await shutdown(handles)
+    return streams, launches
+
+
+def checkpoint_phase(dev, params: dict) -> dict:
+    """llama-3.2-1b served from an HF checkpoint directory: the serve phase's
+    random-init parameters written by ``save_params`` (safetensors shards of
+    at most CKPT_SHARD_BYTES and an index, a config.json at the preset's
+    widths) with a SentencePiece tokenizer.model, in a temporary directory;
+    loaded back with ``load_model(dir, device="cuda")``, every leaf bitwise
+    the in-memory one; then the serve phase's 8-request mix (its seeded
+    request too), as token ids, served through ``launch.run_local(dir)``
+    and through ``run_local(MODEL)`` on the same weights, one request at a
+    time: every position's logprob and top-5 alternatives bitwise equal
+    (equal tokens). The directory is deleted afterwards."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.models import loader
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[MODEL]
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    ckpt = root / MODEL
+    try:
+        t0 = time.perf_counter()
+        files = loader.save_params(ckpt, cfg, params, max_shard_bytes=CKPT_SHARD_BYTES)
+        (ckpt / "tokenizer.model").write_bytes(_sentencepiece_model())
+        save_s = time.perf_counter() - t0
+        nbytes = sum((ckpt / f).stat().st_size for f in files)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, loaded = loader.load_model(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def leaves(tree, path=""):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}") if isinstance(v, dict) else [(f"{path}/{k}", v)]
+
+        want, got = dict(leaves(params)), dict(leaves(loaded))
+        unequal = sorted(k for k in want if k not in got or got[k].shape != want[k].shape
+                         or got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k]))
+        extra = sorted(set(got) - set(want))
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        # from_hf derives the MoE-only moe_norm_topk from the model type, as the JAX build does.
+        same_cfg = dataclasses.replace(lcfg, name=cfg.name, moe_norm_topk=cfg.moe_norm_topk) == cfg
+        if unequal or extra or not same_cfg:
+            raise AssertionError(f"checkpoint load: leaves {unequal} unequal, {extra} extra, config {lcfg}")
+        # The serve phase's mix, its prompts as the byte tokenizer's ids (BOS +
+        # bytes), which both serves' engines then see alike.
+        bodies = [{**b, "prompt": [256] + list(b["prompt"].encode())}
+                  for b in serve_bodies(np.random.default_rng(3))]
+        t0 = time.perf_counter()
+        preset, _ = asyncio.run(_serve_sequential(MODEL, params, bodies))
+        ckpt_streams, launches = asyncio.run(_serve_sequential(str(ckpt), None, bodies))
+        serve_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differ = [i for i, (a, b) in enumerate(zip(preset, ckpt_streams))
+              if a["token_logprobs"] != b["token_logprobs"]
+              or [sorted(x.values()) for x in a["top_logprobs"]] != [sorted(x.values()) for x in b["top_logprobs"]]]
+    record = {"phase": "checkpoint", "model": MODEL, "shards": len(files), "checkpoint_bytes": nbytes,
+              "save_s": save_s, "load_s": load_s, "load_gb_per_s": nbytes / load_s * 1e-9,
+              "leaves": len(want), "leaves_bitwise_equal": not unequal, "requests": len(bodies),
+              "requests_equal_preset_serve": len(bodies) - len(differ), "kernel_launches": launches,
+              "finish": sorted({s["finish"] for s in ckpt_streams}), "serve_s": serve_s}
+    emit(record)
+    if differ or min(launches.values()) <= 0 or record["finish"] != ["length"]:
+        raise AssertionError(f"the checkpoint serve differs from the preset serve (requests {differ}) or "
+                             f"did not run in the kernels: {record}")
+    return record
+
+
 def ptxas_functions(log: str) -> dict:
     """nvcc's -Xptxas -v report, per compiled entry function: {mangled name:
     {"registers": n, "spill_stores": bytes}}."""
@@ -1917,8 +2437,10 @@ def main() -> int:
     mla_errs = mla_kernel_checks(dev)
     errs.update({f"paged_mla/{k}": e for k, e in mla_errs.items()})
     errs.update({f"{k}/": e for k, e in {**fp8_kernel_checks(dev), **fp8_mla_kernel_checks(dev)}.items()})
+    errs.update({f"{k}/wide": e for k, e in wide_verify_checks(dev).items()})
     gqa = kernel_timings(dev)
     gqa_fp8 = kernel_timings(dev, FP8, bf16=gqa)
+    wide_verify_timing(dev)
     timing = {k: gqa[k] for k in ("paged_decode", "paged_prefill")}
     timing.update({f"{k}_fp8": gqa_fp8[k] for k in ("paged_decode", "paged_prefill")})
     # The kernels line carries paged_mla's decode time; its prefill and
@@ -1937,10 +2459,14 @@ def main() -> int:
         graph_check(dev, model, params)
         if model == MODEL:
             graph_check(dev, model, params, FP8)
+        spec_graph_check(dev, model, params)
         for cache_dtype in (None, FP8):
             record = serve_both(model, cache_dtype, params)
             served.setdefault(model, record)
             launches.update(record["kernel_launches"])
+        spec_phase(dev, model, params)
+        if model == MODEL:
+            checkpoint_phase(dev, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()

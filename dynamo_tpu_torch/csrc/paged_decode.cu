@@ -34,7 +34,10 @@
 // - One block per (split, KV head x 16-row tile, sequence): the query rows
 //   are cut into m16 row tiles in the grid, held as mma.sync A fragments in
 //   registers for the whole walk, so neither registers nor shared memory
-//   grow with T_q.
+//   grow with T_q. Any T_q whose row tiles fit the grid's y extent
+//   (n_kv * ceil(T_q * G / 16) <= 65535) is taken: a mixed speculative
+//   step of the chunk width (2048 tokens) runs here. A row tile walks keys
+//   up to its own rows' farthest position, not the sequence's.
 // - Each of the 4 warps owns a fixed 16-key slice of every 64-key tile and
 //   streams it itself: a kStages-deep ring per warp of TMA boxes (cp.async
 //   where the page size allows no 8-row box), from page ids staged in
@@ -357,11 +360,16 @@ __global__ void __launch_bounds__(32 * MmaSmem<HD, F8>::NW) decode_mma_kernel(
   const int np = min(split_pages(bps, ps), N - p0);
   const int* trow = tables + (size_t)b * N;
   for (int j = tid; j < np; j += NTH) pids[j] = trow[p0 + j];
-  // Walk length: the row's farthest query token (max, not last: padding
-  // columns carry position 0).
+  // Walk length: the farthest query token among this row tile's rows (max,
+  // not last: padding columns carry position 0). Every key past it is
+  // masked for all of the tile's rows, and a tile walked only to be masked
+  // leaves each state as it was (scores kNegInf, p 0, alpha exp(0)), so
+  // stopping there changes no result: it skips the causal blocks that a
+  // long query span's early rows never reach.
   const int* prow = positions + (size_t)b * T;
   int mx = 0;
-  for (int t = 0; t < T; ++t) mx = max(mx, prow[t]);
+  const int t_hi = min(T - 1, (rt * kRowTile + kRowTile - 1) / G);  // the tile's query tokens
+  for (int t = rt * kRowTile / G; t <= t_hi; ++t) mx = max(mx, prow[t]);
   const int length = mx + 1;
   const int nb_total = (length + kBlockTokens - 1) / kBlockTokens;
   const int nb = min(max(nb_total - first, 0), bps);

@@ -25,13 +25,25 @@ is prefill XOR decode).
   step N's samples on the device. Stops are detected one step late, at
   harvest, and the row's in-flight token is discarded: output streams are
   bit-identical to ``overlap=False``.
+- Speculative decoding (``EngineConfig.spec_k``): an n-gram proposer
+  (``engine/spec.py``) drafts up to spec_k tokens a decode row, and one
+  verify dispatch (``runner.spec_step``) scores them with the chunks of the
+  same step; the longest draft prefix the targets replay is accepted, plus
+  the bonus token after it. Lossless: streams are bit-identical to
+  ``spec_k=0``. With overlap (``overlap_spec``) every step in flight is
+  harvested before the next is scheduled, since a verify's acceptance (or a
+  step's sample, which the next drafts read) decides every position after
+  it: the overlapped spec engine composes exactly the synchronous one's
+  steps, and chains each row's accepted token from the device.
+- Decode bursts (``EngineConfig.decode_steps``): a pure-decode step runs
+  ``decode_steps`` fused steps in one dispatch (``runner.multi_step``);
+  with overlap, as many chained sub-steps behind one dispatch.
 
 Not ported yet, and without a config field here, so setting their flag
-fails: speculative decoding, multi-step decode bursts, SLO scheduling,
-cache-aware admission and async tier onboarding. Per-request features that
-are not ported (constrained decoding, multimodal inputs) finish the request
-with an error. The block manager, fault points, tracing spans and the
-flight recorder are not part of this core.
+fails: SLO scheduling, cache-aware admission and async tier onboarding.
+Per-request features that are not ported (constrained decoding, multimodal
+inputs) finish the request with an error. The block manager, fault points,
+tracing spans and the flight recorder are not part of this core.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ from typing import Callable
 import numpy as np
 
 from dynamo_tpu_torch.engine.allocator import OutOfPagesError, PageAllocator
-from dynamo_tpu_torch.engine.runner import StepBatch
+from dynamo_tpu_torch.engine.runner import StepBatch, next_pow2
 from dynamo_tpu_torch.engine.sequence import SeqStatus, Sequence
 from dynamo_tpu_torch.protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.protocols.kv import ForwardPassMetrics, KvCacheEvent
@@ -67,6 +79,7 @@ BARRIER_REASONS = (
     "prefill",  # legacy XOR mode: whole-prompt prefill steps carry no decodes
     "drain",  # every live row finishes inside the in-flight step
     "pages",  # sole candidate cannot extend: commit in-flight, then re-check
+    "spec",  # speculation: the step in flight is harvested first, or spec cannot chain
     "fill",  # pipeline refill: dispatched with nothing in flight
     "idle",  # barrier step with no recorded reason (nothing dispatched)
 )
@@ -75,10 +88,10 @@ BARRIER_REASONS = (
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX build's EngineConfig with the same names and defaults, less
-    every field only an unported feature reads (``spec_k``,
-    ``decode_steps``, ``slo_sched``, ``cache_aware``, ``async_onboard``,
-    ``overlap_spec``, ``swa_free_pages``, ``constraint_lookahead_tokens``):
-    passing one fails with a ``TypeError`` that names it."""
+    every field only an unported feature reads (``slo_sched``,
+    ``cache_aware``, ``async_onboard``, ``swa_free_pages``,
+    ``constraint_lookahead_tokens``): passing one fails with a ``TypeError``
+    that names it."""
 
     num_pages: int = 512
     page_size: int = 16
@@ -89,26 +102,49 @@ class EngineConfig:
     enable_prefix_caching: bool = True
     salt: int = DEFAULT_SALT
     worker_id: int = 0
+    # Fused decode steps per dispatch (DYNAMO_DECODE_STEPS): >1 amortizes
+    # the host round trip, at up to decode_steps-1 wasted steps per
+    # finishing sequence and K-token stream granularity.
+    decode_steps: int = 1
     chunk_prefill_tokens: int = 512
+    # Speculative decoding (DYN_SPEC_K): max draft tokens per decode row per
+    # step, verified in one multi-token dispatch; 0 = off. Lossless: streams
+    # are bit-identical to spec_k=0. Drafts are charged against
+    # chunk_prefill_tokens and the decode-first page reserve covers spec_k+1
+    # slots per sequence.
+    spec_k: int = 0
     # Overlapped execution (DYN_OVERLAP): a depth-1 pipeline that dispatches
     # step N+1 before step N's tokens reach the host. Mixed steps, penalized
     # rows and budget-final tokens chain; cancellation barriers. Output
     # streams are bit-identical to off.
     overlap: bool = False
+    # Let speculative verify dispatches ride the overlapped pipeline
+    # (DYN_OVERLAP_SPEC): each step in flight is harvested before the next is
+    # scheduled (a verify's acceptance decides it), and each verify chains
+    # its base token from the device. Off barriers every spec step to the
+    # synchronous path; output streams are identical either way.
+    overlap_spec: bool = True
 
 
 @dataclasses.dataclass
 class _InflightStep:
-    """A dispatched-but-unharvested step. ``ns``/``samples`` snapshot the
-    composition the harvest needs to apply the results: a row whose
-    sequence left RUNNING meanwhile (cancelled, preempted, finished) is
-    skipped and its sample discarded."""
+    """A dispatched-but-unharvested step: kind "step" (a possibly mixed
+    step) or "spec" (a speculative verify). ``ns``/``samples``/``drafts``
+    snapshot the composition the harvest needs to apply the results: a row
+    whose sequence left RUNNING meanwhile (cancelled, preempted, finished)
+    is skipped and its sample discarded. ``extra`` holds the chained
+    pure-decode sub-steps of a decode_steps burst, harvested in dispatch
+    order, one more token a row each."""
 
     batch: list
     handle: object
     ns: list  # real token columns per row
     n_dec: int  # leading decode rows (the rest are prefill chunks)
     samples: list  # per row: does the engine accept its sample?
+    kind: str = "step"
+    drafts: list | None = None  # per decode row, its draft tokens (spec)
+    v: int = 1  # verify width (spec)
+    extra: list = dataclasses.field(default_factory=list)  # burst sub-step handles
 
 
 class EngineCore:
@@ -166,6 +202,16 @@ class EngineCore:
         self._overlap_barrier_reason: str | None = None
         self.overlap_step_counts: dict[str, int] = {"overlapped": 0, "barrier": 0}
         self.overlap_barrier_counts: dict[str, int] = {}
+        # Speculative decoding: cumulative drafting and verify counters
+        # (acceptance rate = accepted / proposed).
+        self.spec_tokens_proposed = 0
+        self.spec_tokens_accepted = 0
+        self.spec_steps = 0
+        self._proposer = None
+        if config.spec_k > 0:
+            from dynamo_tpu_torch.engine.spec import build_proposer
+
+            self._proposer = build_proposer()
 
     # -- request intake ----------------------------------------------------
 
@@ -241,6 +287,14 @@ class EngineCore:
             if cancelled:
                 self._note_barrier("cancel")
             return cancelled + self._drain_inflight()
+        if self._inflight is not None and self._spec_active() and self._spec_chains():
+            # Speculation decides every position from the step before: a
+            # verify's acceptance, or a step's sample (the next drafts read
+            # it). Harvest it before scheduling, so this step is composed
+            # from the state the synchronous engine composes from; the
+            # device-resident samples stay valid to chain from.
+            self._note_barrier("spec")
+            cancelled += self._harvest_inflight()
         chunks = self._schedule_prefill()
         overlap_ok, reason = self._overlap_route(chunks)
         if overlap_ok:
@@ -253,10 +307,12 @@ class EngineCore:
             # scheduled again next step.
             return cancelled + self._drain_inflight()
         fused = self.config.chunk_prefill_tokens > 0
-        if chunks or (fused and self.running and self.prefilling):
+        if chunks or (fused and self.running and self.prefilling) or (self._spec_active() and self.running):
             # Mixed step: decode rows + prefill-chunk rows in one dispatch
             # (also with zero chunks scheduled: decode must not wait on
             # page-starved prefills). Legacy mode runs whole prompts alone.
+            # With speculation on, pure-decode steps come here too: the
+            # verify dispatch supersedes the decode burst.
             return cancelled + self._run_mixed(chunks)
         if self.running:
             return cancelled + self._run_decode()
@@ -333,7 +389,16 @@ class EngineCore:
             # Nothing schedulable. If a step is in flight its rows are all
             # finishing: the next step harvests it; otherwise idle.
             return (self._inflight is not None), None
+        if self._spec_active() and not self._spec_chains():
+            # Speculation is on but cannot chain (overlap_spec off, or a
+            # runner without an async verify): barrier to the synchronous
+            # verify path rather than drop the drafts.
+            return False, "spec"
         return True, None
+
+    def _spec_chains(self) -> bool:
+        """Verify dispatches ride the overlapped pipeline."""
+        return self.config.overlap and self.config.overlap_spec and hasattr(self.runner, "spec_step_async")
 
     # -- prefill phase -----------------------------------------------------
 
@@ -365,9 +430,13 @@ class EngineCore:
             budget = self.config.max_prefill_tokens
         chunks: list[tuple[Sequence, int]] = []
         # Decode first: the decodable sequences' next-token pages are spoken
-        # for before any chunk is sized against the free pool.
+        # for before any chunk is sized against the free pool. Speculation
+        # widens the reserve to spec_k+1 slots per sequence: a chunk must
+        # never take pages a verify row needs this step (drafts drop rather
+        # than preempt, so a full pool would silently disable speculation).
+        ahead = 1 + (self.config.spec_k if self._spec_active() else 0)
         reserve = sum(
-            s.pages_needed(ps, self._adv(s)[0] + max(0, min(1, self._eff_remaining(s))))
+            s.pages_needed(ps, self._adv(s)[0] + max(0, min(ahead, self._eff_remaining(s))))
             for s in decodable
         ) if chunked else 0
 
@@ -467,20 +536,137 @@ class EngineCore:
                 seq.seq_id, num_new, self.allocator.num_free(), self._head_stall_steps,
             )
 
+    # -- speculative decoding ----------------------------------------------
+
+    def _spec_active(self) -> bool:
+        """Speculation runs only with a proposer AND a runner that has the
+        verify dispatch (spec_k is inert otherwise)."""
+        return self.config.spec_k > 0 and self._proposer is not None and hasattr(self.runner, "spec_step")
+
+    def _propose_drafts(self, decode_rows: list[Sequence], chunks: list[tuple[Sequence, int]]) -> list[list[int]]:
+        """Per decode row, up to spec_k draft tokens for this step's verify
+        (``dynamo_tpu/engine/core.py:_propose_drafts``).
+
+        Drafts are charged against the mixed step's chunk budget (whatever
+        the scheduled chunks left of it): a draft token costs a forward's
+        work like a prefill-chunk token. Page extension is opportunistic: on
+        exhaustion the row's drafts are dropped rather than preempting
+        anyone. Rows with repetition penalties never draft: they sample from
+        a history that grows per accepted token, which the per-column verify
+        sample cannot replay."""
+        k = self.config.spec_k
+        budget = None
+        if self.config.chunk_prefill_tokens > 0:
+            budget = max(0, min(self.config.chunk_prefill_tokens, self.config.max_prefill_tokens)
+                         - sum(n for _, n in chunks))
+        drafts: list[list[int]] = []
+        for s in decode_rows:
+            # remaining - 1: the verify step emits at most len(draft) + 1
+            # tokens, which must never overrun max_tokens or the context
+            # window (this also keeps every speculative KV write inside the
+            # row's position limit). Effective state: a chained row's
+            # in-flight token already counts against the budget.
+            dc, de = self._adv(s)
+            cap = min(k, self._eff_remaining(s) - 1)
+            if budget is not None:
+                cap = min(cap, budget)
+            sp = s.request.sampling
+            if cap <= 0 or sp.frequency_penalty or sp.presence_penalty:
+                drafts.append([])
+                continue
+            # A chained row (de=1) has a host context one token short: propose
+            # one more and drop the head, which guesses the in-flight token.
+            d = [int(tok) for tok in self._proposer.propose(s.tokens, cap + de)][de:]
+            if d:
+                need = s.pages_needed(self.config.page_size, dc + 1 + len(d))
+                if need:
+                    try:
+                        s.pages.extend(self.allocator.allocate(need))
+                    except OutOfPagesError:
+                        d = []
+            if budget is not None:
+                budget -= len(d)
+            self.spec_tokens_proposed += len(d)
+            drafts.append(d)
+        return drafts
+
+    def _lp_cols(self, seq: Sequence, lp_aux, i: int, toks: list[int]) -> list[dict] | None:
+        """Logprobs entries from a verify's per-column aux arrays ([B, V] /
+        [B, V, k]): one entry per emitted token, column j of row i. Chunk
+        rows pass a single token (their column 0)."""
+        enc = seq.request.sampling.logprobs
+        if not enc or lp_aux is None:
+            return None
+        alts = min(enc - 1, lp_aux["top_ids"].shape[-1])
+        entries = []
+        for j, tok in enumerate(toks):
+            top = [[int(t), float(lp)] for t, lp in zip(lp_aux["top_ids"][i, j][:alts], lp_aux["top_lps"][i, j][:alts])]
+            entries.append({"id": int(tok), "logprob": float(lp_aux["logprob"][i, j]), "top": top})
+        return entries
+
+    def _compose(self, batch: list[Sequence], ns: list[int], n_dec: int, drafts: list[list[int]],
+                 chain: bool) -> tuple:
+        """Host arrays of a (possibly mixed, possibly verify) dispatch, each
+        row at its effective state: a decode row's span is its input token
+        (taken on the device when ``chain`` and the row chains) and its
+        drafts; a chunk row's its next prompt tokens. Returns ``(tokens,
+        positions, block_tables, slots, last, chain_src, samples)``."""
+        ps = self.config.page_size
+        t = max(ns)
+        b = len(batch)
+        npg = max(len(s.pages) for s in batch)
+        tokens = np.zeros((b, t), np.int32)
+        positions = np.zeros((b, t), np.int32)
+        block_tables = np.zeros((b, npg), np.int32)
+        slots = np.zeros((b, t), np.int32)
+        last = np.zeros(b, np.int32)
+        chain_src = np.full(b, -1, np.int32)
+        samples = [False] * b
+        for i, (s, n) in enumerate(zip(batch, ns)):
+            ec = self._eff_cached(s)
+            if i < n_dec:
+                src = self._chain_map.get(s.seq_id, -1) if chain else -1
+                if src >= 0:
+                    chain_src[i] = src  # column 0 taken on the device
+                else:
+                    # The host knows the input token (nothing in flight for
+                    # this row; an IndexError here would mean the chain map
+                    # lost an in-flight row, never silence it).
+                    tokens[i, 0] = s.tokens[ec]
+                # Drafts are not in s.tokens: they join the sequence (and its
+                # hash chain) only if the verify accepts them.
+                tokens[i, 1:n] = drafts[i]
+                samples[i] = True
+            else:
+                tokens[i, :n] = s.tokens[ec:ec + n]
+                samples[i] = ec + n == len(s.tokens)
+            pos = np.arange(ec, ec + n, dtype=np.int32)
+            positions[i, :n] = pos
+            block_tables[i, : len(s.pages)] = s.pages
+            page_arr = np.asarray(s.pages, dtype=np.int32)
+            slots[i, :n] = page_arr[pos // ps] * ps + pos % ps
+            last[i] = n - 1
+        return tokens, positions, block_tables, slots, last, chain_src, samples
+
     def _run_mixed(self, chunks: list[tuple[Sequence, int]]) -> list[tuple[Sequence, EngineOutput]]:
         """One fused dispatch: a 1-token decode row per running sequence plus
         an n-token prefill row per scheduled chunk. Non-final chunk rows
         discard their sample — their rng counter (``num_generated``) does
         not advance, so the final chunk samples exactly what a whole-prompt
-        prefill would."""
+        prefill would. With speculation on, the decode rows carry their
+        drafts and the step is a verify dispatch."""
         fused = self.config.chunk_prefill_tokens > 0
+        spec = self._spec_active()
         out: list[tuple[Sequence, EngineOutput]] = []
         decode_rows: list[Sequence] = []
-        if fused and self.running:
+        if (fused or (spec and not chunks)) and self.running:
             failed = self._ensure_burst_pages(1)
             if failed is not None:
                 out.append((failed, self._final_output(failed)))
             decode_rows = list(self.running)
+        # After _ensure_burst_pages: its preemptions change the row list.
+        drafts = self._propose_drafts(decode_rows, chunks) if spec and decode_rows else [[] for _ in decode_rows]
+        use_spec = spec and bool(decode_rows)
         self.last_step_info = {
             "decode_rows": len(decode_rows),
             "chunk_rows": len(chunks),
@@ -495,51 +681,86 @@ class EngineCore:
         if not batch:
             return out
         n_dec = len(decode_rows)
-        ns = [1] * n_dec + [n for _, n in chunks]
-        ps = self.config.page_size
-        t = max(ns)
-        npg = max(len(s.pages) for s in batch)
-        b = len(batch)
-        tokens = np.zeros((b, t), np.int32)
-        positions = np.zeros((b, t), np.int32)
-        block_tables = np.zeros((b, npg), np.int32)
-        slots = np.zeros((b, t), np.int32)
-        last = np.zeros(b, np.int32)
-        for i, (s, n) in enumerate(zip(batch, ns)):
-            tokens[i, :n] = s.tokens[s.num_cached : s.num_cached + n]
-            pos = np.arange(s.num_cached, s.num_cached + n, dtype=np.int32)
-            positions[i, :n] = pos
-            block_tables[i, : len(s.pages)] = s.pages
-            page_arr = np.asarray(s.pages, dtype=np.int32)
-            slots[i, :n] = page_arr[pos // ps] * ps + pos % ps
-            last[i] = n - 1
+        ns = [1 + len(d) for d in drafts] + [n for _, n in chunks]
         # A row samples iff its span reaches the end of its tokens: all
         # decode rows, and exactly the chunks that finish their prompt.
-        samples = [i < n_dec or s.num_cached + n == len(s.tokens) for i, (s, n) in enumerate(zip(batch, ns))]
+        tokens, positions, block_tables, slots, last, _, samples = self._compose(batch, ns, n_dec, drafts, False)
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
         lp_k = LOGPROBS_TOP_K if any(
             s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
         ) else 0
+        v = self.config.spec_k + 1
+        targets = None
         try:
-            stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
-            next_tokens, lp_aux = stepped if lp_k else (stepped, None)
+            if use_spec:
+                # Decode rows score every column, chunk rows only their last
+                # (start n-1): chunk sampling stays the non-speculative step's.
+                sb.spec_start = np.asarray([0] * n_dec + [n - 1 for _, n in chunks], np.int32)
+                stepped = self.runner.spec_step(sb, v, lp_k=lp_k) if lp_k else self.runner.spec_step(sb, v)
+                targets, lp_aux = stepped if lp_k else (stepped, None)
+                next_tokens = targets[:, 0]
+            else:
+                stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
+                next_tokens, lp_aux = stepped if lp_k else (stepped, None)
         except Exception:
             for s in batch:
                 self._finish(s, FinishReason.ERROR)
             raise
-        rec = _InflightStep(batch, None, ns=ns, n_dec=n_dec, samples=samples)
-        return out + self._apply_mixed_results(rec, next_tokens, lp_aux)
+        rec = _InflightStep(batch, None, ns=ns, n_dec=n_dec, samples=samples, kind="spec" if use_spec else "step",
+                            drafts=drafts, v=v if use_spec else 1)
+        return out + self._apply_mixed_results(rec, next_tokens, lp_aux, targets)
 
-    def _apply_mixed_results(self, rec: _InflightStep, next_tokens, lp_aux) -> list[tuple[Sequence, EngineOutput]]:
-        """Apply a (possibly mixed) step's sampled tokens; shared by the
-        synchronous path and the overlapped harvest. Rows whose sequence
-        left RUNNING while the step was in flight (cancelled, preempted,
-        finished by a late stop) are skipped: their samples are discarded."""
+    def _apply_mixed_results(self, rec: _InflightStep, next_tokens, lp_aux, targets=None, *,
+                             chain_out: bool = False) -> list[tuple[Sequence, EngineOutput]]:
+        """Apply a (possibly mixed, possibly speculative) step's sampled
+        tokens; shared by the synchronous path and the overlapped harvest.
+        Rows whose sequence left RUNNING while the step was in flight
+        (cancelled, preempted, finished by a late stop) are skipped: their
+        samples are discarded. A verify row accepts the longest draft prefix
+        its targets replay, plus the bonus token after it. With
+        ``chain_out`` (a verify's harvest) each surviving row's last
+        accepted token is recorded in ``_chain_map`` as its index in the
+        runner's flat ``[B*V]`` targets, for the next dispatch to chain."""
         batch, ns, samples = rec.batch, rec.ns, rec.samples
+        use_spec = rec.kind == "spec"
+        ps = self.config.page_size
         out: list[tuple[Sequence, EngineOutput]] = []
+        spec_accepted = 0
         for i, (s, n) in enumerate(zip(batch, ns)):
             if s.status is not SeqStatus.RUNNING:
                 self._chain_map.pop(s.seq_id, None)
+                continue
+            if use_spec and i < rec.n_dec:
+                # targets[i, j] is the token the non-speculative engine would
+                # sample after j accepted tokens (fold counter num_generated
+                # + j), so once targets[i, j] != draft[j] the later columns
+                # were scored on a context the real stream never reaches.
+                draft = rec.drafts[i]
+                emitted = [int(next_tokens[i])]
+                while len(emitted) <= len(draft) and emitted[-1] == draft[len(emitted) - 1]:
+                    emitted.append(int(targets[i, len(emitted)]))
+                accepted: list[int] = []
+                for tok in emitted:
+                    s.num_cached += 1
+                    s.append_token(tok)
+                    self._generated_tokens_total += 1
+                    accepted.append(tok)
+                    if s.check_stop(self._eos, self.config.max_seq_len) is not None:
+                        break  # overshoot past EOS or the length limit is discarded
+                spec_accepted += max(0, len(accepted) - 1)
+                if chain_out and not s.is_finished:
+                    self._chain_map[s.seq_id] = i * rec.v + len(accepted) - 1
+                # Roll back speculative pages the accepted span did not reach:
+                # freshly allocated this step (commit never passes num_cached).
+                if not s.is_finished:
+                    keep = s.num_cached // ps + 1
+                    if len(s.pages) > keep:
+                        extra = [p for p in s.pages[keep:] if p != 0]
+                        del s.pages[keep:]
+                        if extra:
+                            self.allocator.release(extra)
+                self._commit_filled_pages(s)
+                out.append(self._emit_many(s, accepted, self._lp_cols(s, lp_aux, i, accepted)))
                 continue
             # Prompt-token accounting: only the prompt part of the span.
             self._prompt_tokens_total += max(0, min(s.num_cached + n, s.num_prompt) - s.num_cached)
@@ -551,11 +772,21 @@ class EngineCore:
                 s.append_token(tok)
                 self._generated_tokens_total += 1
                 self._commit_filled_pages(s)
-                out.append(self._emit(s, tok, self._lp_entries(s, lp_aux, i)))
+                if chain_out and not s.is_finished:
+                    self._chain_map[s.seq_id] = i * rec.v  # its column 0
+                lp = self._lp_cols(s, lp_aux, i, [tok]) if use_spec else self._lp_entries(s, lp_aux, i)
+                out.append(self._emit(s, tok, lp))
             else:
                 # Non-final chunk: publish its full pages (shareable before
                 # the prefill finishes) and discard the sampled token.
                 self._commit_filled_pages(s)
+        if use_spec:
+            drafted = sum(len(d) for d in rec.drafts)
+            self.spec_steps += 1
+            self.spec_tokens_accepted += spec_accepted
+            self.last_step_info["spec_drafted"] = drafted
+            self.last_step_info["spec_accepted"] = spec_accepted
+            self.last_step_info["spec_accept_rate"] = round(spec_accepted / drafted, 4) if drafted else 0.0
         # Chunks whose final span sampled are decodable now.
         for s in batch[rec.n_dec:]:
             if s in self.prefilling and s.prompt_remaining <= 1 and not s.is_finished:
@@ -565,13 +796,14 @@ class EngineCore:
 
     # -- overlapped mixed pipeline -----------------------------------------
 
-    def _ensure_lookahead_pages(self, rows: list[Sequence]) -> Sequence | None:
-        """Give every lookahead decode row pages covering its chained write
-        (position ``eff_cached``); preempt on exhaustion. Rows preempted by
-        an earlier row's allocation are dropped from ``rows`` in place (the
-        caller filters again for victims already behind the cursor). A sole
-        row that cannot fit is returned *unfinished*: the step in flight may
-        hold its legitimate finish."""
+    def _ensure_lookahead_pages(self, rows: list[Sequence], horizon: int = 1) -> Sequence | None:
+        """Give every lookahead decode row pages covering its chained writes
+        (positions ``eff_cached .. eff_cached + horizon - 1``, clamped to the
+        row's finish line; horizon > 1 is a decode_steps burst); preempt on
+        exhaustion. Rows preempted by an earlier row's allocation are dropped
+        from ``rows`` in place (the caller filters again for victims already
+        behind the cursor). A sole row that cannot fit is returned
+        *unfinished*: the step in flight may hold its legitimate finish."""
         ps = self.config.page_size
         i = 0
         while i < len(rows):
@@ -579,7 +811,7 @@ class EngineCore:
             if s.status is not SeqStatus.RUNNING:
                 rows.pop(i)
                 continue
-            need = s.pages_needed(ps, self._adv(s)[0] + 1)
+            need = s.pages_needed(ps, self._adv(s)[0] + max(1, min(horizon, self._eff_remaining(s))))
             if need:
                 try:
                     s.pages.extend(self.allocator.allocate(need))
@@ -613,7 +845,7 @@ class EngineCore:
     def _run_mixed_overlapped(self, chunks: list[tuple[Sequence, int]]) -> list[tuple[Sequence, EngineOutput]]:
         """Depth-1 overlapped pipeline over mixed steps
         (``dynamo_tpu/engine/core.py:_run_mixed_overlapped``, less its
-        speculative, constrained, multimodal and burst branches).
+        constrained and multimodal branches).
 
         Step N+1 is composed at the sequences' effective state
         (``_inflight_adv``) and dispatched before step N's tokens reach the
@@ -624,7 +856,15 @@ class EngineCore:
         keeps a budget-final row's write off live pages, so neither needs a
         barrier. Rows that finish *inside* the in-flight step are left out
         of the lookahead: their finish is detected at harvest, one step
-        late, and streams stay bit-identical to overlap=False."""
+        late, and streams stay bit-identical to overlap=False.
+
+        With speculation on, the step in flight was harvested before this
+        one was scheduled (``_step_locked``), so the step is composed as the
+        synchronous engine composes it: every decode row drafts from its
+        whole context and the dispatch is a verify (``spec_step_async``)
+        whose accepted columns the next step chains from. ``decode_steps >
+        1`` issues the burst's K-1 further pure-decode steps chained behind
+        the dispatch, harvested with it one step late."""
         fused = self.config.chunk_prefill_tokens > 0
         out: list[tuple[Sequence, EngineOutput]] = []
         info = self.last_step_info = {
@@ -653,7 +893,19 @@ class EngineCore:
                 self._note_barrier("drain")
                 out += self._drain_inflight()
             return out
-        failed = self._ensure_lookahead_pages(decode_rows)
+        spec = self._spec_active()
+        # decode_steps > 1: only clean decode batches burst (chunks change
+        # the composition mid-burst, speculation already amortizes the round
+        # trip, logprobs and penalty history need the host between tokens).
+        k_cfg = max(1, self.config.decode_steps)
+        want_burst = k_cfg > 1 and not chunks and not spec and bool(decode_rows) and not any(
+            s.request.sampling.logprobs or s.request.sampling.frequency_penalty
+            or s.request.sampling.presence_penalty for s in decode_rows)
+        failed = self._ensure_lookahead_pages(decode_rows, k_cfg if want_burst else 1)
+        if failed is not None and want_burst:
+            # The burst's horizon did not fit; one lookahead token still might.
+            want_burst = False
+            failed = self._ensure_lookahead_pages(decode_rows, 1)
         if failed is not None:
             # The sole candidate cannot extend: the in-flight step may hold
             # its legitimate finish. Commit that first, then check again.
@@ -667,6 +919,13 @@ class EngineCore:
         # _ensure_lookahead_pages may have preempted rows already behind its
         # cursor; drop them (their recompute is scheduled from waiting).
         decode_rows = [s for s in decode_rows if s.status is SeqStatus.RUNNING]
+        k_burst = 1
+        if want_burst and decode_rows:
+            # Never burst a row past its finish line: every sub-step is a real
+            # dispatch, so the shortest row clamps the depth.
+            k_burst = max(1, min(k_cfg, min(self._eff_remaining(s) for s in decode_rows)))
+        drafts = self._propose_drafts(decode_rows, chunks) if spec and decode_rows else [[] for _ in decode_rows]
+        use_spec = spec and bool(decode_rows)
         batch = decode_rows + [s for s, _ in chunks]
         if not batch:
             if inf is not None:
@@ -677,77 +936,96 @@ class EngineCore:
         info["decode_rows"] = n_dec
         if chunks and fused:
             self.mixed_steps += 1
-        ns = [1] * n_dec + [n for _, n in chunks]
-        ps = self.config.page_size
-        t = max(ns)
-        npg = max(len(s.pages) for s in batch)
+        ns = [1 + len(d) for d in drafts] + [n for _, n in chunks]
+        tokens, positions, block_tables, slots, last, chain_src, samples = self._compose(
+            batch, ns, n_dec, drafts, True)
         b = len(batch)
-        tokens = np.zeros((b, t), np.int32)
-        positions = np.zeros((b, t), np.int32)
-        block_tables = np.zeros((b, npg), np.int32)
-        slots = np.zeros((b, t), np.int32)
-        last = np.zeros(b, np.int32)
-        chain_src = np.full(b, -1, np.int32)
-        samples = [False] * b
-        for i, (s, n) in enumerate(zip(batch, ns)):
-            ec = self._eff_cached(s)
-            if i < n_dec:
-                src = self._chain_map.get(s.seq_id, -1)
-                if src >= 0:
-                    chain_src[i] = src  # column 0 taken on the device
-                else:
-                    # The host knows the input token (nothing in flight for
-                    # this row; an IndexError here would mean the chain map
-                    # lost an in-flight row, never silence it).
-                    tokens[i, 0] = s.tokens[ec]
-                samples[i] = True
-            else:
-                tokens[i, :n] = s.tokens[ec : ec + n]
-                samples[i] = ec + n == len(s.tokens)
-            pos = np.arange(ec, ec + n, dtype=np.int32)
-            positions[i, :n] = pos
-            block_tables[i, : len(s.pages)] = s.pages
-            page_arr = np.asarray(s.pages, dtype=np.int32)
-            slots[i, :n] = page_arr[pos // ps] * ps + pos % ps
-            last[i] = n - 1
-        info["chained_rows"] = chained = int((chain_src >= 0).sum())
+        chained = int((chain_src >= 0).sum())
+        info["chained_rows"] = chained + b * (k_burst - 1)  # every sub-step row chains
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
         lp_k = LOGPROBS_TOP_K if any(
             s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
         ) else 0
+        v = self.config.spec_k + 1
+        ps = self.config.page_size
         try:
-            dev = self.runner.step_async(sb, lp_k=lp_k, chain=chained > 0,
-                                         chain_src=chain_src if chained else None)
+            if use_spec:
+                sb.spec_start = np.asarray([0] * n_dec + [n - 1 for _, n in chunks], np.int32)
+                dev = self.runner.spec_step_async(sb, v, lp_k=lp_k, chain_src=chain_src if chained else None)
+                new_inf = _InflightStep(batch, dev, ns=ns, n_dec=n_dec, samples=samples, kind="spec",
+                                        drafts=drafts, v=v)
+            else:
+                dev = self.runner.step_async(sb, lp_k=lp_k, chain=chained > 0,
+                                             chain_src=chain_src if chained else None)
+                new_inf = _InflightStep(batch, dev, ns=ns, n_dec=n_dec, samples=samples, drafts=drafts)
+                for j in range(1, k_burst):
+                    # Burst sub-step j: row i's input is the previous
+                    # dispatch's row-i sample (the identity chain); positions
+                    # and slots advance by j, and sample_steps by j keeps the
+                    # fold counter on the synchronous loop's lattice.
+                    pos_j = positions[:, :1] + j
+                    slots_j = np.zeros((b, 1), np.int32)
+                    for i, s in enumerate(batch):
+                        p = int(pos_j[i, 0])
+                        slots_j[i, 0] = s.pages[p // ps] * ps + p % ps
+                    sbj = self._sampling_batch(batch, np.zeros((b, 1), np.int32), pos_j, block_tables, slots_j,
+                                               np.zeros(b, np.int32))
+                    sbj.sample_steps += j
+                    new_inf.extra.append(self.runner.step_async(sbj, chain=True, chain_src=None))
         except Exception:
             self._abort_pipeline(batch)
             raise
-        new_inf = _InflightStep(batch, dev, ns=ns, n_dec=n_dec, samples=samples)
         if inf is not None:
             self._overlap_mode = "overlapped"
         else:
             self._note_barrier("fill")
-        # The new dispatch's chain map: its emitting rows. Installed *before*
-        # the harvest below so late finishes prune their entries.
-        self._chain_map = {s.seq_id: i for i, (s, smp) in enumerate(zip(batch, samples)) if smp}
+        # The new dispatch's chain map: a verify's is known only at its
+        # harvest (acceptance decides the column); a step's is its emitting
+        # rows. Installed *before* the harvest below so late finishes prune
+        # their entries.
+        self._chain_map = {} if use_spec else {
+            s.seq_id: i for i, (s, smp) in enumerate(zip(batch, samples)) if smp}
         if inf is not None:
             out += self._harvest_inflight()
         self._inflight = new_inf
-        self._inflight_adv = {
-            s.seq_id: (n, 1 if smp else 0) for s, n, smp in zip(batch, ns, samples)
-        }
+        if use_spec:
+            # A verify row advances by 1..k+1 tokens, unknown until harvest
+            # (so the next step harvests first); only the chunk rows'
+            # advance is certain.
+            self._inflight_adv = {s.seq_id: (n, 1 if smp else 0)
+                                  for s, n, smp in zip(batch[n_dec:], ns[n_dec:], samples[n_dec:])}
+        else:
+            # A burst's sub-steps advance every row one more slot and one
+            # more token each (a row finishing mid-burst discards the
+            # overshoot at harvest).
+            self._inflight_adv = {s.seq_id: (n + k_burst - 1, (1 if smp else 0) + k_burst - 1)
+                                  for s, n, smp in zip(batch, ns, samples)}
         return out
 
     def _harvest_inflight(self) -> list[tuple[Sequence, EngineOutput]]:
         """Consume the in-flight step (waiting for its tokens) and apply it;
         the device-resident samples stay valid for a dispatch composed on
-        top. Clears the effective-state advance: the host has caught up."""
+        top (a verify's: its accepted columns, ``chain_out``). Clears the
+        effective-state advance: the host has caught up."""
         inf = self._inflight
         if inf is None:
             return []
         self._inflight = None
         self._inflight_adv = {}
         res, lp_aux = inf.handle.result()
-        return self._apply_mixed_results(inf, res[:, 0], lp_aux)
+        if inf.kind == "spec":
+            return self._apply_mixed_results(inf, res[:, 0], lp_aux, res, chain_out=True)
+        out = self._apply_mixed_results(inf, res[:, 0], lp_aux)
+        for h in inf.extra:
+            # Burst sub-steps: one more pure-decode token a row each, in
+            # dispatch order. Rows finished by an earlier sub-step are
+            # skipped (the RUNNING check); their overshoot writes land in
+            # pages reallocated only to dispatches composed after these.
+            res_j, lp_j = h.result()
+            b = len(inf.batch)
+            rec = _InflightStep(inf.batch, h, ns=[1] * b, n_dec=b, samples=[True] * b)
+            out += self._apply_mixed_results(rec, res_j[:, 0], lp_j)
+        return out
 
     def _drain_inflight(self) -> list[tuple[Sequence, EngineOutput]]:
         """Consume the in-flight step without composing on top of it: apply
@@ -762,7 +1040,17 @@ class EngineCore:
     # -- decode phase ------------------------------------------------------
 
     def _run_decode(self) -> list[tuple[Sequence, EngineOutput]]:
-        failed = self._ensure_burst_pages(1)
+        """A synchronous pure-decode step, or a fused burst of up to
+        ``decode_steps`` (never past the farthest finish line: a power of
+        two keeps the burst on few dispatch keys; logprobs take single
+        steps, the burst surfaces no per-step logits)."""
+        k = max(1, self.config.decode_steps)
+        if self.running:
+            rem = max(s.remaining_tokens(self.config.max_seq_len) for s in self.running)
+            k = max(1, min(k, next_pow2(rem)))
+        if any(s.request.sampling.logprobs for s in self.running):
+            k = 1
+        failed = self._ensure_burst_pages(k)
         if failed is not None:
             return [(failed, self._final_output(failed))]
         batch = list(self.running)  # snapshot: _emit may finish rows
@@ -783,9 +1071,14 @@ class EngineCore:
             slots[i, 0] = s.pages[pos // ps] * ps + pos % ps
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, np.zeros(b, np.int32))
         lp_k = LOGPROBS_TOP_K if any(s.request.sampling.logprobs for s in batch) else 0
+        lp_aux = None
         try:
-            stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
-            next_tokens, lp_aux = stepped if lp_k else (stepped, None)
+            if k > 1:
+                next_tokens = self.runner.multi_step(sb, k)  # [B, k]
+            else:
+                stepped = self.runner.step(sb, lp_k=lp_k) if lp_k else self.runner.step(sb)
+                stepped, lp_aux = stepped if lp_k else (stepped, None)
+                next_tokens = np.asarray(stepped)[:, None]
         except Exception:
             for s in batch:
                 self._finish(s, FinishReason.ERROR)
@@ -794,12 +1087,16 @@ class EngineCore:
         for i, s in enumerate(batch):
             if s.status is not SeqStatus.RUNNING:
                 continue
-            s.num_cached += 1
-            tok = int(next_tokens[i])
-            s.append_token(tok)
-            self._generated_tokens_total += 1
+            accepted: list[int] = []
+            for tok in next_tokens[i]:
+                s.num_cached += 1
+                s.append_token(int(tok))
+                self._generated_tokens_total += 1
+                accepted.append(int(tok))
+                if s.check_stop(self._eos, self.config.max_seq_len) is not None:
+                    break  # the burst's overshoot is discarded
             self._commit_filled_pages(s)
-            outputs.append(self._emit(s, tok, self._lp_entries(s, lp_aux, i)))
+            outputs.append(self._emit_many(s, accepted, self._lp_entries(s, lp_aux, i)))
         return outputs
 
     def _ensure_burst_pages(self, horizon: int) -> Sequence | None:
@@ -851,9 +1148,10 @@ class EngineCore:
             pres[i] = sp.presence_penalty
             limits[i] = s.position_limit(self.config.max_seq_len)
         # Generated-token history feeds the repetition penalties; shipped
-        # only when some request set one (H collapses to 1 otherwise).
+        # only when some request set one (H collapses to 1 otherwise). Its
+        # width covers a fused decode burst's own samples (written in-graph).
         if freq.any() or pres.any():
-            h = max(int(steps.max()) + 1, 1)
+            h = max(int(steps.max()) + self.config.decode_steps, 1)
             history = np.full((b, h), -1, np.int32)
             for i, s in enumerate(batch):
                 gen = s.tokens[s.num_prompt:]
@@ -905,6 +1203,15 @@ class EngineCore:
             logprobs=logprobs[:1] if logprobs else None,
             admission_wait_ms=round(wait_ms, 3) if wait_ms is not None else None,
         )
+
+    def _emit_many(self, seq: Sequence, tokens: list[int], logprobs: list[dict] | None = None
+                   ) -> tuple[Sequence, EngineOutput]:
+        """One delta of several tokens (a verify's accepted span, a burst)."""
+        seq_out = self._emit(seq, tokens[-1], logprobs)
+        out = seq_out[1]
+        out.token_ids = list(tokens)
+        out.logprobs = logprobs[:len(tokens)] if logprobs else None
+        return seq_out
 
     def _lp_entries(self, seq: Sequence, lp_aux, i: int) -> list[dict] | None:
         """One request's logprobs entry from a step's aux arrays (row i)."""

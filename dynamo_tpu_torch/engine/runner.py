@@ -30,8 +30,17 @@ input token from there in-graph (``_apply_chain``). ``DeviceStepTokens``
 waits for the step's copy to host; two pinned buffers alternate, so a
 harvest never reads one that the next copy is filling.
 
-Not ported yet: ``spec_step(_async)``, ``multi_step``, ``read_page(s)``,
-``write_page(s)`` and ``embed``.
+Speculative verify (``spec_step``, ``spec_step_async``,
+``DeviceSpecTokens``) scores V = spec_k + 1 columns a row in one forward
+and samples every column as the non-speculative step would after j
+accepted tokens: logits flattened to ``[B*V]`` rows, column j drawing with
+the fold counter ``sample_steps + j``, so acceptance on the host is a plain
+prefix comparison. Its targets become the chain buffer, flat ``[B*V]``.
+``multi_step`` runs a fused burst of decode steps in one dispatch, each
+step's sample the next one's input. Each is a CUDA graph per dispatch key
+on the card, V (or the burst length) in the key.
+
+Not ported yet: ``read_page(s)``, ``write_page(s)`` and ``embed``.
 """
 
 from __future__ import annotations
@@ -107,6 +116,9 @@ class StepBatch:
     pos_limit: np.ndarray  # i32[B] first absolute position KV must never be written at
     history: np.ndarray  # i32[B, H] generated tokens so far, pad -1 (H=1 when no penalties)
     logit_mask: np.ndarray | None = None  # bool[B, vocab] allowed tokens (None = all)
+    # Speculative verify: each row's first verify column (0 for decode rows,
+    # n-1 for prefill-chunk rows, which score only their last column).
+    spec_start: np.ndarray | None = None  # i32[B]
 
     @property
     def batch_size(self) -> int:
@@ -123,30 +135,45 @@ class DeviceStepTokens:
     """Handle to one dispatched step's sampled tokens and optional logprob
     arrays (``dynamo_tpu/engine/runner.py:DeviceStepTokens``): the copy to
     host is already enqueued; ``result()`` waits for it (a CUDA event) and
-    returns ``(tokens i32[B_real, 1], lp_aux | None)``."""
+    returns ``(tokens i32[B_real, W], lp_aux | None)``, W = 1 for a step (a
+    burst's W is its length, with no logprobs)."""
 
-    def __init__(self, host: torch.Tensor, event, b_real: int, bp: int, lp_k: int) -> None:
-        self._host = host  # int32: tokens [bp], then chosen, top_ids, top_lps (f32 as bits)
+    per_column = False  # logprob arrays [B] / [B, k] (a verify's: [B, V] / [B, V, k])
+
+    def __init__(self, host: torch.Tensor, event, b_real: int, bp: int, lp_k: int, width: int = 1) -> None:
+        self._host = host  # int32: tokens [bp*W], then chosen, top_ids, top_lps (f32 as bits)
         self._event = event  # None on the CPU: host already holds the values
-        self._b_real, self._bp, self._lp_k = b_real, bp, lp_k
+        self._b_real, self._bp, self._lp_k, self._w = b_real, bp, lp_k, width
         self._value = None
 
     def result(self) -> tuple[np.ndarray, dict | None]:
         if self._value is None:
             if self._event is not None:
                 self._event.synchronize()
-            flat, b, bp, k = self._host.numpy(), self._b_real, self._bp, self._lp_k
-            toks = flat[:bp][:b, None].copy()
+            flat, b, k, w = self._host.numpy(), self._b_real, self._lp_k, self._w
+            n = self._bp * w
+            toks = flat[:n].reshape(-1, w)[:b].copy()
             aux = None
             if k:
+                rows = (-1, w) if self.per_column else (-1,)
                 aux = {
-                    "logprob": flat[bp:2 * bp].view(np.float32)[:b].copy(),
-                    "top_ids": flat[2 * bp:2 * bp + bp * k].reshape(bp, k)[:b].copy(),
-                    "top_lps": flat[2 * bp + bp * k:2 * bp * (1 + k)].view(np.float32).reshape(bp, k)[:b].copy(),
+                    "logprob": flat[n:2 * n].view(np.float32).reshape(rows)[:b].copy(),
+                    "top_ids": flat[2 * n:2 * n + n * k].reshape(*rows, k)[:b].copy(),
+                    "top_lps": flat[2 * n + n * k:2 * n * (1 + k)].view(np.float32).reshape(*rows, k)[:b].copy(),
                 }
             self._value = (toks, aux)
             self._host = None  # the pinned buffer goes back to the runner
         return self._value
+
+
+class DeviceSpecTokens(DeviceStepTokens):
+    """Handle to a dispatched speculative verify's targets
+    (``dynamo_tpu/engine/runner.py:DeviceSpecTokens``): ``result()`` returns
+    ``(targets i32[B_real, V], lp_aux | None)`` with per-column logprob
+    arrays ``[B_real, V]`` / ``[B_real, V, k]``, the values
+    :meth:`TorchModelRunner.spec_step` returns."""
+
+    per_column = True
 
 
 @dataclasses.dataclass
@@ -191,7 +218,11 @@ class TorchModelRunner:
         cache_dtype: torch.dtype | None = None,
         device: str | torch.device = "cuda",
         graphs: bool | None = None,
+        verify_width: int = 1,
     ) -> None:
+        """``verify_width`` sizes the device-resident sample buffer for
+        verify dispatches of that many columns (``spec_k + 1``); a wider
+        one grows it, and the graphs captured before are captured again."""
         self.device = resolve_device(device)
         llama.check_supported(cfg)
         self.cfg = cfg
@@ -222,9 +253,10 @@ class TorchModelRunner:
             cfg, num_pages, page_size, dtype=dt, device=self.device
         )
         self._inv_freq = llama.rope_table(cfg, self.device)
-        # The latest step_async's samples, one row per padded batch row, and
-        # how many rows of it are live (0: nothing to chain from).
-        self._chain_buf = torch.zeros(max_batch_size, dtype=torch.int32, device=self.device)
+        # The latest async dispatch's samples, one per padded batch row (a
+        # verify's: row * V + column), and how many of them are live (0:
+        # nothing to chain from).
+        self._chain_buf = torch.zeros(max_batch_size * max(1, verify_width), dtype=torch.int32, device=self.device)
         self._chain_rows = 0
         self._inputs: dict[tuple, torch.Tensor] = {}  # key -> its device input buffer
         self._slots = [_Slot(), _Slot()]
@@ -242,6 +274,20 @@ class TorchModelRunner:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
             self._warm_chain = torch.empty_like(self._chain_buf)  # the warm-up's samples go here
+
+    def _ensure_chain(self, n: int) -> None:
+        """Grow the sample buffer to hold ``n`` samples, keeping the samples
+        it holds (the dispatch that grows it may chain from them). The
+        graphs captured so far read and write the old buffer, so they are
+        dropped and captured again at their next use."""
+        if n <= self._chain_buf.numel():
+            return
+        grown = torch.zeros(next_pow2(n), dtype=torch.int32, device=self.device)
+        grown[:self._chain_buf.numel()].copy_(self._chain_buf)
+        self._chain_buf = grown
+        self._graphs.clear()
+        if self.graphs:
+            self._warm_chain = torch.empty_like(self._chain_buf)
 
     @staticmethod
     def _check_kernels_take(cfg: ModelConfig, cache_dtype: torch.dtype, page_size: int) -> None:
@@ -280,6 +326,9 @@ class TorchModelRunner:
         return max(1, next_pow2(n))
 
     def _pad(self, batch: StepBatch) -> StepBatch:
+        """Pad ``batch`` onto the bucket lattice: pad rows carry zeros,
+        position limit 0 (their writes land in the null page), top-p 1 and
+        an empty penalty history."""
         b, t = batch.tokens.shape
         bp = self._bucket_batch(b)
         tp = self._bucket_time(t)
@@ -316,6 +365,7 @@ class TorchModelRunner:
             pos_limit=pad1(batch.pos_limit, bp),  # pad rows: limit 0 -> null page
             history=pad2(batch.history, bp, hp, fill=-1),
             logit_mask=lmask,
+            spec_start=None if batch.spec_start is None else pad1(np.asarray(batch.spec_start, np.int32), bp),
         )
 
     # -- execution ---------------------------------------------------------
@@ -353,6 +403,54 @@ class TorchModelRunner:
             handle = self._dispatch(batch, lp_k, src)
             self._chain_rows = self._bucket_batch(batch.batch_size)
             return handle
+
+    def spec_step(self, batch: StepBatch, verify_width: int, lp_k: int = 0):
+        """Speculative verify dispatch (``dynamo_tpu/engine/runner.py:spec_step``):
+        returns target tokens i32[B_real, V], with ``lp_k`` also per-column
+        logprob arrays ``[B, V]`` / ``[B, V, k]``.
+
+        ``batch`` is a mixed StepBatch whose decode rows carry draft tokens
+        as extra real columns and whose ``spec_start`` names each row's first
+        verify column (0 for decode rows, n-1 for prefill-chunk rows, which
+        score only their last column exactly as :meth:`step` does). Verify
+        columns past a row's real span clamp to its last column; the engine
+        discards those duplicates. Column j of the result is the token the
+        non-speculative engine would sample after accepting j draft tokens
+        (fold counter ``sample_steps + j``)."""
+        with self.io_lock:
+            self._chain_rows = 0
+            targets, aux = self._dispatch(batch, lp_k, None, kind="spec", width=verify_width).result()
+            return (targets, aux) if lp_k else targets
+
+    def spec_step_async(self, batch: StepBatch, verify_width: int, lp_k: int = 0, *,
+                        chain_src: np.ndarray | None = None) -> DeviceSpecTokens:
+        """Dispatch a speculative verify without waiting for its result
+        (``dynamo_tpu/engine/runner.py:spec_step_async``). With ``chain_src``
+        (see :meth:`step_async`) the decode rows' column-0 input token is
+        taken on the device from the previous dispatch's samples. The
+        verify's own targets become the chain buffer, flat ``[Bp*V]``
+        row-major: the engine chains the next dispatch from index
+        ``row * V + accepted columns - 1`` once acceptance is known."""
+        with self.io_lock:
+            bp = self._bucket_batch(batch.batch_size)
+            src = self._chain_src_padded(chain_src, batch.batch_size, bp) if chain_src is not None else None
+            handle = self._dispatch(batch, lp_k, src, kind="spec", width=verify_width)
+            self._chain_rows = bp * verify_width
+            return handle
+
+    def multi_step(self, batch: StepBatch, num_steps: int) -> np.ndarray:
+        """Fused decode burst (``dynamo_tpu/engine/runner.py:multi_step``):
+        ``num_steps`` decode iterations in one dispatch, the sample of step i
+        the input of step i+1, slots derived on the device from positions and
+        tables (past a row's position limit the write lands in the null
+        page); returns sampled tokens i32[B_real, num_steps]. ``batch`` is a
+        decode batch (T == 1) whose tables cover positions + num_steps."""
+        if batch.tokens.shape[1] != 1:
+            raise ValueError("multi_step is decode-only (T == 1)")
+        with self.io_lock:
+            self._chain_rows = 0
+            toks, _ = self._dispatch(batch, 0, None, kind="burst", width=num_steps).result()
+            return toks
 
     def _chain_src_padded(self, chain_src, b_real: int, bp: int) -> np.ndarray:
         """Pad a per-row chain source vector to the batch bucket (-1 = host).
@@ -392,30 +490,38 @@ class TorchModelRunner:
     def _layout(self, key: tuple) -> tuple[list[int], int]:
         """The int32 fields of a key's packed input buffer, and its bytes
         (the fields, then the logit mask's bytes when the key has one)."""
-        b, t, n, h, _, _, _, _, masked = key
-        sizes = [b * t, b * t, b * n, b * t] + [b] * 8 + [b * h, b]
+        kind, b, t, n, h, width, _, _, _, _, masked = key
+        sizes = [b * t, b * t, b * n, b * t] + [b] * 8 + [b * h, b, b, b * width if kind == "spec" else 0]
         return sizes, 4 * sum(sizes) + (b * self.cfg.vocab_size if masked else 0)
 
-    def _dispatch(self, batch: StepBatch, lp_k: int, chain_src: np.ndarray | None) -> DeviceStepTokens:
+    def _dispatch(self, batch: StepBatch, lp_k: int, chain_src: np.ndarray | None, *,
+                  kind: str = "step", width: int = 1) -> DeviceStepTokens:
+        """Pack, copy and run one dispatch: ``kind`` "step" (one token a
+        row), "spec" (a verify of ``width`` columns) or "burst" (``width``
+        fused decode steps)."""
         b_real = batch.batch_size
         if b_real > self.max_batch_size:
             raise ValueError(f"a step of {b_real} rows exceeds max_batch_size {self.max_batch_size}")
+        if kind != "step" and batch.logit_mask is not None:
+            raise ValueError("constrained rows take plain steps (a verify or a burst carries no logit mask)")
         padded = self._pad(batch)
         b, t = padded.tokens.shape
-        if t > 1:
+        if t > 1 and kind == "step":
             bad = noncontiguous_rows(padded.positions)
             if bad:
                 raise ValueError(f"step rows {bad} have non-contiguous positions")
-        self.last_attn_dispatch = (attention_phase(t, True), self._attn_path)
+        self.last_attn_dispatch = (attention_phase(t, kind != "spec"), self._attn_path)
         # Decided on the host: a captured step never reads a flag back.
-        key = (b, t, padded.block_tables.shape[1], padded.history.shape[1], lp_k, chain_src is not None,
-               bool((padded.temperature > 0).any()), bool(padded.freq_pen.any() or padded.pres_pen.any()),
-               padded.logit_mask is not None)
+        key = (kind, b, t, padded.block_tables.shape[1], padded.history.shape[1], width, lp_k,
+               chain_src is not None, bool((padded.temperature > 0).any()),
+               bool(padded.freq_pen.any() or padded.pres_pen.any()), padded.logit_mask is not None)
+        samples = b * width if kind == "spec" else b
+        self._ensure_chain(samples)
         sizes, nbytes = self._layout(key)
-        n_out = b * (2 + 2 * lp_k) if lp_k else b
+        n_out = samples * (2 + 2 * lp_k) if lp_k else b * width
         slot = self._take_slot(nbytes, n_out)
         host = slot.stage.numpy()[:nbytes] if slot.stage is not None else np.empty(nbytes, np.uint8)
-        self._pack(host, padded, sizes, chain_src)
+        self._pack(host, padded, sizes, chain_src, width if kind == "spec" else 0)
         if self.device.type == "cpu":
             buf = torch.from_numpy(host)
         else:
@@ -433,16 +539,17 @@ class TorchModelRunner:
                 packed_out, draw = graph.outputs
             else:
                 packed_out, draw = self._body(buf, key, self._chain_buf)
-        if self.draw_hook is not None:
+        if self.draw_hook is not None and kind == "step":
             self.draw_hook(padded, draw)
+        handle_cls = DeviceSpecTokens if kind == "spec" else DeviceStepTokens
         if self.device.type == "cpu":
-            slot.handle = DeviceStepTokens(packed_out, None, b_real, b, lp_k)
+            slot.handle = handle_cls(packed_out, None, b_real, b, lp_k, width)
         else:
             out = slot.out[:n_out]
             out.copy_(packed_out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            slot.handle = DeviceStepTokens(out, done, b_real, b, lp_k)
+            slot.handle = handle_cls(out, done, b_real, b, lp_k, width)
         return slot.handle
 
     def _take_slot(self, nbytes: int, n_out: int) -> _Slot:
@@ -464,20 +571,25 @@ class TorchModelRunner:
                 slot.out = _pinned(n_out, torch.int32)
         return slot
 
-    def _pack(self, host: np.ndarray, padded: StepBatch, sizes: list[int], chain_src: np.ndarray | None) -> None:
+    def _pack(self, host: np.ndarray, padded: StepBatch, sizes: list[int], chain_src: np.ndarray | None,
+              verify_width: int = 0) -> None:
         """Write the padded batch into ``host`` (uint8, the key's layout)."""
         b = padded.tokens.shape[0]
         n_ints = sum(sizes)
         # Finish-line clamp: a column at/past its row's position limit writes
         # KV to the null page instead of a live slot.
         slots = np.where(padded.positions < padded.pos_limit[:, None], padded.slot_mapping, 0)
+        # Verify columns: each row's from its spec_start on, clamped to its last real column.
+        start = padded.spec_start if padded.spec_start is not None else np.zeros(b, np.int32)
+        vi = np.minimum(start[:, None] + np.arange(verify_width, dtype=np.int32)[None, :],
+                        padded.last_token_index[:, None])
         fields = [
             padded.tokens, padded.positions, padded.block_tables, slots, padded.last_token_index,
             padded.temperature.astype(np.float32).view(np.int32), padded.top_k,
             padded.top_p.astype(np.float32).view(np.int32), padded.seeds.astype(np.uint32).view(np.int32),
             padded.sample_steps, padded.freq_pen.astype(np.float32).view(np.int32),
             padded.pres_pen.astype(np.float32).view(np.int32), padded.history,
-            chain_src if chain_src is not None else np.full(b, -1, np.int32),
+            chain_src if chain_src is not None else np.full(b, -1, np.int32), padded.pos_limit, vi,
         ]
         ints = host[:4 * n_ints].view(np.int32)
         off = 0
@@ -515,20 +627,39 @@ class TorchModelRunner:
         results: chain, forward, sample, logprobs. Writes the samples into
         ``chain_out``. Copies nothing to or from the host and branches only
         on ``key``, so it can be captured."""
-        b, t, n, h, lp_k, chain, sampled, penalized, masked = key
+        kind, b, t, n, h, width, lp_k, chain, sampled, penalized, masked = key
         sizes, _ = self._layout(key)
         ints = buf[:4 * sum(sizes)].view(torch.int32)
         (tokens, positions, tables, slot_mapping, last_idx, temperature, top_k, top_p, seeds, sample_steps,
-         freq_pen, pres_pen, history, chain_src) = torch.split(ints, sizes)
+         freq_pen, pres_pen, history, chain_src, pos_limit, verify_idx) = torch.split(ints, sizes)
         tokens, positions, slot_mapping = tokens.view(b, t), positions.view(b, t), slot_mapping.view(b, t)
         tables, history = tables.view(b, n), history.view(b, h)
         temperature, top_p = temperature.view(torch.float32), top_p.view(torch.float32)
+        freq_pen, pres_pen = freq_pen.view(torch.float32), pres_pen.view(torch.float32)
         if chain:
             tokens, history = _apply_chain(tokens, history, sample_steps, self._chain_buf, chain_src)
-        logits, _, _ = llama.forward(
-            self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache,
-            tables, slot_mapping, last_idx, inv_freq=self._inv_freq,
-        )
+        if kind == "burst":
+            return self._burst(width, tokens[:, 0], positions[:, 0], tables, pos_limit, temperature, top_k, top_p,
+                               seeds, sample_steps, freq_pen, pres_pen, history, sampled, penalized, chain_out)
+        if kind == "spec":
+            logits, _, _ = llama.forward(
+                self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache, tables, slot_mapping,
+                last_idx, logit_indices=verify_idx.view(b, width), contiguous_positions=False,
+                inv_freq=self._inv_freq,
+            )
+            logits = logits.reshape(b * width, -1)  # row b*V + j: column j of row b
+            # Column j draws with the fold counter the non-speculative engine
+            # reaches after accepting j tokens; every other input is its row's.
+            cols = torch.arange(width, device=ints.device, dtype=torch.int32)
+            sample_steps = (sample_steps[:, None] + cols[None, :]).reshape(-1)
+            seeds, temperature, top_k, top_p, freq_pen, pres_pen, history = (
+                x.repeat_interleave(width, dim=0)
+                for x in (seeds, temperature, top_k, top_p, freq_pen, pres_pen, history))
+        else:
+            logits, _, _ = llama.forward(
+                self.params, self.cfg, tokens, positions, self.k_cache, self.v_cache,
+                tables, slot_mapping, last_idx, inv_freq=self._inv_freq,
+            )
         sample_logits = logits
         if masked:
             vocab = self.cfg.vocab_size
@@ -536,14 +667,44 @@ class TorchModelRunner:
             sample_logits = torch.where(mask, logits, NEG_INF)
         gumbel = gumbel_noise(seeds, sample_steps, temperature, min(CANDIDATES, logits.shape[-1])) \
             if sampled else None
-        pen = dict(history=history, frequency_penalty=freq_pen.view(torch.float32),
-                   presence_penalty=pres_pen.view(torch.float32)) if penalized else {}
+        pen = dict(history=history, frequency_penalty=freq_pen, presence_penalty=pres_pen) if penalized else {}
         next_tokens = sample_tokens(sample_logits, temperature, top_k, top_p, gumbel=gumbel,
                                     all_greedy=not sampled, **pen)
-        chain_out[:b].copy_(next_tokens)
+        chain_out[:next_tokens.shape[0]].copy_(next_tokens)
         packed = next_tokens
         if lp_k:
             chosen, top_ids, top_lps = token_logprobs(logits, next_tokens, lp_k)
             packed = torch.cat([next_tokens, chosen.view(torch.int32), top_ids.reshape(-1),
                                 top_lps.reshape(-1).view(torch.int32)])
         return packed, {"logits": sample_logits, "gumbel": gumbel, "tokens": next_tokens, **pen}
+
+    def _burst(self, steps, tok, pos, tables, pos_limit, temperature, top_k, top_p, seeds, cnt, freq_pen,
+               pres_pen, history, sampled, penalized, chain_out) -> tuple[torch.Tensor, dict]:
+        """``steps`` fused decode iterations (the JAX build's ``_multi_step``
+        scan, unrolled): each writes its KV at a slot taken from the tables
+        (the null page past the row's position limit), samples with fold
+        counter ``cnt`` and feeds its sample to the next; the burst's own
+        samples join the penalty history. Returns the tokens ``[B, steps]``
+        row-major."""
+        ps = self.page_size
+        zeros = torch.zeros_like(tok)
+        outs = []
+        for _ in range(steps):
+            col = (pos // ps).clamp(max=tables.shape[1] - 1).long()
+            slot = tables.gather(1, col[:, None])[:, 0] * ps + pos % ps
+            slot = torch.where(pos < pos_limit, slot, 0)
+            logits, _, _ = llama.forward(
+                self.params, self.cfg, tok[:, None], pos[:, None], self.k_cache, self.v_cache,
+                tables, slot[:, None], zeros, inv_freq=self._inv_freq,
+            )
+            gumbel = gumbel_noise(seeds, cnt, temperature, min(CANDIDATES, logits.shape[-1])) if sampled else None
+            pen = dict(history=history, frequency_penalty=freq_pen, presence_penalty=pres_pen) if penalized else {}
+            nxt = sample_tokens(logits, temperature, top_k, top_p, gumbel=gumbel, all_greedy=not sampled, **pen)
+            if penalized:
+                write = cnt.clamp(max=history.shape[1] - 1).long()[:, None]
+                history = history.scatter(1, write, nxt[:, None])
+            outs.append(nxt)
+            tok, pos, cnt = nxt, pos + 1, cnt + 1
+        chain_out[:tok.shape[0]].copy_(tok)
+        toks = torch.stack(outs, dim=1)
+        return toks.reshape(-1), {"tokens": toks}

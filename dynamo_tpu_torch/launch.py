@@ -3,8 +3,11 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
 (the counterpart of ``dynamo_tpu/launch.py``'s single-process path).
 
 - :func:`build_engine_service` — the counterpart of
-  ``dynamo_tpu/launch.py:build_engine_service`` restricted to presets with
-  random-init (seeded) or bridged parameters.
+  ``dynamo_tpu/launch.py:build_engine_service``: ``model`` is a preset
+  (random-init, seeded, or bridged parameters) or an HF checkpoint
+  directory (``config.json``, safetensors, tokenizer), whose card, tokenizer
+  and weights (``models/loader.py``) are the JAX build's
+  ``WorkerSpec.from_model_dir``.
 - :func:`build_pipeline` — the ``OpenAIPreprocessor(Backend(service,
   tokenizer))`` chain over one service, in-process, with no runtime.
 - :func:`serve_worker` — one engine on a runtime endpoint with its KV event
@@ -14,10 +17,13 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
 - :func:`run_local` — N workers and the frontend in one process over the
   in-memory runtime, round-robin, random or KV-routed.
 - CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
-  --router-mode kv --http-port 8080`` (``--platform cpu`` runs on the CPU;
-  ``--kv-cache-dtype fp8``, or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV
-  cache as fp8 e4m3, served by the kernels' fp8 forms; ``--overlap``, or
-  ``DYN_OVERLAP=1``, runs the engine's overlapped pipeline).
+  --router-mode kv --http-port 8080`` (``--model`` also takes a checkpoint
+  directory; ``--platform cpu`` runs on the CPU; ``--kv-cache-dtype fp8``,
+  or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV cache as fp8 e4m3, served by
+  the kernels' fp8 forms; ``--overlap``, or ``DYN_OVERLAP=1``, runs the
+  engine's overlapped pipeline; ``--spec-k K``, or ``DYN_SPEC_K``, drafts
+  K tokens a row for a speculative verify; ``--decode-steps K``, or
+  ``DYNAMO_DECODE_STEPS``, fuses K decode steps a dispatch).
 
 On the card every engine step replays a CUDA graph (``TorchModelRunner``).
 
@@ -25,9 +31,9 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Not ported yet: the multi-process roles (``--role``, the TCP store and
 transport), disaggregated prefill workers, the ``text`` and ``batch:``
-inputs, checkpoint directories, the worker telemetry plane, and the JAX
-build's other engine options. The command line refuses each of those
-options by name.
+inputs, GGUF files and vision checkpoints, the worker telemetry plane, and
+the JAX build's other engine options. The command line refuses each of
+those options by name.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import argparse
 import asyncio
 import logging
 import os
+import pathlib
 from typing import Any
 
 import torch
@@ -51,7 +58,7 @@ from dynamo_tpu_torch.frontend.metrics import FrontendMetrics
 from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelWatcher
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.models import llama
-from dynamo_tpu_torch.models.config import PRESETS
+from dynamo_tpu_torch.models.config import PRESETS, ModelConfig
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventBroadcaster
 from dynamo_tpu_torch.router.metrics import WorkerMetricsPublisher
@@ -88,6 +95,37 @@ def _overlap() -> bool:
     return env_flag(os.environ, "DYN_OVERLAP") or env_flag(os.environ, "DYN_WORKER_OVERLAP")
 
 
+def _engine_env() -> dict[str, Any]:
+    """The engine fields the JAX launcher reads from the environment
+    (``dynamo_tpu/launch.py:WorkerSpec._engine_cfg``): ``decode_steps`` from
+    DYNAMO_DECODE_STEPS / DYN_WORKER_DECODE_STEPS (``--decode-steps`` sets
+    the latter), ``spec_k`` from DYN_SPEC_K / DYN_WORKER_SPEC_K
+    (``--spec-k``), ``overlap`` (:func:`_overlap`) and ``overlap_spec``,
+    on unless DYN_OVERLAP_SPEC or DYN_WORKER_OVERLAP_SPEC is false."""
+    return {
+        "decode_steps": int(os.environ.get("DYNAMO_DECODE_STEPS") or os.environ.get("DYN_WORKER_DECODE_STEPS", "1")),
+        "spec_k": int(os.environ.get("DYN_SPEC_K") or os.environ.get("DYN_WORKER_SPEC_K", "0")),
+        "overlap": _overlap(),
+        "overlap_spec": (env_flag(os.environ, "DYN_OVERLAP_SPEC", default=True)
+                         and env_flag(os.environ, "DYN_WORKER_OVERLAP_SPEC", default=True)),
+    }
+
+
+def resolve_model(model: str) -> tuple[ModelConfig, pathlib.Path | None]:
+    """``model`` as the JAX launcher resolves it (``make_worker_spec``): a
+    preset name, or a path to an HF checkpoint directory, whose config is
+    read from its ``config.json`` under the directory's name. Returns the
+    config and the directory (None for a preset)."""
+    if model in PRESETS:
+        return PRESETS[model], None
+    p = pathlib.Path(model)
+    if p.is_dir():
+        return ModelConfig.from_hf(p / "config.json", name=p.name), p
+    if p.suffix == ".gguf":
+        raise NotImplementedError("GGUF checkpoints are not ported to dynamo_tpu_torch yet (ROADMAP A4)")
+    raise ValueError(f"unknown model {model!r}: not a preset ({', '.join(PRESETS)}) or a checkpoint directory")
+
+
 async def build_engine_service(
     model: str,
     *,
@@ -99,37 +137,48 @@ async def build_engine_service(
     on_kv_event=None,
     **engine_kw,
 ) -> TorchEngineService:
-    """Bring up a started engine service for preset ``model``.
+    """Bring up a started engine service for ``model``: a preset or an HF
+    checkpoint directory (:func:`resolve_model`).
 
     ``params`` are the port's parameters (e.g. ``bridge.params_from_jax``);
-    without them the weights are random-init from ``seed``. ``engine_kw``
-    overrides :class:`EngineConfig` fields; the defaults are the JAX build's
-    for a preset (byte-tokenizer EOS, 16-token pages, context capped at
-    4096; ``overlap`` from :func:`_overlap`). ``cache_dtype`` None takes
-    :func:`_kv_cache_dtype` (the environment; unset keeps the model's
-    dtype). ``graphs`` is the runner's (None: CUDA graphs on the card).
-    Raises without a GPU unless ``device="cpu"``."""
-    if model not in PRESETS:
-        raise ValueError(f"unknown preset {model!r} (ported presets: {', '.join(PRESETS)})")
+    without them a preset's weights are random-init from ``seed`` and a
+    directory's are loaded from its safetensors (``models/loader.py``).
+    ``engine_kw`` overrides :class:`EngineConfig` fields; the defaults are
+    the JAX build's: for a preset byte-tokenizer EOS, 16-token pages and the
+    context capped at 4096, for a directory its card's context length, EOS
+    ids and page size; ``decode_steps``, ``spec_k``, ``overlap`` and
+    ``overlap_spec`` from the environment (:func:`_engine_env`).
+    ``cache_dtype`` None takes :func:`_kv_cache_dtype` (the environment;
+    unset keeps the model's dtype). ``graphs`` is the runner's (None: CUDA
+    graphs on the card). Raises without a GPU unless ``device="cpu"``."""
+    cfg, model_dir = resolve_model(model)
     dev = resolve_device(device)
     if cache_dtype is None:
         cache_dtype = _kv_cache_dtype()
-    cfg = PRESETS[model]
-    config = EngineConfig(**{
-        "max_seq_len": min(cfg.max_position, CONTEXT_LENGTH_CAP),
-        "eos_token_ids": tuple(sorted(ByteTokenizer().eos_token_ids)),
-        "page_size": 16,
-        "overlap": _overlap(),
-        **engine_kw,
-    })
+    if model_dir is None:
+        defaults = {"max_seq_len": min(cfg.max_position, CONTEXT_LENGTH_CAP),
+                    "eos_token_ids": tuple(sorted(ByteTokenizer().eos_token_ids)), "page_size": 16}
+    else:
+        card = ModelDeploymentCard.from_model_dir(cfg.name, model_dir)
+        defaults = {"max_seq_len": card.context_length, "eos_token_ids": tuple(card.eos_token_ids),
+                    "page_size": card.kv_page_size}
+    config = EngineConfig(**{**defaults, **_engine_env(), **engine_kw})
 
     def _build() -> TorchModelRunner:
-        # Parameter init and cache allocation take seconds at full width:
-        # keep them off the event loop.
-        p = params if params is not None else llama.init_params(cfg, seed, device=dev)
+        # Parameter init or loading and cache allocation take seconds at
+        # full width: keep them off the event loop.
+        if params is not None:
+            p = params
+        elif model_dir is not None:
+            from dynamo_tpu_torch.models.loader import load_params
+
+            p = load_params(model_dir, cfg, device=dev)
+        else:
+            p = llama.init_params(cfg, seed, device=dev)
         return TorchModelRunner(
             cfg, p, num_pages=config.num_pages, page_size=config.page_size,
             max_batch_size=config.max_batch_size, cache_dtype=cache_dtype, device=dev, graphs=graphs,
+            verify_width=config.spec_k + 1,
         )
 
     runner = await asyncio.get_running_loop().run_in_executor(None, _build)
@@ -153,18 +202,18 @@ def build_pipeline(
     )
 
 
-def preset_card(model: str, config: EngineConfig, *, router_mode: str = "round_robin") -> ModelDeploymentCard:
-    """The card a worker of preset ``model`` publishes: the JAX build's preset
-    card (byte tokenizer, no chat template), with the served engine's
-    context length, page size and EOS ids."""
-    return ModelDeploymentCard(
-        name=model,
-        tokenizer="byte",
-        context_length=config.max_seq_len,
-        kv_page_size=config.page_size,
-        eos_token_ids=list(config.eos_token_ids),
-        router_mode=router_mode,
-    )
+def worker_card(model: str, config: EngineConfig, *, router_mode: str = "round_robin") -> ModelDeploymentCard:
+    """The card a worker of ``model`` publishes. A preset's is the JAX
+    build's preset card (byte tokenizer, no chat template); a checkpoint
+    directory's is ``ModelDeploymentCard.from_model_dir`` (its tokenizer
+    file and chat template). Either carries the served engine's context
+    length, page size and EOS ids."""
+    served = dict(context_length=config.max_seq_len, kv_page_size=config.page_size,
+                  eos_token_ids=list(config.eos_token_ids), router_mode=router_mode)
+    cfg, model_dir = resolve_model(model)
+    if model_dir is not None:
+        return ModelDeploymentCard.from_model_dir(cfg.name, model_dir, **served)
+    return ModelDeploymentCard(name=model, tokenizer="byte", **served)
 
 
 async def serve_worker(
@@ -193,7 +242,7 @@ async def serve_worker(
         on_kv_event=broadcaster.publish, **engine_kw,
     )
     broadcaster.bind_snapshot(service.core.allocator.cache_snapshot)
-    card = preset_card(model, service.core.config, router_mode=router_mode)
+    card = worker_card(model, service.core.config, router_mode=router_mode)
     ns, comp, ep = card.endpoint
     component = runtime.namespace(ns).component(comp)
     instance = await component.endpoint(ep).serve(service, metadata={"model": card.name}, lease=lease)
@@ -245,8 +294,10 @@ async def run_local(
 ) -> dict[str, Any]:
     """Single-process serving: ``num_workers`` workers + the frontend.
 
-    Every worker takes the same ``params``, or random-inits from the same
-    ``seed``, as the JAX build's workers do. Raises without a GPU unless
+    ``preset`` is a preset name or a checkpoint directory
+    (:func:`resolve_model`). Every worker takes the same ``params``, or
+    random-inits from the same ``seed`` (a directory: loads its weights),
+    as the JAX build's workers do. Raises without a GPU unless
     ``device="cpu"``, before anything is started."""
     resolve_device(device)
     if router_mode not in ("round_robin", "random", "kv"):
@@ -336,7 +387,8 @@ def build_parser() -> argparse.ArgumentParser:
     defaults (``--platform`` picks the port's device instead of a JAX
     platform)."""
     parser = argparse.ArgumentParser(description="dynamo-tpu launcher (PyTorch/CUDA port)", allow_abbrev=False)
-    parser.add_argument("--model", default="test-tiny", help=f"model preset ({', '.join(PRESETS)})")
+    parser.add_argument("--model", default="test-tiny",
+                        help=f"model preset ({', '.join(PRESETS)}) or an HF checkpoint directory")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8080)
     parser.add_argument("--workers", type=int, default=1)
@@ -353,6 +405,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--overlap", action="store_true", default=False,
                         help="overlapped execution: depth-1 pipeline with device-resident token feedback "
                              "(DYN_OVERLAP); output streams stay bit-identical to off")
+    parser.add_argument("--decode-steps", type=int, default=1, help="fused decode steps per device dispatch")
+    parser.add_argument("--spec-k", type=int, default=0,
+                        help="speculative decoding draft length (lossless n-gram self-drafting fused into "
+                             "mixed steps); 0 = off")
     return parser
 
 
@@ -371,6 +427,10 @@ def main(argv: list[str] | None = None, *, device: str | torch.device = "cuda", 
         os.environ["DYN_WORKER_KV_CACHE_DTYPE"] = args.kv_cache_dtype
     if args.overlap:
         os.environ["DYN_WORKER_OVERLAP"] = "1"
+    if args.decode_steps != 1:
+        os.environ["DYN_WORKER_DECODE_STEPS"] = str(args.decode_steps)
+    if args.spec_k != 0:
+        os.environ["DYN_WORKER_SPEC_K"] = str(args.spec_k)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     asyncio.run(_amain(args, device=device, seed=seed, params=params))
 

@@ -7,14 +7,16 @@ pipeline (preprocessor -> backend -> router) from it. Cards carry *specs*
 (tokenizer kind or path, template text) rather than live objects so they
 serialize cleanly.
 
-Building a card from a checkpoint directory or a GGUF file comes with the
-checkpoint loader, and moving its artifacts through an object store with the
-TCP runtime; neither is ported yet.
+``from_model_dir`` builds a card from an HF checkpoint directory's
+``config.json``, tokenizer files and ``tokenizer_config.json``. Building one
+from a GGUF file comes with GGUF import (ROADMAP A4), and moving its
+artifacts through an object store with the TCP runtime (A7).
 """
 
 from __future__ import annotations
 
 import json
+import pathlib
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -70,3 +72,31 @@ class ModelDeploymentCard:
         d = json.loads(data)
         d["endpoint"] = tuple(d.get("endpoint", ("dynamo", "backend", "generate")))
         return cls(**d)
+
+    @classmethod
+    def from_model_dir(cls, name: str, path: str | pathlib.Path, **overrides: Any) -> "ModelDeploymentCard":
+        """Build a card from an HF-style model directory (config/tokenizer files)."""
+        p = pathlib.Path(path)
+        kw: dict[str, Any] = {"name": name}
+        cfg_file = p / "config.json"
+        if cfg_file.exists():
+            cfg = json.loads(cfg_file.read_text())
+            kw["context_length"] = cfg.get("max_position_embeddings", 4096)
+            eos = cfg.get("eos_token_id")
+            if isinstance(eos, int):
+                kw["eos_token_ids"] = [eos]
+            elif isinstance(eos, list):
+                kw["eos_token_ids"] = list(eos)
+            if isinstance(cfg.get("bos_token_id"), int):
+                kw["bos_token_id"] = cfg["bos_token_id"]
+        if (p / "tokenizer.json").exists():
+            kw["tokenizer"] = str(p / "tokenizer.json")
+        elif (p / "tokenizer.model").exists():  # SentencePiece-only checkpoint
+            kw["tokenizer"] = str(p / "tokenizer.model")
+        tc_file = p / "tokenizer_config.json"
+        if tc_file.exists():
+            tc = json.loads(tc_file.read_text())
+            if tc.get("chat_template"):
+                kw["chat_template"] = tc["chat_template"]
+        kw.update(overrides)
+        return cls(**kw)

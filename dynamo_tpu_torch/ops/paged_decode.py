@@ -29,7 +29,8 @@ STAGES = 4  # bf16 kernel's K/V ring depth (csrc/paged_decode.cu kStages)
 GROUPS_FP8 = 2  # fp8 form's groups of 4 warps a block (csrc/paged_decode.cu kGroupsF8)
 MAX_SPLITS = 8  # a thread block cluster's portable size: the splits of a row tile are one cluster
 ROW_TILE = 16  # bf16 kernel's query rows per block (csrc/paged_decode.cu kRowTile)
-MAX_VERIFY_T = 32  # query tokens per row the multi-query form takes
+MAX_VERIFY_T = 32  # query tokens per row the f32 form takes (its rows live in shared memory)
+MAX_GRID_Y = 65535  # the launch grid's y extent: KV heads x 16-row tiles for the bf16 and fp8 forms
 SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may use on Hopper
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)  # queries
@@ -75,19 +76,27 @@ def _page_id_bytes(blocks_per_split: int, page_size: int) -> int:
     return 4 * (-(-(blocks_per_split * BLOCK_TOKENS) // page_size) + 1)
 
 
+def row_tiles(t_q: int, group: int) -> int:
+    """16-row query tiles of one (sequence, KV head): T_q x G rows, t-major."""
+    return -(-t_q * group // ROW_TILE)
+
+
 def decode_kernel_supported(n_heads: int, head_dim: int, width: int, t_q: int = 1, *,
                             q_dtype: torch.dtype, cache_dtype: torch.dtype) -> bool:
     """Shapes the kernel takes: head_dim 64 or 128, whole GQA groups, bf16
-    or f32 queries, bf16, f32 or fp8 caches, and T_q up to MAX_VERIFY_T
-    within the shared-memory budget (which only the f32 kernel's grows with
-    T_q)."""
+    or f32 queries, bf16, f32 or fp8 caches. The bf16 and fp8 forms take
+    any T_q whose row tiles fit the grid (``n_kv * row_tiles <=
+    MAX_GRID_Y``: T_q up to 32,767 at 32/8 heads): neither their registers
+    nor their shared memory grow with T_q. The f32 form keeps every row in
+    shared memory, so it takes T_q up to MAX_VERIFY_T within the budget."""
     if head_dim not in HEAD_DIMS or width % head_dim or q_dtype not in DTYPES or cache_dtype not in CACHE_DTYPES:
         return False
     n_kv = width // head_dim
-    if n_heads % n_kv:
+    if n_heads % n_kv or t_q < 1:
         return False
     itemsize = cache_dtype.itemsize
-    return t_q <= MAX_VERIFY_T and _smem_bytes(t_q, n_heads // n_kv, head_dim, itemsize) <= SMEM_BYTES
+    fits = n_kv * row_tiles(t_q, n_heads // n_kv) <= MAX_GRID_Y if itemsize <= 2 else t_q <= MAX_VERIFY_T
+    return fits and _smem_bytes(t_q, n_heads // n_kv, head_dim, itemsize) <= SMEM_BYTES
 
 
 @functools.lru_cache(maxsize=None)

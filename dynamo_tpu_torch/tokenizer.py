@@ -1,8 +1,9 @@
 """Tokenizer abstraction: HF `tokenizers` backend + a hermetic byte tokenizer.
 
 A copy of ``dynamo_tpu/tokenizer.py``. ``ByteTokenizer`` serves the presets;
-``HfTokenizer`` imports ``tokenizers`` only when a tokenizer file is loaded.
-SentencePiece and GGUF tokenizers are not ported yet.
+``HfTokenizer`` imports ``tokenizers`` only when a tokenizer file is loaded
+(``tokenizer.json``, or a SentencePiece ``.model`` through
+``sentencepiece.py``). GGUF tokenizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -101,8 +102,12 @@ def load_tokenizer(spec: str | pathlib.Path) -> BaseTokenizer:
             p = p / "tokenizer.model"
         else:
             p = p / "tokenizer.json"
-    if p.suffix in (".model", ".gguf"):
-        raise NotImplementedError(f"{p.suffix} tokenizers are not ported to dynamo_tpu_torch yet")
+    if p.suffix == ".model" and p.exists():
+        from dynamo_tpu_torch.sentencepiece import load_sentencepiece
+
+        return load_sentencepiece(p)
+    if p.suffix == ".gguf":
+        raise NotImplementedError(".gguf tokenizers are not ported to dynamo_tpu_torch yet (ROADMAP A4)")
     if p.exists():
         return HfTokenizer.from_file(p)
     raise FileNotFoundError(f"no tokenizer at {spec}")

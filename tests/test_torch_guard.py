@@ -1,5 +1,6 @@
-"""Guards of the dynamo_tpu_torch package: it imports neither JAX nor anything
-of dynamo_tpu, and its entry points never fall back to the CPU quietly."""
+"""Guards of the dynamo_tpu_torch package: it imports neither JAX, anything
+of dynamo_tpu nor safetensors (it reads the format by hand), and its entry
+points never fall back to the CPU quietly."""
 
 import asyncio
 import pathlib
@@ -22,8 +23,7 @@ names = sorted(
 )
 for name in names:
     importlib.import_module(name.removesuffix("."))
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "dynamo_tpu"
-             or m.startswith("dynamo_tpu."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dynamo_tpu", "safetensors"))
 print(len(names), bad)
 """
 

@@ -227,8 +227,9 @@ def _pr2_decode_smem(t_q, group, head_dim, itemsize):
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
 def test_decode_predicate_keeps_every_shape_and_mirrors_the_kernel(cache_dtype):
     """decode_kernel_supported accepts every (T_q <= 32, G in {4, 8}, hd in
-    {64, 128}) shape the earlier mirror accepted, refuses T_q > 32 and any
-    layout over 227 KB, and the bf16 layout does not grow with T_q."""
+    {64, 128}) shape the earlier mirror accepted and refuses any layout over
+    227 KB; the bf16 layout does not grow with T_q, so the bf16 form takes
+    T_q past 32 up to the grid's y extent, where the f32 form refuses T_q > 32."""
     itemsize = torch.empty((), dtype=cache_dtype).element_size()
     for hd in (64, 128):
         for group in (4, 8):
@@ -240,8 +241,15 @@ def test_decode_predicate_keeps_every_shape_and_mirrors_the_kernel(cache_dtype):
                     assert ok == (smem <= paged_decode.SMEM_BYTES)
                     if _pr2_decode_smem(t_q, group, hd, itemsize) <= paged_decode.SMEM_BYTES:
                         assert ok, (t_q, group, hd)
-            assert not paged_decode.decode_kernel_supported(8 * group, hd, 8 * hd, paged_decode.MAX_VERIFY_T + 1,
-                                                            q_dtype=cache_dtype, cache_dtype=cache_dtype)
+            wide = [paged_decode.MAX_VERIFY_T + 1, 2048]
+            got = [paged_decode.decode_kernel_supported(8 * group, hd, 8 * hd, t, q_dtype=cache_dtype,
+                                                        cache_dtype=cache_dtype) for t in wide]
+            assert got == [cache_dtype == torch.bfloat16] * 2
+            # Past the grid's y extent (8 KV heads x 16-row tiles): refused by either form.
+            t_max = paged_decode.MAX_GRID_Y // 8 * paged_decode.ROW_TILE // group
+            assert paged_decode.row_tiles(t_max, group) * 8 <= paged_decode.MAX_GRID_Y
+            assert not paged_decode.decode_kernel_supported(8 * group, hd, 8 * hd, t_max + 1, q_dtype=cache_dtype,
+                                                            cache_dtype=cache_dtype)
     if cache_dtype == torch.bfloat16:
         # 1 KB alignment slack, a ring of 4 x 64-key K/V stages, one 16-row query tile,
         # 16 mbarriers and 16 positions: 69,056 bytes at hd 64, whatever T_q.

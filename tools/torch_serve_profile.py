@@ -2,7 +2,7 @@
 """Where a serving step's time goes in the PyTorch/CUDA port, on one card.
 
     python3 tools/torch_serve_profile.py --out DIR [--model mla-8b-proxy] [--kv-cache-dtype fp8]
-                                         [--no-graphs] [--no-overlap]
+                                         [--no-graphs] [--no-overlap] [--mix spec --spec-k 4]
 
 Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
 script so the two stay the same (llama-3.2-1b by default, or mla-8b-proxy;
@@ -13,12 +13,17 @@ prompts (so CUDA graphs are captured before the window), under
 graphs behind the overlapped engine; ``--no-graphs`` runs the eager runner,
 ``--no-overlap`` the synchronous engine; ``--kv-cache-dtype fp8`` serves
 on fp8 e4m3 KV caches (the kernels' fp8 forms), bf16 by default.
+``--mix spec`` serves the spec phase's mix instead (8 prompts of a repeated
+random span, 64 output tokens; ``chip_smoke.spec_bodies``), as
+``chip_smoke.serve_spec`` does (its untimed pass is the mix itself, with
+prefix caching off), with ``--spec-k K`` drafting K tokens a decode row
+(0: off).
 Prints one JSON line: wall time, engine steps, device busy share (union of
 CUDA kernel intervals over the profiled wall), CUDA kernels per step (a
 graph replay's kernels included), the host's launch calls per step (the
 calls that put a kernel or a graph on a stream, by name), and the
 device time by kernel family. Writes the Chrome trace to
-``DIR/serve_trace_<model>_<kv cache dtype>.json`` (tens of MB). The profiler adds host overhead of
+``DIR/serve_trace_<model>_<kv cache dtype>_<mix><spec_k>.json`` (tens of MB). The profiler adds host overhead of
 its own, so the wall time here is not a throughput number;
 ``chip_smoke.py`` measures that without the profiler.
 """
@@ -59,10 +64,17 @@ def family(name: str) -> str:
     return "other"
 
 
-async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_dtype: str = "bf16") -> dict:
+async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_dtype: str = "bf16",
+               mix: str = "serve", spec_k: int = 0) -> dict:
     cache_dtype = chip_smoke.FP8 if kv_cache_dtype == "fp8" else None
-    service, pipeline = await chip_smoke.build_serving(model, cache_dtype, graphs=graphs, overlap=overlap)
-    bodies = chip_smoke.serve_bodies(np.random.default_rng(3), model)
+    spec = mix == "spec"
+    # The spec mix as chip_smoke.serve_spec serves it: its untimed pass is the
+    # timed mix itself, prefix caching off, so the window replays its graphs.
+    service, pipeline = await chip_smoke.build_serving(model, cache_dtype, graphs=graphs, overlap=overlap,
+                                                       spec_k=spec_k, enable_prefix_caching=not spec)
+    bodies_of, lengths = ((chip_smoke.spec_bodies, chip_smoke.SPEC_LENGTHS) if spec
+                          else (chip_smoke.serve_bodies, chip_smoke.SERVE_LENGTHS))
+    bodies = bodies_of(np.random.default_rng(7 if spec else 3), model)
     steps = {"n": 0}
     step = service.core.step
 
@@ -73,14 +85,14 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_d
     service.core.step = counted_step
     try:
         await chip_smoke.warm_up(pipeline, model)  # not profiled
-        await chip_smoke.send_all(pipeline, chip_smoke.serve_bodies(np.random.default_rng(4), model))
+        await chip_smoke.send_all(pipeline, bodies if spec else bodies_of(np.random.default_rng(4), model), lengths)
         torch.cuda.synchronize()
         steps["n"] = 0
         overlap0 = dict(service.core.overlap_step_counts)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            await chip_smoke.send_all(pipeline, bodies)
+            await chip_smoke.send_all(pipeline, bodies, lengths)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         overlap_steps = {k: n - overlap0.get(k, 0) for k, n in service.core.overlap_step_counts.items()}
@@ -88,7 +100,7 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_d
     finally:
         await service.close()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}_{kv_cache_dtype}.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"serve_trace_{model}_{kv_cache_dtype}_{mix}{spec_k}.json"))
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     launch_calls: dict[str, int] = {}
@@ -113,7 +125,7 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_d
     n_steps = max(1, steps["n"])
     return {
         "model": model, "kv_cache_dtype": kv_cache_dtype, "device": torch.cuda.get_device_name(0), "graphs": graphs,
-        "overlap": overlap,
+        "overlap": overlap, "mix": mix, "spec_k": spec_k,
         "profiled_wall_s": wall, "engine_steps": steps["n"], "overlap_steps": overlap_steps,
         "graph_keys": graph_stats["keys"], "cuda_kernels": len(kernels),
         "kernels_per_step": len(kernels) / n_steps,
@@ -135,9 +147,12 @@ if __name__ == "__main__":
                     help="replay each step as a CUDA graph (default on)")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
                     help="the overlapped engine pipeline (default on)")
+    ap.add_argument("--mix", default="serve", choices=("serve", "spec"),
+                    help="the serve phase's mix or the spec phase's (default %(default)s)")
+    ap.add_argument("--spec-k", type=int, default=0, help="draft tokens a decode row (default 0: off)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    print(json.dumps(asyncio.run(main(args.out, args.model, args.graphs, args.overlap, args.kv_cache_dtype))),
-          flush=True)
+    print(json.dumps(asyncio.run(main(args.out, args.model, args.graphs, args.overlap, args.kv_cache_dtype,
+                                      args.mix, args.spec_k))), flush=True)
