@@ -124,8 +124,40 @@ failure exits non-zero:
               SentencePiece tokenizer.model), loaded back bitwise with
               ``load_model``, and served from the directory through
               ``run_local``: every position's logprobs equal the preset's.
+8. quant    — weight-only quantized weights (``quant_kernel_checks``,
+              phase "kernels_quant"): ``quant_matmul`` against its plain
+              version at every quantized leaf the slice serves
+              (``QUANT_SHAPES``: llama-3-8b, mla-8b-proxy with its
+              576-column edge, llama-3-70b; int8, int4 at group 128, int4
+              with and without qbias at group 32 with f32 scales as a GGUF
+              import holds them), at M 1, 5, 8, 64, 512 and 2051, bf16 and
+              f32 out, per row; every product launched twice, bitwise
+              equal; and x = I_K, whose products are the weight elements
+              themselves, bitwise the plain dequantization. Timed
+              ("kernel_timing_quant") at llama-3-8b's w_gate and w_down and
+              llama-3-70b's 8192 x 28672 at M 8 and 2048, the weights cycled
+              through copies that exceed the L2, beside the bound, the plain
+              version and cuBLAS on the pre-dequantized bf16 weight. Then
+              (``quant_serve_phase``) llama-3-8b served at bf16 (main path),
+              then at int8 and int4 and mla-8b-proxy at int8, each random-init
+              directly quantized: a forward check (quant_matmul and
+              attention kernels against plain versions), a graph check and
+              the mix eager + sync then graphs + overlap (greedy tokens
+              equal; quant_matmul launched exactly once per quantized
+              projection and forward); llama-3-70b at int4 at full width and
+              depth on the one card: resident weight GB, a forward check,
+              one main-path serve and the peak allocated memory ("big_model").
+9. gguf     — llama-3.2-1b written by the port's GGUF writer at Q4_K (the
+              blocks encoded on the card, held byte for byte against the
+              CPU's encoding), imported with ``load_gguf_params(quantize=
+              "int4")``, and served from the file through
+              ``run_local(path, quantize="int4")``: its leaves bitwise the
+              import's, its config the preset's, every position's logprobs
+              equal an in-process serve of the imported leaves.
 
-Then the kernels line, the card's name and power limit, and the last line
+Then the kernels line (quant_matmul_int8 and quant_matmul_int4 timed at
+llama-3-8b's w_gate at M = 8, their launches summed over the quantized
+main-path serves), the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
 """
 
@@ -152,7 +184,9 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 FP8 = torch.float8_e4m3fn  # the fp8 KV cache (launch --kv-cache-dtype fp8)
 MODEL = "llama-3.2-1b"
 MLA_MODEL = "mla-8b-proxy"
-SERVE_KERNELS = {MODEL: ("paged_decode", "paged_prefill"), MLA_MODEL: ("paged_mla",)}
+QUANT_MODEL, BIG_MODEL = "llama-3-8b", "llama-3-70b"  # quantized serves (BIG_MODEL at int4 on one card)
+GQA_KERNELS = ("paged_decode", "paged_prefill")
+SERVE_KERNELS = {MODEL: GQA_KERNELS, MLA_MODEL: ("paged_mla",), QUANT_MODEL: GQA_KERNELS, BIG_MODEL: GQA_KERNELS}
 # MLA geometries: heads, latent (kv_lora_rank), rope lanes, rope stream width, nope dim.
 MLA_GEOMS = {"mla-8b-proxy": (32, 512, 64, 128, 128), "test-mla-kernel": (4, 128, 64, 128, 32)}
 # Per row: max |kernel - plain| <= REL_TOL * max |plain| over the row's real
@@ -1263,14 +1297,37 @@ def plain_kernels():
         pd.paged_decode_attention, pp.paged_prefill_attention, mla.paged_mla = saved
 
 
-def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None) -> None:
+def weights_of(params: dict) -> str:
+    """The format of a parameter tree's projections: "int8", "int4" or "bf16"."""
+    wq = params["layers"].get("wq", params["layers"].get("w_kv_a"))
+    return ("int4" if "qw4" in wq else "int8") if isinstance(wq, dict) else "bf16"
+
+
+@contextlib.contextmanager
+def plain_quant():
+    """Route every quantized projection through ``quant_matmul``'s plain
+    PyTorch version on the card, for as long as the context lasts."""
+    from dynamo_tpu_torch.ops import quant_matmul as qmm
+
+    saved = qmm.quant_matmul
+    qmm.quant_matmul = qmm.quant_matmul_plain
+    try:
+        yield
+    finally:
+        qmm.quant_matmul = saved
+
+
+def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None,
+                  quant: str = "") -> None:
     """One prefill chunk (T=64, two rows, the second continuing at 64) and
     one decode step of ``model`` at full width on ``cache_dtype`` caches
     (the model's dtype when None), run with the kernels and with plain
     attention from the same caches: the gather reference, except for MLA
     on an fp8 cache, which is held against the kernels' plain versions (the
     MLA gather reference rounds p to fp8 as JAX's reference does,
-    models/mla.py:237, not to the kernels' bf16)."""
+    models/mla.py:237, not to the kernels' bf16). With ``quant`` (the
+    format of ``params``' quantized leaves) the plain side also runs
+    quant_matmul's plain version."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import PRESETS
 
@@ -1300,7 +1357,8 @@ def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, param
     with torch.inference_mode():
         for impl in (None, baseline):
             kc, vc = kc0.clone(), vc0.clone()
-            with plain_kernels() if impl == "plain" else contextlib.nullcontext():
+            with plain_kernels() if impl == "plain" else contextlib.nullcontext(), \
+                    plain_quant() if impl is not None and quant else contextlib.nullcontext():
                 attn_impl = "reference" if impl == "reference" else None
                 pre, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, last, attn_impl=attn_impl)
                 dec, _, _ = llama.forward(params, cfg, dec_tok, dec_pos, kc, vc, tables, dec_slots,
@@ -1321,6 +1379,7 @@ def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, param
             raise AssertionError(f"forward {phase}: max abs err {errs[phase]} > 5% of max |logit| {scale}")
         errs[f"{phase}_argmax_equal"] = bool(torch.equal(a.argmax(-1), r.argmax(-1)))
     emit({"phase": "forward", "model": model, "cache": str(kc0.dtype).removeprefix("torch."), "baseline": baseline,
+          "weights": quant or "bf16",
           "logits_max_abs_err": errs,
           "tolerance": "0.05 * max|logit|", "logits_shape": list(results[None][0].shape)})
 
@@ -1392,6 +1451,7 @@ def graph_check(dev, model: str, params: dict, cache_dtype: torch.dtype | None =
     equal = all(st["bitwise_equal"] for st in steps)
     stats = runners[True].graph_stats()
     record = {"phase": "graphs", "model": model, "cache": str(runners[True].k_cache.dtype).removeprefix("torch."),
+              "weights": weights_of(params),
               "steps": steps, "keys_captured": stats["keys"], "capture_s": stats["capture_s"],
               "pool_bytes": stats["pool_bytes"]}
     emit(record)
@@ -1541,8 +1601,20 @@ def _counts_since(now: dict, then: dict) -> dict:
     return {k: n - then.get(k, 0) for k, n in now.items() if n - then.get(k, 0)}
 
 
+def quant_launches_per_forward(model: str, params: dict) -> int:
+    """quant_matmul launches one forward makes: one per quantized leaf of a
+    layer, times the layers, plus a quantized head."""
+    from dynamo_tpu_torch.models.quant import is_quantized
+
+    layers = params["layers"]
+    per_layer = sum(1 for leaf in layers.values() if is_quantized(leaf))
+    first = next(leaf for leaf in layers.values() if is_quantized(leaf))
+    n_layers = first["qw" if "qw" in first else "qw4"].shape[0]
+    return per_layer * n_layers + int(is_quantized(params.get("lm_head")))
+
+
 async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None, *,
-                eager: bool = False) -> tuple[dict, list[list[int]]]:
+                eager: bool = False, quant: str = "") -> tuple[dict, list[list[int]]]:
     """Serve the mix on ``model`` with ``cache_dtype`` caches: the main path
     (CUDA graphs, overlapped engine), or with ``eager`` the eager runner
     behind the synchronous engine. One warm-up request and one pass of a
@@ -1550,13 +1622,22 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
     first, untimed; then the timed pass. Returns the phase's record, which
     holds the launches of its kernels (``SERVE_KERNELS``; their fp8 forms,
     named ``<kernel>_fp8``, on an fp8 cache, counted through graph replays)
-    over the timed requests, and each timed request's tokens."""
+    over the timed requests, and each timed request's tokens. With
+    ``quant`` ("int8" or "int4": ``params`` hold such leaves, passed with
+    ``quantize=quant``) the record holds ``quant_matmul_<quant>``'s
+    launches too, which must equal the launches a forward makes times the
+    forwards run: every engine step, and the warm-up of every graph key
+    captured in the window."""
     fp8 = cache_dtype == FP8
     counter = "launches_fp8" if fp8 else "launches"
-    kernels = {name + ("_fp8" if fp8 else ""): importlib.import_module(f"dynamo_tpu_torch.ops.{name}")
+    kernels = {name + ("_fp8" if fp8 else ""): (importlib.import_module(f"dynamo_tpu_torch.ops.{name}"), counter)
                for name in SERVE_KERNELS[model]}
+    if quant:
+        kernels[f"quant_matmul_{quant}"] = (importlib.import_module("dynamo_tpu_torch.ops.quant_matmul"),
+                                            f"launches_{quant}")
     t0 = time.perf_counter()
-    service, pipeline = await build_serving(model, cache_dtype, params, graphs=not eager, overlap=not eager)
+    service, pipeline = await build_serving(model, cache_dtype, params, graphs=not eager, overlap=not eager,
+                                            quantize=quant)
     build_s = time.perf_counter() - t0
     core = service.core
     if cache_dtype is not None and core.runner.k_cache.dtype != cache_dtype:
@@ -1575,14 +1656,15 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
         # Counters go to 0 just before the main path and are read just after;
         # the engine's own cumulative counters are read as differences.
         dispatch0, mixed0, overlap0 = dict(core.attn_dispatch_counts), core.mixed_steps, _overlap_counts(core)
-        for mod in kernels.values():
-            setattr(mod, counter, 0)
+        for mod, name in kernels.values():
+            setattr(mod, name, 0)
         with record_draws(core.runner) as draws:
             start = time.perf_counter()
             results = await send_all(pipeline, bodies)
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
-        launches = {name: getattr(mod, counter) for name, mod in kernels.items()}
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in kernels.items()}
+        per_forward = quant_launches_per_forward(model, core.runner.params) if quant else 0
         graphs1 = core.runner.graph_stats()
         overlap1 = _overlap_counts(core)
         cache = str(core.runner.k_cache.dtype).removeprefix("torch.")
@@ -1602,6 +1684,10 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
         raise AssertionError(f"engine steps whose attention did not run in the kernels: {off_kernel}")
     if mixed <= 0:
         raise AssertionError("no mixed prefill+decode step occurred")
+    forwards = sum(dispatch.values()) + graphs1["keys"] - graphs0["keys"]
+    if quant and launches[f"quant_matmul_{quant}"] != per_forward * forwards:
+        raise AssertionError(f"quant_matmul_{quant} launched {launches[f'quant_matmul_{quant}']} times, not "
+                             f"{per_forward} a forward x {forwards} forwards")
     overlap = {"steps": _counts_since(overlap1["steps"], overlap0["steps"]),
                "barriers": _counts_since(overlap1["barriers"], overlap0["barriers"])}
     if not eager and overlap["steps"].get("overlapped", 0) <= 0:
@@ -1610,13 +1696,14 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
     draws = replay_draws(draws, seeded)
     out_tokens = sum(len(r["tokens"]) for r in results)
     ttfts = sorted(r["ttft_s"] for r in results)
-    record = {"phase": "serve", "model": model, "cache": cache,
+    record = {"phase": "serve", "model": model, "cache": cache, "weights": quant or "bf16",
               "mode": "eager, synchronous engine" if eager else "cuda graphs, overlapped engine",
               "requests": len(results), "prompt_tokens": SERVE_LENGTHS,
               "output_tokens": out_tokens, "wall_s": wall, "requests_per_s": len(results) / wall,
               "output_tokens_per_s": out_tokens / wall,
               "ttft_s": {"min": ttfts[0], "median": statistics.median(ttfts), "max": ttfts[-1]},
               "engine_build_s": build_s, "warm_up_s": warm_s, "kernel_launches": launches,
+              "quant_launches_per_forward": per_forward,
               "engine_steps": sum(dispatch.values()), "mixed_steps": mixed, "attn_dispatch_steps": dispatch,
               "overlap": overlap,
               "graphs": {"keys": graphs1["keys"], "keys_captured_in_window": graphs1["keys"] - graphs0["keys"],
@@ -1626,21 +1713,21 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
     return record, [r["tokens"] for r in results]
 
 
-def serve_both(model: str, cache_dtype: torch.dtype | None, params: dict) -> dict:
+def serve_both(model: str, cache_dtype: torch.dtype | None, params: dict, quant: str = "") -> dict:
     """The mix served twice in one run: the eager runner behind the
     synchronous engine, then the main path. Every request's tokens must be
     bitwise equal (every step carries the same rows and shapes in both
     modes, and a replay runs the eager step's kernels on the same inputs).
     Returns the main path's record."""
-    eager, eager_tokens = asyncio.run(serve(model, cache_dtype, params, eager=True))
+    eager, eager_tokens = asyncio.run(serve(model, cache_dtype, params, eager=True, quant=quant))
     gc.collect()
     torch.cuda.empty_cache()
-    main_path, tokens = asyncio.run(serve(model, cache_dtype, params))
+    main_path, tokens = asyncio.run(serve(model, cache_dtype, params, quant=quant))
     gc.collect()
     torch.cuda.empty_cache()
     greedy = [i for i, body in enumerate(serve_bodies(np.random.default_rng(3), model)) if body["temperature"] == 0]
     differ = [SERVE_LENGTHS[i] for i in range(len(tokens)) if tokens[i] != eager_tokens[i]]
-    emit({"phase": "serve_modes", "model": model, "cache": main_path["cache"],
+    emit({"phase": "serve_modes", "model": model, "cache": main_path["cache"], "weights": quant or "bf16",
           "tokens_equal": not differ, "requests_differing_by_prompt_tokens": differ,
           "output_tokens_per_s": {"eager_sync": eager["output_tokens_per_s"],
                                   "graphs_overlap": main_path["output_tokens_per_s"]},
@@ -2266,31 +2353,40 @@ def _sentencepiece_model() -> bytes:
     return write_model(pieces)
 
 
-async def _serve_sequential(model: str, params: dict | None, bodies: list[dict]) -> tuple[list[dict], dict]:
-    """``launch.run_local`` of ``model`` (a preset with ``params``, or a
-    checkpoint directory; one worker, CUDA graphs behind the overlapped
-    engine, in-process HTTP on a free port), then each body alone over HTTP
-    (one request at a time, so both serves step through the same
-    compositions), streamed with the logprobs of each position and its
-    top-5 alternatives. Returns the streams and the launches of the
-    model's kernels over them."""
+async def _serve_sequential(model: str, params: dict | None, bodies: list[dict], *, quantize: str = "",
+                            inspect=None, **engine_kw) -> tuple[list[dict], dict]:
+    """``launch.run_local`` of ``model`` (a preset with ``params``, a
+    checkpoint directory or a GGUF file; ``quantize`` as ``--quantize``; one
+    worker, CUDA graphs behind the overlapped engine, in-process HTTP on a
+    free port), then each body alone over HTTP (one request at a time, so
+    both serves step through the same compositions), streamed with the
+    logprobs of each position and its top-5 alternatives. ``inspect(handles)``
+    runs before the requests. Returns the streams and the launches of the
+    model's kernels over them (quant_matmul's too, with ``quantize``)."""
     import aiohttp
 
     from dynamo_tpu_torch.launch import run_local, shutdown
 
-    kernels = {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[MODEL]}
-    handles = await run_local(model, port=0, device="cuda", params=params, overlap=True, **SERVE_ENGINE)
+    kernels = {name: (importlib.import_module(f"dynamo_tpu_torch.ops.{name}"), "launches")
+               for name in SERVE_KERNELS[MODEL]}
+    if quantize:
+        kernels[f"quant_matmul_{quantize}"] = (importlib.import_module("dynamo_tpu_torch.ops.quant_matmul"),
+                                               f"launches_{quantize}")
+    handles = await run_local(model, port=0, device="cuda", params=params, overlap=True, quantize=quantize,
+                              **{**SERVE_ENGINE, **engine_kw})
     base = f"http://127.0.0.1:{handles['port']}"
     try:
+        if inspect is not None:
+            inspect(handles)
         async with aiohttp.ClientSession() as session:
             name = (await http_get(session, base, "/v1/models"))["data"][0]["id"]
             warm = {"model": name, "prompt": [256] + [119] * 599, "max_tokens": 4, "temperature": 0.0,
                     "nvext": {"ignore_eos": True}}
             await stream_completion(session, base, warm)
-            for mod in kernels.values():
-                mod.launches = 0
+            for mod, attr in kernels.values():
+                setattr(mod, attr, 0)
             streams = [await stream_completion(session, base, {**b, "model": name, "logprobs": 5}) for b in bodies]
-            launches = {k: mod.launches for k, mod in kernels.items()}
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in kernels.items()}
     finally:
         await shutdown(handles)
     return streams, launches
@@ -2327,12 +2423,7 @@ def checkpoint_phase(dev, params: dict) -> dict:
         lcfg, loaded = loader.load_model(ckpt, device="cuda")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-
-        def leaves(tree, path=""):
-            for k, v in tree.items():
-                yield from leaves(v, f"{path}/{k}") if isinstance(v, dict) else [(f"{path}/{k}", v)]
-
-        want, got = dict(leaves(params)), dict(leaves(loaded))
+        want, got = dict(_leaves(params)), dict(_leaves(loaded))
         unequal = sorted(k for k in want if k not in got or got[k].shape != want[k].shape
                          or got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k]))
         extra = sorted(set(got) - set(want))
@@ -2365,6 +2456,314 @@ def checkpoint_phase(dev, params: dict) -> dict:
     if differ or min(launches.values()) <= 0 or record["finish"] != ["length"]:
         raise AssertionError(f"the checkpoint serve differs from the preset serve (requests {differ}) or "
                              f"did not run in the kernels: {record}")
+    return record
+
+
+# -- quantized weights: quant_matmul -------------------------------------------------
+
+QUANT_M = (1, 5, 8, 64, 512, 2051)  # decode rows, a ragged row tile, verify rows, prefill chunks, a mixed step
+# (K, N) of every quantized leaf the slice serves, by leaf format: llama-3-8b's
+# projections and head, mla-8b-proxy's (w_q_a, w_q_b, w_kv_a with its ragged
+# 576-column edge; wo_mla is 4096 x 4096), llama-3-70b's at int4, and
+# llama-3.2-1b from a GGUF file (group 32, f32 scales, with and without qbias).
+QUANT_SHAPES = {
+    "int8": [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
+             (4096, 1536), (1536, 6144), (4096, 576)],
+    "int4": [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
+             (8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192), (8192, 128256)],
+    "int4_g32": [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)],
+}
+QUANT_HEAD_N = 128256  # the vocabulary: the head's product, f32 out
+L2_BYTES = 50 * 2**20  # the H100's L2: timed weights are cycled through copies that exceed it 4x
+# (name, K, N) of the timed products
+QUANT_TIMED = [("llama-3-8b w_gate", 4096, 14336), ("llama-3-8b w_down", 14336, 4096),
+               ("llama-3-70b w_gate", 8192, 28672)]
+
+
+def quant_leaf(dev, gen, k: int, n: int, fmt: str, bias: bool = False) -> dict:
+    """A random quantized leaf: int8 codes over [-127, 127] with per-column
+    bf16 scales around the fan-in scale; int4 bytes over all 256 codes with
+    group scales (group 128, bf16; or ``int4_g32``: group 32, f32 scales and,
+    with ``bias``, an f32 qbias, as a GGUF Q4_K import holds them)."""
+    if fmt == "int8":
+        return {"qw": torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8),
+                "scale": ((torch.rand(n, generator=gen, device=dev) + 0.5) * k**-0.5 / 127).to(torch.bfloat16)}
+    gs, sdt = (32, torch.float32) if fmt == "int4_g32" else (128, torch.bfloat16)
+    leaf = {"qw4": torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev, dtype=torch.int8),
+            "scale": ((torch.rand(k // gs, n, generator=gen, device=dev) + 0.5) * k**-0.5 / 7).to(sdt)}
+    if bias:
+        leaf["qbias"] = ((torch.rand(k // gs, n, generator=gen, device=dev) - 0.5) * k**-0.5).to(sdt)
+    return leaf
+
+
+def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``compare``'s per-row limit, vectorized over every row of a product:
+    max |kernel - plain| <= REL_TOL * max |plain| in each row. Both sides
+    dequantize to the same bf16 weights (held bitwise by the identity
+    check) and accumulate in f32 in different orders; bf16 outputs are then
+    one or two ulps apart at most (int8 rounds twice)."""
+    g, w = got.float(), want.float()
+    err, ref = (g - w).abs().amax(dim=1), w.abs().amax(dim=1)
+    bad = torch.nonzero(err > REL_TOL[got.dtype] * ref)
+    if bad.numel():
+        r = int(bad[0, 0])
+        raise AssertionError(f"{name}: row {r}: max abs err {float(err[r])} exceeds {REL_TOL[got.dtype]} * "
+                             f"max|plain| {float(ref[r])} ({got.dtype})")
+    return float(err.max())
+
+
+def quant_kernel_checks(dev) -> dict:
+    """``quant_matmul`` against its plain version at every QUANT_SHAPES leaf
+    and QUANT_M row count, bf16 out and f32 out (the head's), per row; two
+    launches bitwise equal; and an identity check (x = I_K, every product
+    one weight element) that the kernel's dequantization is bitwise the
+    plain version's, for every leaf with K <= 8192 but the heads. Returns
+    the max abs error by format."""
+    from dynamo_tpu_torch.ops import quant_matmul as qmm
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs, checks, identity, bitwise = {}, 0, 0, 0
+    for fmt, shapes in QUANT_SHAPES.items():
+        for si, (k, n) in enumerate(shapes):
+            for bias in ((False, True) if fmt == "int4_g32" else (False,)):
+                leaf = quant_leaf(dev, gen, k, n, fmt, bias)
+                name = f"{fmt}{'+qbias' if bias else ''} {k}x{n}"
+                for m in QUANT_M:
+                    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                    for out in (torch.bfloat16, torch.float32):
+                        got = qmm.quant_matmul(x, leaf, out)
+                        again = qmm.quant_matmul(x, leaf, out)
+                        want = qmm.quant_matmul_plain(x, leaf, out)
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name} M={m} {out}: two launches differ")
+                        key = f"{fmt}/{'f32' if out == torch.float32 else 'bf16'}"
+                        errs[key] = max(errs.get(key, 0.0), compare_rows(f"{name} M={m} {out}", got, want))
+                        checks += 1
+                        bitwise += 1
+                if n != QUANT_HEAD_N and k <= 8192:
+                    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+                    got, want = qmm.quant_matmul(eye, leaf), qmm.quant_matmul_plain(eye, leaf)
+                    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                        bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+                        raise AssertionError(f"{name}: identity product differs from the plain dequantization "
+                                             f"in {bad} elements")
+                    identity += 1
+                del leaf
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_quant", "checks": checks, "two_launch_bitwise": bitwise, "identity_bitwise": identity,
+          "m": list(QUANT_M), "shapes": {f: [f"{k}x{n}" for k, n in s] for f, s in QUANT_SHAPES.items()},
+          "max_abs_err": errs, "tolerance": {str(d).removeprefix("torch."): t for d, t in REL_TOL.items()},
+          "seconds": time.perf_counter() - t0})
+    return errs
+
+
+def quant_bound(m: int, k: int, n: int, leaf: dict, out_bytes: int = 2) -> tuple[float, str]:
+    """The least time the card takes for one product (ms) and what bounds
+    it: each input read once (x, the quantized weight, its scales and
+    biases), the output written once, over HBM's rate; 2*M*N*K operations
+    over the bf16 tensor-core peak."""
+    nbytes = m * k * 2 + sum(t.numel() * t.element_size() for t in leaf.values()) + m * n * out_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * n * k / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def quant_timing(dev) -> dict:
+    """Device ms of ``quant_matmul`` at QUANT_TIMED's products, decode (M=8)
+    and prefill (M=2048), int8 and int4 (group 128): each call reads its own
+    copy of the weight, cycled through copies that exceed the L2 4x (a serve
+    streams each layer's weights cold); beside its bound, the plain version
+    and the library yardstick (``torch.matmul`` on the weight dequantized to
+    bf16 beforehand, never called by the port), and the device µs of each
+    CUDA kernel a call launches (the product, the split-K reduction).
+    Returns the entries by format, the first (llama-3-8b w_gate at M=8)
+    first."""
+    from dynamo_tpu_torch.models.quant import maybe_dequant
+    from dynamo_tpu_torch.ops import quant_matmul as qmm
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for fmt in ("int8", "int4"):
+        entries = []
+        for name, k, n in QUANT_TIMED:
+            leaf = quant_leaf(dev, gen, k, n, fmt)
+            nbytes = sum(t.numel() * t.element_size() for t in leaf.values())
+            copies = [leaf] + [{key: t.clone() for key, t in leaf.items()} for _ in range(-(-4 * L2_BYTES // nbytes) - 1)]
+            w16 = maybe_dequant(leaf, torch.bfloat16)
+            for m in (8, 2048):
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                got, want = qmm.quant_matmul(x, leaf), qmm.quant_matmul_plain(x, leaf)
+                err = compare_rows(f"timed {fmt} {name} M={m}", got, want)
+                qmm.launches_int8 = qmm.launches_int4 = 0
+                ms = time_ms(lambda: [qmm.quant_matmul(x, c) for c in copies], iters=4) / len(copies)
+                bound, by = quant_bound(m, k, n, leaf)
+                entries.append({"shape": name, "k": k, "n": n, "m": m, "copies": len(copies), "ms": ms,
+                                "plain_ms": time_ms(lambda: qmm.quant_matmul_plain(x, leaf), iters=2),
+                                "library_ms": time_ms(lambda: torch.matmul(x, w16), iters=4),
+                                "bound_ms": bound, "bound_by": by, "of_bound": bound / ms, "max_abs_err": err,
+                                "plan": qmm.plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                                 fmt),
+                                # the product and (split K) its reduction, one warm weight
+                                "device_us_by_kernel": device_us_by_kernel(lambda: qmm.quant_matmul(x, leaf))})
+            del copies, leaf, w16
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[fmt] = entries
+        emit({"phase": "kernel_timing_quant", "format": fmt, "entries": entries})
+    return out
+
+
+def _leaves(tree: dict, path: str = ""):
+    for k, v in tree.items():
+        yield from _leaves(v, f"{path}/{k}") if isinstance(v, dict) else [(f"{path}/{k}", v)]
+
+
+# The quantized serves: (model, format); then BIG_MODEL at int4 on one card.
+QUANT_SERVES = [(QUANT_MODEL, "int8"), (QUANT_MODEL, "int4"), (MLA_MODEL, "int8")]
+
+
+def quant_serve_phase(dev) -> dict:
+    """Quantized weights served through ``build_engine_service(quantize=)``,
+    each model's weights random-init directly in their quantized form on
+    the card (``init_params_quantized``, what the launcher runs for a preset
+    with ``--quantize``) and freed before the next: llama-3-8b at int8 and
+    int4 and mla-8b-proxy at int8 each take a forward check (every kernel
+    against the plain versions), a graph check (replays bitwise the eager
+    steps) and the serve mix eager + synchronous then graphs + overlap
+    (greedy tokens equal; ``quant_matmul`` launched exactly once per
+    quantized projection and forward). Then llama-3-70b at int4 on one card,
+    at full width and depth: its resident weight bytes, a forward check and
+    one serve on the main path, and the peak of allocated device memory.
+    llama-3-8b's bf16 weights are served first, on the main path, beside
+    them.
+    Returns quant_matmul's launches by format over the main-path windows."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import PRESETS
+    from dynamo_tpu_torch.models.quant import init_params_quantized
+
+    params = llama.init_params(PRESETS[QUANT_MODEL], 0, device=dev)  # the bf16 serve beside them
+    asyncio.run(serve(QUANT_MODEL, None, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"int8": 0, "int4": 0}
+    for model, mode in QUANT_SERVES:
+        params = init_params_quantized(PRESETS[model], 0, mode=mode, device=dev)
+        forward_check(dev, model, params=params, quant=mode)
+        graph_check(dev, model, params)
+        launches[mode] += serve_both(model, None, params, quant=mode)["kernel_launches"][f"quant_matmul_{mode}"]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params_quantized(PRESETS[BIG_MODEL], 0, mode="int4", device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    forward_check(dev, BIG_MODEL, params=params, quant="int4")
+    record, _ = asyncio.run(serve(BIG_MODEL, None, params, quant="int4"))
+    launches["int4"] += record["kernel_launches"]["quant_matmul_int4"]
+    emit({"phase": "big_model", "model": BIG_MODEL, "weights": "int4", "resident_weight_gb": resident / 1e9,
+          "init_s": init_s, "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "device_memory_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9,
+          "output_tokens_per_s": record["output_tokens_per_s"], "engine_steps": record["engine_steps"]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gguf_tokenizer() -> dict:
+    """An embedded unigram (``llama``) tokenizer: the letters and the space
+    as pieces, byte fallback, <unk>/<s>/</s>."""
+    tokens = ["<unk>", "<s>", "</s>", "▁"] + [chr(97 + i) for i in range(26)] + [f"<0x{i:02X}>" for i in range(256)]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": [0.0, 0.0, 0.0, -2.0] + [-3.0 - i / 100 for i in range(26)] + [-10.0] * 256,
+            "tokenizer.ggml.token_type": [2, 3, 3] + [1] * 27 + [6] * 256,
+            "tokenizer.ggml.unknown_token_id": 0, "tokenizer.ggml.bos_token_id": 1,
+            "tokenizer.ggml.eos_token_id": 2}
+
+
+def gguf_phase(dev) -> dict:
+    """llama-3.2-1b served from a GGUF file: its random weights (seed 0,
+    bf16) written by the port's writer at Q4_K (``save_params_gguf``, the
+    blocks encoded on the card; norms f32) with an embedded tokenizer, in a
+    temporary directory; imported in-process with
+    ``load_gguf_params(quantize="int4")`` (every projection a packed int4
+    leaf: the file's codes, f32 scales and qbias at group 32); then the
+    serve phase's mix, as token ids, served one request at a time through
+    ``launch.run_local(path, quantize="int4")`` (config, card, tokenizer
+    and weights from the file: the launcher's path; its leaves must be
+    bitwise the in-process import's) and through ``run_local(MODEL)`` on
+    the imported leaves: every position's logprob and top-5 alternatives
+    equal. A few blocks encoded on the card are held byte for byte against
+    the CPU's encoding first."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.models import gguf, llama
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[MODEL]
+    params = llama.init_params(cfg, 0, device=dev)
+    sample = params["layers"]["w_up"][0][:, :512].T.contiguous()  # 512 rows of the 2048-wide layer-0 weight
+    for enc in (gguf._quantize_q4_k, gguf._quantize_q4_0, gguf._quantize_q8_0):
+        if not torch.equal(enc(sample).cpu(), enc(sample.cpu())):
+            raise AssertionError(f"{enc.__name__}: the card's encoding differs from the CPU's")
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_gguf_"))
+    path = root / f"{MODEL}-q4_k.gguf"
+    try:
+        t0 = time.perf_counter()
+        gguf.save_params_gguf(path, cfg, params, quant=gguf.GGML_Q4_K, tokenizer_metadata=_gguf_tokenizer())
+        write_s = time.perf_counter() - t0
+        del params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imported = gguf.load_gguf_params(gguf.GGUFReader(path), cfg, quantize="int4", device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        packed = sorted(k for k, v in imported["layers"].items() if isinstance(v, dict))
+        bodies = [{**b, "prompt": [256] + list(b["prompt"].encode())}
+                  for b in serve_bodies(np.random.default_rng(3))]
+        seen = {}
+
+        def launcher_leaves(handles):
+            runner = handles["services"][0].core.runner
+            got, want = dict(_leaves(runner.params)), dict(_leaves(imported))
+            seen["unequal"] = sorted(k for k in want if k not in got or got[k].dtype != want[k].dtype
+                                     or not torch.equal(got[k], want[k])) + sorted(set(got) - set(want))
+            # GGUF stores floats as f32: rms_eps comes back as f32(1e-5), which the
+            # f32 norm adds as it adds 1e-5
+            seen["config_equal"] = (dataclasses.replace(runner.cfg, name=cfg.name, rms_eps=cfg.rms_eps) == cfg
+                                    and bool(np.float32(runner.cfg.rms_eps) == np.float32(cfg.rms_eps)))
+
+        run_kw = dict(max_seq_len=4096)
+        t0 = time.perf_counter()
+        from_file, launches = asyncio.run(_serve_sequential(str(path), None, bodies, quantize="int4",
+                                                            inspect=launcher_leaves, **run_kw))
+        in_process, _ = asyncio.run(_serve_sequential(MODEL, imported, bodies, quantize="int4", **run_kw))
+        serve_s = time.perf_counter() - t0
+        file_bytes = path.stat().st_size
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differ = [i for i, (a, b) in enumerate(zip(in_process, from_file))
+              if a["token_logprobs"] != b["token_logprobs"]
+              or [sorted(x.values()) for x in a["top_logprobs"]] != [sorted(x.values()) for x in b["top_logprobs"]]]
+    record = {"phase": "gguf", "model": MODEL, "ggml_type": "Q4_K", "file_bytes": file_bytes, "write_s": write_s,
+              "import_s": import_s, "packed_int4_leaves": packed,
+              "leaves_bitwise_equal_import": not seen.get("unequal", ["not inspected"]),
+              "config_equal_preset": seen.get("config_equal"), "requests": len(bodies),
+              "requests_equal_in_process": len(bodies) - len(differ), "kernel_launches": launches,
+              "finish": sorted({s["finish"] for s in from_file}), "serve_s": serve_s}
+    emit(record)
+    if (differ or seen.get("unequal", True) or not seen["config_equal"] or min(launches.values()) <= 0
+            or len(packed) != 7 or record["finish"] != ["length"]):
+        raise AssertionError(f"the GGUF serve differs from the in-process import or did not run in the kernels: "
+                             f"requests {differ}, {record}, leaves {seen.get('unequal')}")
+    del imported
+    gc.collect()
+    torch.cuda.empty_cache()
     return record
 
 
@@ -2441,6 +2840,8 @@ def main() -> int:
     gqa = kernel_timings(dev)
     gqa_fp8 = kernel_timings(dev, FP8, bf16=gqa)
     wide_verify_timing(dev)
+    quant_errs = quant_kernel_checks(dev)
+    quant_timed = quant_timing(dev)
     timing = {k: gqa[k] for k in ("paged_decode", "paged_prefill")}
     timing.update({f"{k}_fp8": gqa_fp8[k] for k in ("paged_decode", "paged_prefill")})
     # The kernels line carries paged_mla's decode time; its prefill and
@@ -2473,6 +2874,8 @@ def main() -> int:
     asyncio.run(serve_http(served[MODEL]))
     gc.collect()
     torch.cuda.empty_cache()
+    quant_launches = quant_serve_phase(dev)
+    gguf_phase(dev)
 
     replaces = {
         "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",
@@ -2491,6 +2894,16 @@ def main() -> int:
             "max_abs_err": max([tm["max_abs_err"]] + [e for k, e in errs.items() if k.startswith(name + "/")]),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+        })
+    for fmt in ("int8", "int4"):
+        tm = quant_timed[fmt][0]  # llama-3-8b w_gate at M = 8, a decode step's product
+        kernels.append({
+            "name": f"quant_matmul_{fmt}", "route": "cuda", "source": "dynamo_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "dynamo_tpu/models/quant.py:182", "launches": quant_launches[fmt],
+            "max_abs_err": max([e["max_abs_err"] for e in quant_timed[fmt]]
+                               + [e for k, e in quant_errs.items() if k.startswith(fmt)]),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

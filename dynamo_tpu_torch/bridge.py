@@ -5,8 +5,10 @@ The layer-stacked leaves and the ``x @ W`` (``[in, out]``) orientation are
 kept as they are, so no transpose is needed. bf16 leaves cross through a
 ``uint16`` view and fp8 e4m3 arrays (a JAX fp8 KV cache's bytes) through a
 ``uint8`` view, because ``torch.from_numpy`` rejects the ml_dtypes types.
-Quantized leaves (``{"qw"|"qw4", "scale", ...}`` dicts) are not ported yet
-and raise.
+Quantized leaves (``{"qw"|"qw4", "scale"[, "qbias"]}`` dicts,
+``models/quant.py``) cross bit for bit, each array as it is: a GGUF
+import's float32 scale and qbias stay float32, as the JAX build holds them
+(its forward rounds them to the activation dtype, and so does the port's).
 """
 
 from __future__ import annotations
@@ -15,10 +17,6 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
-
-
-def _is_quantized(leaf) -> bool:
-    return isinstance(leaf, dict) and "scale" in leaf and ("qw" in leaf or "qw4" in leaf)
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -38,11 +36,9 @@ def params_from_jax(tree: dict, *, device: str | torch.device = "cuda") -> dict:
     CPU)."""
     device = resolve_device(device)
 
-    def convert(node, path):
-        if _is_quantized(node):
-            raise NotImplementedError(f"quantized leaf at {path} is not ported to dynamo_tpu_torch yet")
+    def convert(node):
         if isinstance(node, dict):
-            return {k: convert(v, f"{path}/{k}") for k, v in node.items()}
+            return {k: convert(v) for k, v in node.items()}
         return tensor_from_numpy(node).to(device)
 
-    return convert(tree, "")
+    return convert(tree)

@@ -62,6 +62,8 @@ from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, NEG_INF, attention_phas
 from dynamo_tpu_torch.ops.paged_decode import decode_kernel_supported
 from dynamo_tpu_torch.ops.paged_mla import paged_mla_supported
 from dynamo_tpu_torch.ops.paged_prefill import prefill_kernel_supported
+from dynamo_tpu_torch.ops.quant_matmul import group_size as quant_group_size
+from dynamo_tpu_torch.ops.quant_matmul import is_quantized, quant_matmul_supported
 from dynamo_tpu_torch.ops.sampling import CANDIDATES, gumbel_noise, sample_tokens, token_logprobs
 
 
@@ -248,6 +250,7 @@ class TorchModelRunner:
             raise ValueError(f"unsupported KV cache dtype {dt} (want {', '.join(map(str, CACHE_DTYPES))})")
         if self.device.type == "cuda":
             self._check_kernels_take(cfg, dt, page_size)
+            self._check_quantized_take(cfg, params)
         self.params = _to_device(params, self.device)
         self.k_cache, self.v_cache = llama.init_kv_cache(
             cfg, num_pages, page_size, dtype=dt, device=self.device
@@ -311,6 +314,34 @@ class TorchModelRunner:
                 f"the paged-attention kernels do not take heads={cfg.num_heads}/{cfg.num_kv_heads}, "
                 f"head_dim={cfg.head_dim}, cache {cache_dtype}"
             )
+
+    @staticmethod
+    def _check_quantized_take(cfg: ModelConfig, params: llama.Params) -> None:
+        """On the card every quantized projection runs in the quant_matmul
+        kernel; refuse a leaf whose geometry or types it does not take
+        before allocating anything (layer-stacked leaves: the last two axes
+        are K x N; the head's output is f32)."""
+        def walk(tree, name):
+            if not isinstance(tree, dict):
+                return
+            if not is_quantized(tree):
+                for k, v in tree.items():
+                    walk(v, k)
+                return
+            packed = "qw4" in tree
+            qw = tree["qw4" if packed else "qw"]
+            k, n = qw.shape[-2] * (2 if packed else 1), qw.shape[-1]
+            mode, group = ("int4", quant_group_size(tree)) if packed else ("int8", 0)
+            out = torch.float32 if name == "lm_head" else llama.param_dtype(cfg)
+            if not quant_matmul_supported(k, n, mode=mode, group=group, x_dtype=llama.param_dtype(cfg),
+                                          scale_dtype=tree["scale"].dtype, out_dtype=out):
+                raise NotImplementedError(
+                    f"the quant_matmul kernel does not take {name}: K={k}, N={n}, {mode}"
+                    f"{f' group {group}' if group else ''}, scale {tree['scale'].dtype}, "
+                    f"activations {llama.param_dtype(cfg)}"
+                )
+
+        walk(params, None)
 
     # -- bucketing (same lattice as the JAX runner) -------------------------
 

@@ -7,7 +7,9 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
   (random-init, seeded, or bridged parameters) or an HF checkpoint
   directory (``config.json``, safetensors, tokenizer), whose card, tokenizer
   and weights (``models/loader.py``) are the JAX build's
-  ``WorkerSpec.from_model_dir``.
+  ``WorkerSpec.from_model_dir``, or a GGUF file (``models/gguf.py``: its
+  config, card, embedded tokenizer and weights); ``quantize`` serves the
+  weights as int8 or packed int4 (``models/quant.py``).
 - :func:`build_pipeline` — the ``OpenAIPreprocessor(Backend(service,
   tokenizer))`` chain over one service, in-process, with no runtime.
 - :func:`serve_worker` — one engine on a runtime endpoint with its KV event
@@ -18,7 +20,9 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
   in-memory runtime, round-robin, random or KV-routed.
 - CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
   --router-mode kv --http-port 8080`` (``--model`` also takes a checkpoint
-  directory; ``--platform cpu`` runs on the CPU; ``--kv-cache-dtype fp8``,
+  directory or a ``.gguf`` file; ``--platform cpu`` runs on the CPU;
+  ``--quantize int8|int4`` serves weight-only quantized weights through the
+  quant_matmul kernel; ``--kv-cache-dtype fp8``,
   or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV cache as fp8 e4m3, served by
   the kernels' fp8 forms; ``--overlap``, or ``DYN_OVERLAP=1``, runs the
   engine's overlapped pipeline; ``--spec-k K``, or ``DYN_SPEC_K``, drafts
@@ -31,7 +35,7 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Not ported yet: the multi-process roles (``--role``, the TCP store and
 transport), disaggregated prefill workers, the ``text`` and ``batch:``
-inputs, GGUF files and vision checkpoints, the worker telemetry plane, and
+inputs, vision checkpoints, the worker telemetry plane, and
 the JAX build's other engine options. The command line refuses each of
 those options by name.
 """
@@ -57,8 +61,8 @@ from dynamo_tpu_torch.frontend.http import HttpService
 from dynamo_tpu_torch.frontend.metrics import FrontendMetrics
 from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelWatcher
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
-from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import PRESETS, ModelConfig
+from dynamo_tpu_torch.models.quant import init_params_quantized, quantize_params
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventBroadcaster
 from dynamo_tpu_torch.router.metrics import WorkerMetricsPublisher
@@ -113,17 +117,53 @@ def _engine_env() -> dict[str, Any]:
 
 def resolve_model(model: str) -> tuple[ModelConfig, pathlib.Path | None]:
     """``model`` as the JAX launcher resolves it (``make_worker_spec``): a
-    preset name, or a path to an HF checkpoint directory, whose config is
-    read from its ``config.json`` under the directory's name. Returns the
-    config and the directory (None for a preset)."""
+    preset name, a path to an HF checkpoint directory, whose config is read
+    from its ``config.json`` under the directory's name, or a ``.gguf``
+    file, whose config comes from its metadata under the file's stem (one
+    cached reader serves config, card, tokenizer and weights). Returns the
+    config and the directory or file (None for a preset)."""
     if model in PRESETS:
         return PRESETS[model], None
     p = pathlib.Path(model)
     if p.is_dir():
         return ModelConfig.from_hf(p / "config.json", name=p.name), p
-    if p.suffix == ".gguf":
-        raise NotImplementedError("GGUF checkpoints are not ported to dynamo_tpu_torch yet (ROADMAP A4)")
-    raise ValueError(f"unknown model {model!r}: not a preset ({', '.join(PRESETS)}) or a checkpoint directory")
+    if p.suffix == ".gguf" and p.is_file():
+        from dynamo_tpu_torch.models.gguf import config_from_gguf, shared_reader
+
+        return config_from_gguf(shared_reader(p), name=p.stem), p
+    raise ValueError(f"unknown model {model!r}: not a preset ({', '.join(PRESETS)}), a checkpoint directory, "
+                     "or a .gguf file")
+
+
+def model_card(cfg: ModelConfig, path: pathlib.Path, **overrides: Any) -> ModelDeploymentCard:
+    """The card of a checkpoint directory or a GGUF file."""
+    if path.suffix == ".gguf":
+        from dynamo_tpu_torch.models.gguf import shared_reader
+
+        return ModelDeploymentCard.from_gguf(cfg.name, path, reader=shared_reader(path), **overrides)
+    return ModelDeploymentCard.from_model_dir(cfg.name, path, **overrides)
+
+
+def worker_params(cfg: ModelConfig, path: pathlib.Path | None, *, device: torch.device, seed: int = 0,
+                 quantize: str = "") -> dict:
+    """The parameters a worker serves, in the JAX launcher's order
+    (``dynamo_tpu/launch.py:256-290``): a preset random-inits from ``seed``,
+    directly quantized with ``quantize`` (the full-width tree never exists);
+    a directory loads its safetensors, then quantizes leaf by leaf in place
+    on the device; a GGUF file imports its Q4_0/Q4_K projections straight
+    into packed int4 leaves with ``quantize="int4"``, and every leaf that
+    fell back is quantized after."""
+    if path is None:
+        return init_params_quantized(cfg, seed, mode=quantize, device=device)
+    if path.suffix == ".gguf":
+        from dynamo_tpu_torch.models.gguf import load_gguf_params, shared_reader
+
+        params = load_gguf_params(shared_reader(path), cfg, quantize=quantize, device=device)
+    else:
+        from dynamo_tpu_torch.models.loader import load_params
+
+        params = load_params(path, cfg, device=device)
+    return quantize_params(params, mode=quantize, inplace=True)
 
 
 async def build_engine_service(
@@ -134,15 +174,19 @@ async def build_engine_service(
     seed: int = 0,
     cache_dtype: torch.dtype | None = None,
     graphs: bool | None = None,
+    quantize: str = "",
     on_kv_event=None,
     **engine_kw,
 ) -> TorchEngineService:
-    """Bring up a started engine service for ``model``: a preset or an HF
-    checkpoint directory (:func:`resolve_model`).
+    """Bring up a started engine service for ``model``: a preset, an HF
+    checkpoint directory or a GGUF file (:func:`resolve_model`).
 
     ``params`` are the port's parameters (e.g. ``bridge.params_from_jax``);
-    without them a preset's weights are random-init from ``seed`` and a
-    directory's are loaded from its safetensors (``models/loader.py``).
+    without them a preset's weights are random-init from ``seed``, a
+    directory's are loaded from its safetensors (``models/loader.py``) and a
+    GGUF file's from its tensors (``models/gguf.py``). ``quantize`` ("",
+    "int8" or "int4") serves the matmul weights quantized (:func:`worker_params`;
+    given ``params`` are quantized where they are not already).
     ``engine_kw`` overrides :class:`EngineConfig` fields; the defaults are
     the JAX build's: for a preset byte-tokenizer EOS, 16-token pages and the
     context capped at 4096, for a directory its card's context length, EOS
@@ -159,7 +203,7 @@ async def build_engine_service(
         defaults = {"max_seq_len": min(cfg.max_position, CONTEXT_LENGTH_CAP),
                     "eos_token_ids": tuple(sorted(ByteTokenizer().eos_token_ids)), "page_size": 16}
     else:
-        card = ModelDeploymentCard.from_model_dir(cfg.name, model_dir)
+        card = model_card(cfg, model_dir)
         defaults = {"max_seq_len": card.context_length, "eos_token_ids": tuple(card.eos_token_ids),
                     "page_size": card.kv_page_size}
     config = EngineConfig(**{**defaults, **_engine_env(), **engine_kw})
@@ -168,13 +212,9 @@ async def build_engine_service(
         # Parameter init or loading and cache allocation take seconds at
         # full width: keep them off the event loop.
         if params is not None:
-            p = params
-        elif model_dir is not None:
-            from dynamo_tpu_torch.models.loader import load_params
-
-            p = load_params(model_dir, cfg, device=dev)
+            p = quantize_params(params, mode=quantize)
         else:
-            p = llama.init_params(cfg, seed, device=dev)
+            p = worker_params(cfg, model_dir, device=dev, seed=seed, quantize=quantize)
         return TorchModelRunner(
             cfg, p, num_pages=config.num_pages, page_size=config.page_size,
             max_batch_size=config.max_batch_size, cache_dtype=cache_dtype, device=dev, graphs=graphs,
@@ -206,13 +246,14 @@ def worker_card(model: str, config: EngineConfig, *, router_mode: str = "round_r
     """The card a worker of ``model`` publishes. A preset's is the JAX
     build's preset card (byte tokenizer, no chat template); a checkpoint
     directory's is ``ModelDeploymentCard.from_model_dir`` (its tokenizer
-    file and chat template). Either carries the served engine's context
-    length, page size and EOS ids."""
+    file and chat template), a GGUF file's ``from_gguf`` (its embedded
+    tokenizer). Each carries the served engine's context length, page size
+    and EOS ids."""
     served = dict(context_length=config.max_seq_len, kv_page_size=config.page_size,
                   eos_token_ids=list(config.eos_token_ids), router_mode=router_mode)
     cfg, model_dir = resolve_model(model)
     if model_dir is not None:
-        return ModelDeploymentCard.from_model_dir(cfg.name, model_dir, **served)
+        return model_card(cfg, model_dir, **served)
     return ModelDeploymentCard(name=model, tokenizer="byte", **served)
 
 
@@ -226,6 +267,7 @@ async def serve_worker(
     params: dict | None = None,
     seed: int = 0,
     cache_dtype: torch.dtype | None = None,
+    quantize: str = "",
     **engine_kw: Any,
 ) -> TorchEngineService:
     """Serve the engine + KV event stream + metrics and publish the model card.
@@ -238,7 +280,7 @@ async def serve_worker(
     broadcaster = KvEventBroadcaster()
     broadcaster.bind_loop(asyncio.get_running_loop())
     service = await build_engine_service(
-        model, device=device, params=params, seed=seed, cache_dtype=cache_dtype,
+        model, device=device, params=params, seed=seed, cache_dtype=cache_dtype, quantize=quantize,
         on_kv_event=broadcaster.publish, **engine_kw,
     )
     broadcaster.bind_snapshot(service.core.allocator.cache_snapshot)
@@ -290,14 +332,16 @@ async def run_local(
     seed: int = 0,
     params: dict | None = None,
     cache_dtype: torch.dtype | None = None,
+    quantize: str = "",
     **engine_kw: Any,
 ) -> dict[str, Any]:
     """Single-process serving: ``num_workers`` workers + the frontend.
 
-    ``preset`` is a preset name or a checkpoint directory
+    ``preset`` is a preset name, a checkpoint directory or a GGUF file
     (:func:`resolve_model`). Every worker takes the same ``params``, or
-    random-inits from the same ``seed`` (a directory: loads its weights),
-    as the JAX build's workers do. Raises without a GPU unless
+    random-inits from the same ``seed`` (a directory or file: loads its
+    weights), as the JAX build's workers do; ``quantize`` ("", "int8",
+    "int4") as in :func:`build_engine_service`. Raises without a GPU unless
     ``device="cpu"``, before anything is started."""
     resolve_device(device)
     if router_mode not in ("round_robin", "random", "kv"):
@@ -309,7 +353,7 @@ async def run_local(
         lease = await runtime.secondary_lease() if num_workers > 1 else None
         services.append(await serve_worker(
             runtime, preset, lease=lease, router_mode=router_mode, device=device, params=params,
-            seed=seed, cache_dtype=cache_dtype, **engine_kw,
+            seed=seed, cache_dtype=cache_dtype, quantize=quantize, **engine_kw,
         ))
 
     def clear(core: EngineCore) -> int:
@@ -372,6 +416,7 @@ async def _amain(args: argparse.Namespace, *, device: str | torch.device = "cuda
         device=args.platform or device,
         seed=seed,
         params=params,
+        quantize=args.quantize,
         num_pages=args.num_pages,
         max_batch_size=args.max_batch_size,
     )
@@ -388,7 +433,7 @@ def build_parser() -> argparse.ArgumentParser:
     platform)."""
     parser = argparse.ArgumentParser(description="dynamo-tpu launcher (PyTorch/CUDA port)", allow_abbrev=False)
     parser.add_argument("--model", default="test-tiny",
-                        help=f"model preset ({', '.join(PRESETS)}) or an HF checkpoint directory")
+                        help=f"model preset ({', '.join(PRESETS)}), an HF checkpoint directory or a .gguf file")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--http-port", type=int, default=8080)
     parser.add_argument("--workers", type=int, default=1)
@@ -398,6 +443,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--role", default="local", choices=["local"],
                         help="only 'local' (workers and frontend in this process) is ported")
     parser.add_argument("--input", default="http", choices=["http"], help="only 'http' is ported")
+    parser.add_argument(
+        "--quantize", default="", choices=["", "int8", "int4"],
+        help="weight-only quantization for serving (int4: packed nibbles, "
+        "group scales of DYN_QUANT_GROUP_SIZE, default 128)",
+    )
     parser.add_argument("--platform", default=None, choices=["cuda", "cpu"],
                         help="device to serve on (default: the card)")
     parser.add_argument("--kv-cache-dtype", default="bf16", choices=["bf16", "fp8"],

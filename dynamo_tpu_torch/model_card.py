@@ -8,9 +8,9 @@ pipeline (preprocessor -> backend -> router) from it. Cards carry *specs*
 serialize cleanly.
 
 ``from_model_dir`` builds a card from an HF checkpoint directory's
-``config.json``, tokenizer files and ``tokenizer_config.json``. Building one
-from a GGUF file comes with GGUF import (ROADMAP A4), and moving its
-artifacts through an object store with the TCP runtime (A7).
+``config.json``, tokenizer files and ``tokenizer_config.json``;
+``from_gguf`` from a GGUF file's metadata (its embedded tokenizer). Moving a
+card's artifacts through an object store comes with the TCP runtime (A7).
 """
 
 from __future__ import annotations
@@ -100,3 +100,34 @@ class ModelDeploymentCard:
                 kw["chat_template"] = tc["chat_template"]
         kw.update(overrides)
         return cls(**kw)
+
+    @classmethod
+    def from_gguf(cls, name: str, path: str | pathlib.Path, *, reader: Any | None = None,
+                  **overrides: Any) -> "ModelDeploymentCard":
+        """Build a card from a GGUF file's metadata (embedded tokenizer,
+        context length, special token ids, chat template). Pass an open
+        ``reader`` to reuse an already-parsed header (the caller keeps
+        ownership and closes it)."""
+        from dynamo_tpu_torch.models.gguf import GGUFReader
+
+        owned = reader is None
+        reader = reader or GGUFReader(path)
+        try:
+            md = reader.metadata
+            arch = md.get("general.architecture", "llama")
+            kw: dict[str, Any] = {
+                "name": name,
+                "tokenizer": str(path),  # load_tokenizer understands .gguf
+                "context_length": int(md.get(f"{arch}.context_length", 4096)),
+            }
+            if "tokenizer.ggml.eos_token_id" in md:
+                kw["eos_token_ids"] = [int(md["tokenizer.ggml.eos_token_id"])]
+            if "tokenizer.ggml.bos_token_id" in md:
+                kw["bos_token_id"] = int(md["tokenizer.ggml.bos_token_id"])
+            if md.get("tokenizer.chat_template"):
+                kw["chat_template"] = md["tokenizer.chat_template"]
+            kw.update(overrides)
+            return cls(**kw)
+        finally:
+            if owned:
+                reader.close()

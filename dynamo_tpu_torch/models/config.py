@@ -247,6 +247,11 @@ PRESETS: dict[str, ModelConfig] = {
         num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
         rope_theta=500000.0, max_position=8192,
     ),
+    "llama-3-70b": ModelConfig(
+        name="llama-3-70b", vocab_size=128256, hidden_size=8192, num_layers=80,
+        num_heads=64, num_kv_heads=8, head_dim=128, intermediate_size=28672,
+        rope_theta=500000.0, max_position=8192,
+    ),
     # MLA throughput proxy at 8B-class scale: DeepSeek-V3's per-layer MLA
     # geometry (kv_lora 512 + rope 64 latent cache, absorbed projections)
     # on a 32-layer/4096-hidden dense trunk; no public checkpoint has this

@@ -3,8 +3,9 @@ of ``dynamo_tpu/models/llama.py``).
 
 Parameters are a plain dict of tensors with **layers stacked on a leading
 axis** and every projection stored ``[in, out]`` (``x @ W``), exactly the
-JAX pytree's layout, so ``bridge.params_from_jax`` needs no transposes. The
-paged KV cache is ``[L, num_pages, page_size, n_kv * head_dim]`` (MLA: latents
+JAX pytree's layout, so ``bridge.params_from_jax`` needs no transposes. A
+projection may be a quantized leaf (``models/quant.py``): every projection
+and an untied head go through ``quant_matmul``. The paged KV cache is ``[L, num_pages, page_size, n_kv * head_dim]`` (MLA: latents
 in ``k_cache``, lane-padded rope keys in ``v_cache``, ``models/mla.py``); the
 forward addresses it flat (``[L * pages, ps, W]``) with per-layer page
 offsets and updates it **in place** before attention.
@@ -21,6 +22,8 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import init_mla_params, mla_attention, mla_cache_widths
+from dynamo_tpu_torch.models.quant import quant_matmul as _qmm
+from dynamo_tpu_torch.models.quant import take_layer
 from dynamo_tpu_torch.ops.attention import paged_attention, paged_attention_reference, write_kv
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.paged_mla import walk_facts
@@ -47,6 +50,48 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("multimodal inputs are not ported yet")
 
 
+def build_params(cfg: ModelConfig, weight, const) -> Params:
+    """The parameter tree of ``cfg`` in the JAX build's layout and shapes:
+    ``weight(name, shape, fan_in)`` makes each weight leaf (its values, or a
+    quantized leaf, ``models/quant.py``), ``const(shape, value)`` each norm
+    (1) and bias (0); leaves are made in a fixed order."""
+    check_supported(cfg)
+    d, q, kv, f, nl = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size, cfg.num_layers
+    layers = {
+        "attn_norm": const((nl, d), 1.0),
+        "mlp_norm": const((nl, d), 1.0),
+    }
+    if cfg.qk_norm:
+        qn = cfg.head_dim if cfg.qk_norm == "head" else q
+        kn = cfg.head_dim if cfg.qk_norm == "head" else kv
+        layers["q_norm"] = const((nl, qn), 1.0)
+        layers["k_norm"] = const((nl, kn), 1.0)
+    if cfg.attn_type == "mla":
+        layers.update(init_mla_params(cfg, weight, const, nl))
+    else:
+        layers.update({
+            "wq": weight("wq", (nl, d, q), d),
+            "wk": weight("wk", (nl, d, kv), d),
+            "wv": weight("wv", (nl, d, kv), d),
+            "wo": weight("wo", (nl, q, d), q),
+        })
+    layers.update({
+        "w_gate": weight("w_gate", (nl, d, f), d),
+        "w_up": weight("w_up", (nl, d, f), d),
+        "w_down": weight("w_down", (nl, f, d), f),
+    })
+    if cfg.attention_bias:
+        layers.update({"bq": const((nl, q), 0.0), "bk": const((nl, kv), 0.0), "bv": const((nl, kv), 0.0)})
+    params: Params = {
+        "embed": weight("embed", (cfg.vocab_size, d), d),
+        "norm_f": const((d,), 1.0),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = weight("lm_head", (d, cfg.vocab_size), d)
+    return params
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device = "cuda") -> Params:
     """Random-init parameters from a seeded ``torch.Generator`` on ``device``
     (the card unless the caller asks for the CPU): the JAX build's shapes and
@@ -56,48 +101,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
     dev = resolve_device(device)
     dt = param_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, q, kv, f, nl = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size, cfg.num_layers
 
-    def w(shape, fan_in):
+    def weight(name, shape, fan_in):
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * fan_in**-0.5).to(dt)
 
-    layers = {
-        "attn_norm": torch.ones((nl, d), dtype=dt, device=dev),
-        "mlp_norm": torch.ones((nl, d), dtype=dt, device=dev),
-    }
-    if cfg.qk_norm:
-        qn = cfg.head_dim if cfg.qk_norm == "head" else q
-        kn = cfg.head_dim if cfg.qk_norm == "head" else kv
-        layers["q_norm"] = torch.ones((nl, qn), dtype=dt, device=dev)
-        layers["k_norm"] = torch.ones((nl, kn), dtype=dt, device=dev)
-    if cfg.attn_type == "mla":
-        layers.update(init_mla_params(cfg, gen, dt, nl))
-    else:
-        layers.update({
-            "wq": w((nl, d, q), d),
-            "wk": w((nl, d, kv), d),
-            "wv": w((nl, d, kv), d),
-            "wo": w((nl, q, d), q),
-        })
-    layers.update({
-        "w_gate": w((nl, d, f), d),
-        "w_up": w((nl, d, f), d),
-        "w_down": w((nl, f, d), f),
-    })
-    if cfg.attention_bias:
-        layers.update({
-            "bq": torch.zeros((nl, q), dtype=dt, device=dev),
-            "bk": torch.zeros((nl, kv), dtype=dt, device=dev),
-            "bv": torch.zeros((nl, kv), dtype=dt, device=dev),
-        })
-    params: Params = {
-        "embed": w((cfg.vocab_size, d), d),
-        "norm_f": torch.ones((d,), dtype=dt, device=dev),
-        "layers": layers,
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = w((d, cfg.vocab_size), d)
-    return params
+    return build_params(cfg, weight, lambda shape, value: torch.full(shape, value, dtype=dt, device=dev))
 
 
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype | None = None,
@@ -118,20 +126,18 @@ def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch
 
 
 def _mlp_dense(lp: dict, li: int, x: torch.Tensor, act: str) -> torch.Tensor:
-    gp = x @ lp["w_gate"][li]
+    gp = _qmm(x, take_layer(lp["w_gate"], li))
     gate = F.gelu(gp, approximate="tanh") if act == "gelu_tanh" else F.silu(gp)
-    return (gate * (x @ lp["w_up"][li])) @ lp["w_down"][li]
+    return _qmm(gate * _qmm(x, take_layer(lp["w_up"], li)), take_layer(lp["w_down"], li))
 
 
-def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+def _head_logits(x: torch.Tensor, head) -> torch.Tensor:
     """``x [N, D] @ head [D, vocab]`` with f32 output, operands in their own
     dtype (no f32 copy of the embedding matrix): cuBLAS's bf16 GEMM with f32
-    output on the card; the CPU has no such GEMM, so it upcasts there."""
-    if x.dtype == torch.float32 and head.dtype == torch.float32:
-        return x @ head
-    if x.is_cuda:
-        return torch.mm(x, head, out_dtype=torch.float32)
-    return x.float() @ head.float()
+    output on the card (the CPU has no such GEMM, so it upcasts there); a
+    quantized head through ``quant_matmul``, its int8 scale applied to the
+    f32 output as in the JAX build."""
+    return _qmm(x, head, out_dtype=torch.float32)
 
 
 def rope_table(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
@@ -195,14 +201,14 @@ def forward(
         h = rms_norm(x, lp["attn_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
         if mla:
             attn_out, _, _ = mla_attention(
-                {k: v[li] for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
+                {k: take_layer(v, li) for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
                 inv_freq, attn_mscale=attn_mscale, impl=attn_impl, walk=walk,
             )
             x = x + attn_out
             h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
             x = x + _mlp_dense(lp, li, h2, cfg.mlp_act)
             continue
-        qp, kp, vp = h @ lp["wq"][li], h @ lp["wk"][li], h @ lp["wv"][li]
+        qp, kp, vp = (_qmm(h, take_layer(lp[name], li)) for name in ("wq", "wk", "wv"))
         if cfg.attention_bias:
             qp, kp, vp = qp + lp["bq"][li], kp + lp["bk"][li], vp + lp["bv"][li]
         if cfg.qk_norm == "flat":
@@ -224,7 +230,7 @@ def forward(
         else:
             attn = paged_attention(q.contiguous(), kf, vf, tables_all[li], positions,
                                    contiguous_positions=contiguous_positions)
-        x = x + attn.reshape(b, t, cfg.q_dim) @ lp["wo"][li]
+        x = x + _qmm(attn.reshape(b, t, cfg.q_dim), take_layer(lp["wo"], li))
         h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
         x = x + _mlp_dense(lp, li, h2, cfg.mlp_act)
     x = rms_norm(x, params["norm_f"], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)

@@ -21,7 +21,8 @@ read one tensor at a time. Sharded checkpoints list their files in
 tools can write an HF-compatible checkpoint from any parameters.
 
 Not ported yet: MoE leaves (ROADMAP A6), vision towers (``load_vlm``,
-A6), GGUF (``models/gguf.py``, A4) and mesh-sharded placement (A8).
+A6) and mesh-sharded placement (A8). GGUF files load through
+``models/gguf.py``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ The attention is the **absorbed** formulation: queries are projected into
 latent space (``q_nope @ W_uk``), attention runs directly against the cached
 latents (``ops/paged_mla.py``: the CUDA kernel on the card, its plain
 version on the CPU), and ``W_uv`` applies once to the latent output. The
-head-wise einsums and projections are plain matrix products, as the JAX
-build leaves them to XLA. ``impl="reference"`` runs the gather formulation.
+projections go through ``quant_matmul`` (quantized leaves in the kernel of
+``ops/quant_matmul.py`` on the card); the head-wise einsums (``w_uk``,
+``w_uv``, never quantized) are plain products, as the JAX build leaves them
+to XLA. ``impl="reference"`` runs the gather formulation.
 Ring attention and the device mesh are not ported.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import quant_matmul as _qmm
 from dynamo_tpu_torch.ops.attention import NEG_INF, store_rows
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.paged_mla import paged_mla
@@ -30,33 +33,28 @@ from dynamo_tpu_torch.ops.rope import apply_rope
 Params = dict
 
 
-def init_mla_params(cfg: ModelConfig, gen: torch.Generator, dt: torch.dtype, num_layers: int) -> dict:
+def init_mla_params(cfg: ModelConfig, weight, const, num_layers: int) -> dict:
     """MLA attention leaves, layers stacked on the leading axis: the JAX
-    build's leaves, shapes and scales (normal * fan_in**-0.5, norms at 1),
-    drawn from ``gen`` on its device."""
+    build's leaves, shapes and fan-ins, made by ``llama.build_params``'s
+    ``weight(name, shape, fan_in)`` and ``const(shape, value)``."""
     d, h, nl = cfg.hidden_size, cfg.num_heads, num_layers
     r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    dev = gen.device
-
-    def w(shape, fan_in):
-        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * fan_in**-0.5).to(dt)
-
     leaves = {
         # x -> compressed kv latent + decoupled rope key (shared, one "head")
-        "w_kv_a": w((nl, d, r_kv + dr), d),
-        "kv_norm": torch.ones((nl, r_kv), dtype=dt, device=dev),
+        "w_kv_a": weight("w_kv_a", (nl, d, r_kv + dr), d),
+        "kv_norm": const((nl, r_kv), 1.0),
         # latent -> per-head K_nope / V
-        "w_uk": w((nl, r_kv, h, dn), r_kv),
-        "w_uv": w((nl, r_kv, h, dv), r_kv),
-        "wo_mla": w((nl, h * dv, d), h * dv),
+        "w_uk": weight("w_uk", (nl, r_kv, h, dn), r_kv),
+        "w_uv": weight("w_uv", (nl, r_kv, h, dv), r_kv),
+        "wo_mla": weight("wo_mla", (nl, h * dv, d), h * dv),
     }
     if r_q > 0:
-        leaves["w_q_a"] = w((nl, d, r_q), d)
-        leaves["q_norm"] = torch.ones((nl, r_q), dtype=dt, device=dev)
-        leaves["w_q_b"] = w((nl, r_q, h * (dn + dr)), r_q)
+        leaves["w_q_a"] = weight("w_q_a", (nl, d, r_q), d)
+        leaves["q_norm"] = const((nl, r_q), 1.0)
+        leaves["w_q_b"] = weight("w_q_b", (nl, r_q, h * (dn + dr)), r_q)
     else:
-        leaves["w_q"] = w((nl, d, h * (dn + dr)), d)
+        leaves["w_q"] = weight("w_q", (nl, d, h * (dn + dr)), d)
     return leaves
 
 
@@ -72,10 +70,10 @@ def _queries(lp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Ten
     b, t, _ = h.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if "w_q_a" in lp:
-        q_a = rms_norm(h @ lp["w_q_a"], lp["q_norm"], eps=cfg.rms_eps)
-        q = (q_a @ lp["w_q_b"]).reshape(b, t, cfg.num_heads, dn + dr)
+        q_a = rms_norm(_qmm(h, lp["w_q_a"]), lp["q_norm"], eps=cfg.rms_eps)
+        q = _qmm(q_a, lp["w_q_b"]).reshape(b, t, cfg.num_heads, dn + dr)
     else:
-        q = (h @ lp["w_q"]).reshape(b, t, cfg.num_heads, dn + dr)
+        q = _qmm(h, lp["w_q"]).reshape(b, t, cfg.num_heads, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, inv_freq)
 
 
@@ -100,7 +98,7 @@ def mla_attention(
     r_kv, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
     # -- latent + rope key, written through to the paged cache -------------
-    kv_a = h @ lp["w_kv_a"]  # [B, T, r_kv + dr]
+    kv_a = _qmm(h, lp["w_kv_a"])  # [B, T, r_kv + dr]
     c = rms_norm(kv_a[..., :r_kv], lp["kv_norm"], eps=cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., None, r_kv:], positions, inv_freq)[:, :, 0]  # [B, T, dr]
     r_width = r_cache.shape[2]
@@ -122,7 +120,7 @@ def mla_attention(
     else:
         raise ValueError(f"unknown impl {impl!r} (want None or 'reference')")
     out = torch.einsum("bthr,rhv->bthv", out_lat.to(h.dtype), lp["w_uv"])  # [B, T, H, dv]
-    return out.reshape(b, t, n_heads * dv) @ lp["wo_mla"], c_cache, r_cache
+    return _qmm(out.reshape(b, t, n_heads * dv), lp["wo_mla"]), c_cache, r_cache
 
 
 def _gather_attention(q_lat, q_rope, c_cache, r_cache, block_tables, positions, scale: float) -> torch.Tensor:
@@ -159,7 +157,7 @@ def mla_attention_naive(
     n_heads = cfg.num_heads
     r_kv, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
-    kv_a = h @ lp["w_kv_a"]
+    kv_a = _qmm(h, lp["w_kv_a"])
     c = rms_norm(kv_a[..., :r_kv], lp["kv_norm"], eps=cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., None, r_kv:], positions, inv_freq)  # [B, T, 1, dr]
     k_nope = torch.einsum("btr,rhn->bthn", c, lp["w_uk"])  # [B, T, H, dn]
@@ -174,4 +172,4 @@ def mla_attention_naive(
     logits = torch.where(mask[:, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhts,bshv->bthv", probs.to(v.dtype).float(), v.float())
-    return out.to(h.dtype).reshape(b, t, n_heads * dv) @ lp["wo_mla"]
+    return _qmm(out.to(h.dtype).reshape(b, t, n_heads * dv), lp["wo_mla"])

@@ -53,6 +53,10 @@ SIGNATURES: dict[str, tuple[str, list]] = {
         "dyn_paged_mla",
         [_P] * 9 + [_I] * 14 + [_F, _P],
     ),
+    "quant_matmul": (
+        "dyn_quant_matmul",
+        [_P] * 6 + [_I] * 9 + [_P],
+    ),
     # The fp8 kernels' on-chip e4m3 -> bf16 conversion alone, for checks.
     "fp8_convert": (
         "dyn_fp8_to_bf16",

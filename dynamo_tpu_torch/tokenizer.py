@@ -2,8 +2,8 @@
 
 A copy of ``dynamo_tpu/tokenizer.py``. ``ByteTokenizer`` serves the presets;
 ``HfTokenizer`` imports ``tokenizers`` only when a tokenizer file is loaded
-(``tokenizer.json``, or a SentencePiece ``.model`` through
-``sentencepiece.py``). GGUF tokenizers are not ported yet.
+(``tokenizer.json``, a SentencePiece ``.model`` through ``sentencepiece.py``,
+or the vocabulary embedded in a ``.gguf`` file through ``models/gguf.py``).
 """
 
 from __future__ import annotations
@@ -106,8 +106,10 @@ def load_tokenizer(spec: str | pathlib.Path) -> BaseTokenizer:
         from dynamo_tpu_torch.sentencepiece import load_sentencepiece
 
         return load_sentencepiece(p)
-    if p.suffix == ".gguf":
-        raise NotImplementedError(".gguf tokenizers are not ported to dynamo_tpu_torch yet (ROADMAP A4)")
+    if p.suffix == ".gguf" and p.exists():
+        from dynamo_tpu_torch.models.gguf import shared_reader, tokenizer_from_gguf
+
+        return tokenizer_from_gguf(shared_reader(p))
     if p.exists():
         return HfTokenizer.from_file(p)
     raise FileNotFoundError(f"no tokenizer at {spec}")

@@ -86,3 +86,22 @@ def test_serving_entry_points_default_to_the_card_and_refuse_without_one(monkeyp
     with pytest.raises(SystemExit):
         launch.main(["--role", "frontend", "--platform", "cpu"])
     assert "--role" in capsys.readouterr().err
+
+
+def test_quantized_and_gguf_entry_points_are_guarded_too(monkeypatch):
+    """The modules of quantized serving and GGUF import are among those the
+    import guard walks, and their entry points default to the card."""
+    from dynamo_tpu_torch.launch import build_engine_service
+    from dynamo_tpu_torch.models.config import PRESETS
+    from dynamo_tpu_torch.models.gguf import load_gguf_params
+    from dynamo_tpu_torch.models.quant import init_params_quantized
+
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"models/quant.py", "models/gguf.py", "ops/quant_matmul.py"} <= files
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params_quantized(PRESETS["test-tiny"], mode="int4")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_gguf_params("missing.gguf", PRESETS["test-tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(build_engine_service("test-tiny", quantize="int8"))

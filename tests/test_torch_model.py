@@ -63,8 +63,18 @@ def test_bridge_keeps_bf16_bits_and_refuses_quantized_leaves():
     t = tensor_from_numpy(a)
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.uint16).numpy(), a.view(np.uint16))
-    with pytest.raises(NotImplementedError):
-        params_from_jax({"layers": {"wq": {"qw": np.zeros((2, 2), np.int8), "scale": np.ones(2)}}}, device="cpu")
+    # Quantized leaves cross bit for bit, each array in its own dtype (a GGUF
+    # import's float32 scale and qbias stay float32).
+    rng = np.random.default_rng(1)
+    leaf = {"qw4": rng.integers(-128, 128, (2, 4, 3)).astype(np.int8),
+            "scale": rng.standard_normal((2, 2, 3)).astype(ml_dtypes.bfloat16),
+            "qbias": rng.standard_normal((2, 2, 3)).astype(np.float32)}
+    got = params_from_jax({"layers": {"wq": leaf}}, device="cpu")["layers"]["wq"]
+    assert {k: v.dtype for k, v in got.items()} == {"qw4": torch.int8, "scale": torch.bfloat16,
+                                                      "qbias": torch.float32}
+    np.testing.assert_array_equal(got["qw4"].numpy(), leaf["qw4"])
+    np.testing.assert_array_equal(got["scale"].view(torch.uint16).numpy(), leaf["scale"].view(np.uint16))
+    np.testing.assert_array_equal(got["qbias"].numpy(), leaf["qbias"])
 
 
 def _step_inputs(cfg, ps, npages):
