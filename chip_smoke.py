@@ -130,14 +130,19 @@ failure exits non-zero:
               (``QUANT_SHAPES``: llama-3-8b, mla-8b-proxy with its
               576-column edge, llama-3-70b; int8, int4 at group 128, int4
               with and without qbias at group 32 with f32 scales as a GGUF
-              import holds them), at M 1, 5, 8, 64, 512 and 2051, bf16 and
-              f32 out, per row; every product launched twice, bitwise
-              equal; and x = I_K, whose products are the weight elements
-              themselves, bitwise the plain dequantization. Timed
-              ("kernel_timing_quant") at llama-3-8b's w_gate and w_down and
-              llama-3-70b's 8192 x 28672 at M 8 and 2048, the weights cycled
-              through copies that exceed the L2, beside the bound, the plain
-              version and cuBLAS on the pre-dequantized bf16 weight. Then
+              import holds them), at M 1, 5, 8, 16, 17, 64, 512 and 2051
+              (both forms of the kernel, each side of their switch), bf16
+              and f32 out, per row; every
+              product launched twice, bitwise equal; and x = I_K, whose
+              products are the weight elements themselves, bitwise the plain
+              dequantization. Timed ("kernel_timing_quant") at llama-3-8b's
+              w_gate and w_down and llama-3-70b's 8192 x 28672 at M 8, 64,
+              512 and 2048, and the head's product at M 8 (int8, f32 out),
+              the weights cycled through copies that exceed the L2, beside
+              the bound, the plain version and cuBLAS on the pre-dequantized
+              bf16 weight, each with the form and plan it took; the build
+              line lists every quant_matmul instantiation's registers and
+              spills (a spill fails the build phase). Then
               (``quant_serve_phase``) llama-3-8b served at bf16 (main path),
               then at int8 and int4 and mla-8b-proxy at int8, each random-init
               directly quantized: a forward check (quant_matmul and
@@ -2461,7 +2466,9 @@ def checkpoint_phase(dev, params: dict) -> dict:
 
 # -- quantized weights: quant_matmul -------------------------------------------------
 
-QUANT_M = (1, 5, 8, 64, 512, 2051)  # decode rows, a ragged row tile, verify rows, prefill chunks, a mixed step
+# decode rows, a ragged row tile, rows at each side of the decode/prefill switch, verify rows, prefill
+# chunks, a mixed step
+QUANT_M = (1, 5, 8, 16, 17, 64, 512, 2051)
 # (K, N) of every quantized leaf the slice serves, by leaf format: llama-3-8b's
 # projections and head, mla-8b-proxy's (w_q_a, w_q_b, w_kv_a with its ragged
 # 576-column edge; wo_mla is 4096 x 4096), llama-3-70b's at int4, and
@@ -2568,48 +2575,55 @@ def quant_bound(m: int, k: int, n: int, leaf: dict, out_bytes: int = 2) -> tuple
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+QUANT_TIMED_M = (8, 64, 512, 2048)  # a decode step, verify rows, a prefill chunk, a long prefill
+
+
 def quant_timing(dev) -> dict:
-    """Device ms of ``quant_matmul`` at QUANT_TIMED's products, decode (M=8)
-    and prefill (M=2048), int8 and int4 (group 128): each call reads its own
-    copy of the weight, cycled through copies that exceed the L2 4x (a serve
-    streams each layer's weights cold); beside its bound, the plain version
-    and the library yardstick (``torch.matmul`` on the weight dequantized to
-    bf16 beforehand, never called by the port), and the device µs of each
-    CUDA kernel a call launches (the product, the split-K reduction).
-    Returns the entries by format, the first (llama-3-8b w_gate at M=8)
-    first."""
+    """Device ms of ``quant_matmul`` at QUANT_TIMED's products, at every
+    QUANT_TIMED_M row count, int8 and int4 (group 128), then the head's
+    product at a decode step (llama-3-8b's 4096 x QUANT_HEAD_N at int8, f32
+    out, the largest quantized read of a step): each call reads its own
+    copy of the weight, cycled through copies that exceed the L2 4x (a
+    serve streams each layer's weights cold); beside its bound, the plain
+    version and the library yardstick (``torch.matmul`` on the weight
+    dequantized to bf16 beforehand, never called by the port), the form
+    and plan the wrapper took, and the device µs of each CUDA kernel a
+    call launches. Returns the entries by format, the first (llama-3-8b
+    w_gate at M=8) first; the head's entry is ``out["head"]``."""
     from dynamo_tpu_torch.models.quant import maybe_dequant
     from dynamo_tpu_torch.ops import quant_matmul as qmm
 
     gen = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for fmt in ("int8", "int4"):
-        entries = []
-        for name, k, n in QUANT_TIMED:
-            leaf = quant_leaf(dev, gen, k, n, fmt)
-            nbytes = sum(t.numel() * t.element_size() for t in leaf.values())
-            copies = [leaf] + [{key: t.clone() for key, t in leaf.items()} for _ in range(-(-4 * L2_BYTES // nbytes) - 1)]
-            w16 = maybe_dequant(leaf, torch.bfloat16)
-            for m in (8, 2048):
-                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-                got, want = qmm.quant_matmul(x, leaf), qmm.quant_matmul_plain(x, leaf)
-                err = compare_rows(f"timed {fmt} {name} M={m}", got, want)
-                qmm.launches_int8 = qmm.launches_int4 = 0
-                ms = time_ms(lambda: [qmm.quant_matmul(x, c) for c in copies], iters=4) / len(copies)
-                bound, by = quant_bound(m, k, n, leaf)
-                entries.append({"shape": name, "k": k, "n": n, "m": m, "copies": len(copies), "ms": ms,
-                                "plain_ms": time_ms(lambda: qmm.quant_matmul_plain(x, leaf), iters=2),
-                                "library_ms": time_ms(lambda: torch.matmul(x, w16), iters=4),
-                                "bound_ms": bound, "bound_by": by, "of_bound": bound / ms, "max_abs_err": err,
-                                "plan": qmm.plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-                                                 fmt),
-                                # the product and (split K) its reduction, one warm weight
-                                "device_us_by_kernel": device_us_by_kernel(lambda: qmm.quant_matmul(x, leaf))})
-            del copies, leaf, w16
-            gc.collect()
-            torch.cuda.empty_cache()
-        out[fmt] = entries
-        emit({"phase": "kernel_timing_quant", "format": fmt, "entries": entries})
+    timed = [(fmt, name, k, n, QUANT_TIMED_M, torch.bfloat16) for fmt in ("int8", "int4") for name, k, n in QUANT_TIMED]
+    timed.append(("head", "llama-3-8b lm_head", 4096, QUANT_HEAD_N, (8,), torch.float32))
+    for key, name, k, n, ms, odt in timed:
+        fmt = "int8" if key == "head" else key
+        leaf = quant_leaf(dev, gen, k, n, fmt)
+        nbytes = sum(t.numel() * t.element_size() for t in leaf.values())
+        copies = [leaf] + [{c: t.clone() for c, t in leaf.items()} for _ in range(-(-4 * L2_BYTES // nbytes) - 1)]
+        w16 = maybe_dequant(leaf, torch.bfloat16)
+        for m in ms:
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            got, want = qmm.quant_matmul(x, leaf, odt), qmm.quant_matmul_plain(x, leaf, odt)
+            err = compare_rows(f"timed {key} {name} M={m}", got, want)
+            qmm.launches_int8 = qmm.launches_int4 = 0
+            ms_kernel = time_ms(lambda: [qmm.quant_matmul(x, c, odt) for c in copies], iters=4) / len(copies)
+            bound, by = quant_bound(m, k, n, leaf, out_bytes=torch.empty((), dtype=odt).element_size())
+            form, param, splits = qmm.plan(m, n, k, sms, fmt)
+            out.setdefault(key, []).append({
+                "shape": name, "k": k, "n": n, "m": m, "out": str(odt).removeprefix("torch."), "copies": len(copies),
+                "ms": ms_kernel, "plain_ms": time_ms(lambda: qmm.quant_matmul_plain(x, leaf, odt), iters=2),
+                "library_ms": time_ms(lambda: qmm.matmul(x, w16, odt), iters=4),
+                "bound_ms": bound, "bound_by": by, "of_bound": bound / ms_kernel, "max_abs_err": err,
+                "form": "decode" if form == qmm.FORM_DECODE else "prefill", "plan": [form, param, splits],
+                "device_us_by_kernel": device_us_by_kernel(lambda: qmm.quant_matmul(x, leaf, odt))})
+        del copies, leaf, w16
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, entries in out.items():
+        emit({"phase": "kernel_timing_quant", "format": key, "entries": entries})
     return out
 
 
@@ -2789,13 +2803,19 @@ def ptxas_functions(log: str) -> dict:
 def _short(fn: str) -> str:
     """A mangled kernel instantiation's name and its template arguments,
     shortened (e.g. ``mla_wgmma_kernel<512,64,4,true>``)."""
-    m = re.search(r"\d([a-z][a-z0-9_]*_kernel)I(.*?)EEv", fn)
-    if not m:
+    found = None  # the rightmost length-prefixed identifier naming a *_kernel template
+    for d in re.finditer(r"\d+", fn):
+        for i in range(d.start(), d.end()):
+            name = fn[d.end():d.end() + int(fn[i:d.end()])]
+            if name.endswith("_kernel") and fn[d.end() + len(name):].startswith("I"):
+                found = (name, d.end() + len(name) + 1)
+                break
+    if found is None:
         return fn
-    args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)(?=[^a-z]|$)", m.group(2))
+    args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)(?=[^a-z]|$)", fn[found[1]:].split("EEv")[0])
     text = [a or ("true" if b == "1" else "false" if b else "") or ("bf16" if c.startswith("13") else "f32")
             for a, b, c in args]
-    return f"{m.group(1)}<{','.join(text)}>"
+    return f"{found[0]}<{','.join(text)}>"
 
 
 def main() -> int:
@@ -2821,12 +2841,14 @@ def main() -> int:
               for name, log in built["ptxas"].items()}
     wgmma = {fn: rs for name in ("paged_prefill", "paged_mla")
              for fn, rs in ptxas_functions(built["ptxas"].get(name, "")).items() if "wgmma" in fn}
+    quant = ptxas_functions(built["ptxas"].get("quant_matmul", ""))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_registers": regs,
           "nvcc_max_spill_store_bytes": spills,
-          "wgmma_instantiations": {_short(fn): rs for fn, rs in sorted(wgmma.items())}})
-    # Their consumers' registers are budgeted by setmaxnreg: a spill in any
-    # instantiation (bf16 or fp8) is a regression.
-    spilled = {_short(fn): rs for fn, rs in wgmma.items() if rs["spill_stores"]}
+          "wgmma_instantiations": {_short(fn): rs for fn, rs in sorted(wgmma.items())},
+          "quant_matmul_instantiations": {_short(fn): rs for fn, rs in sorted(quant.items())}})
+    # Their consumers' registers are budgeted by setmaxnreg (quant_matmul's
+    # prefill form too): a spill in any instantiation is a regression.
+    spilled = {_short(fn): rs for fn, rs in {**wgmma, **quant}.items() if rs["spill_stores"]}
     if spilled or (any(name in built["ptxas"] for name in ("paged_prefill", "paged_mla")) and not wgmma):
         raise AssertionError(f"the wgmma kernels spill registers (or none were reported): {spilled}")
 

@@ -108,17 +108,17 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// A row-major 2D tensor [rows, W] as a tensor map, boxes of `box_rows` rows
-// x `box_cols` elements: bf16 boxes of 64 columns (128 bytes) landing in the
-// 128-byte-swizzled layout, or fp8 boxes (read as bytes) of up to 256
-// columns landing unswizzled, rows packed. cuTensorMapEncodeTiled comes
+// A row-major 2D tensor [rows, cols] of `dtype` elements (`elem_bytes`
+// each) as a tensor map with boxes of `box_rows` rows x `box_cols`
+// elements landing in the `swizzle` layout. cuTensorMapEncodeTiled comes
 // through the runtime's driver entry point, so nothing links libcuda. The
 // map is a pure function of the arguments, and a serving step asks for the
-// same few (each layer's K and V) on every launch, so encoded maps are kept
-// and reused. Returns false when the driver has no such entry or refuses
-// the map.
-inline bool encode_map(CUtensorMap* map, const void* base, long long rows, int W, bool fp8, int box_cols,
-                       int box_rows) {
+// same few (each layer's K and V, each layer's weights) on every launch, so
+// encoded maps are kept and reused. Returns false when the driver has no
+// such entry or refuses the map.
+inline bool encode_tiled(CUtensorMap* map, const void* base, long long rows, long long cols,
+                         CUtensorMapDataType dtype, int elem_bytes, int box_cols, int box_rows,
+                         CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -130,10 +130,10 @@ inline bool encode_map(CUtensorMap* map, const void* base, long long rows, int W
       return static_cast<Encode>(nullptr);
     return reinterpret_cast<Encode>(fn);
   }();
-  using Key = std::tuple<const void*, long long, int, bool, int, int>;
+  using Key = std::tuple<const void*, long long, long long, int, int, int, int>;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> kept;
-  const Key key{base, rows, W, fp8, box_cols, box_rows};
+  const Key key{base, rows, cols, (int)dtype, box_cols, box_rows, (int)swizzle};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = kept.find(key);
   if (it != kept.end()) {
@@ -141,18 +141,27 @@ inline bool encode_map(CUtensorMap* map, const void* base, long long rows, int W
     return true;
   }
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)W * (fp8 ? 1 : sizeof(__nv_bfloat16))};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(map, fp8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             fp8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  if (kept.size() >= 1024) kept.clear();  // caches reallocated many times over: start afresh
+  if (kept.size() >= 1024) kept.clear();  // tensors reallocated many times over: start afresh
   kept.emplace(key, *map);
   return true;
+}
+
+// A row-major 2D tensor [rows, W] as a tensor map (encode_tiled), boxes of
+// `box_rows` rows x `box_cols` elements: bf16 boxes of 64 columns (128
+// bytes) landing in the 128-byte-swizzled layout, or fp8 boxes (read as
+// bytes) of up to 256 columns landing unswizzled, rows packed.
+inline bool encode_map(CUtensorMap* map, const void* base, long long rows, int W, bool fp8, int box_cols,
+                       int box_rows) {
+  return encode_tiled(map, base, rows, W, fp8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      fp8 ? 1 : (int)sizeof(__nv_bfloat16), box_cols, box_rows,
+                      fp8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A paged bf16 cache [P, ps, W] as P*ps rows of W elements, 64-column boxes
@@ -453,6 +462,56 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_mn(float (&d)[128], uint64_t
         "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db));
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers (warp w: rows
+// 16w..16w+15 in the mma.sync A-fragment layout), B K-major in shared memory
+// (N rows of B, eight-row groups 1024 bytes apart: sw128_desc).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DYN_WG_D64
+               ", {%64, %65, %66, %67}, %68, 1, 1, 1, 0;\n"
+               : DYN_WG_OUT64(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, 1, 1, 1, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// Pins A-fragment registers at this point of the program (fence_regs for
+// the register operand of an RS wgmma still in flight).
+template <int N>
+__device__ __forceinline__ void fence_regs_u32(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #undef DYN_WG_D32

@@ -55,7 +55,7 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     ),
     "quant_matmul": (
         "dyn_quant_matmul",
-        [_P] * 6 + [_I] * 9 + [_P],
+        [_P] * 5 + [_I] * 10 + [_P],
     ),
     # The fp8 kernels' on-chip e4m3 -> bf16 conversion alone, for checks.
     "fp8_convert": (

@@ -27,11 +27,17 @@ import torch
 
 from dynamo_tpu_torch.ops import build
 
-BLOCK_N = 128  # output columns a block (csrc/quant_matmul.cu kBN)
-BLOCK_K = 64  # K a pipeline stage (kBK)
-BLOCK_M = (16, 64, 128)  # rows a block of each config (Small, Mid, Large)
-BLOCKS_PER_SM = 2  # the K split fills the grid up to this many blocks an SM (twice for int4 decode)
-MIN_SPLIT_TILES = 4  # K tiles a split walks at least (the 4-stage ring of the decode config)
+BLOCK_K = 64  # K a pipeline stage (csrc/quant_matmul.cu kBK)
+FORM_DECODE, FORM_PREFILL = 0, 1  # the kernel's two forms (csrc/quant_matmul.cu Form)
+DECODE_MAX_M = 16  # rows up to which the decode form runs; the prefill form above (PERF.md: measured)
+DECODE_BLOCK_N = 256  # output columns a decode block (kDecBN)
+DECODE_TILES = (1, 2)  # n8 row tiles of a decode block: M up to 8, 16
+DECODE_SPLIT_STAGES = 32  # K stages a decode split walks at most, as far as MAX_SPLITS allows
+MAX_SPLITS = 8  # K splits of a column tile: one thread block cluster (a portable size)
+MIN_SPLIT_STAGES = 4  # K stages a split walks at least
+PREFILL_BLOCK_N = 128  # weight columns a prefill block (kPreCols)
+PREFILL_BLOCK_M = (128, 256)  # x rows a prefill block: 256 from M 256 on where it fills a wave, else 128
+PREFILL_MIN_SPLIT_STAGES = 8  # K stages a prefill split walks at least
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 # Kernel launches through quant_matmul (CUDA only), by leaf format. A
@@ -100,7 +106,7 @@ def group_size(leaf: dict) -> int:
 def quant_matmul_supported(k: int, n: int, *, mode: str, group: int = 0, x_dtype: torch.dtype = torch.bfloat16,
                            scale_dtype: torch.dtype = torch.bfloat16, out_dtype: torch.dtype = torch.bfloat16) -> bool:
     """Shapes the kernel takes: bf16 activations; K a multiple of BLOCK_K;
-    N a multiple of 16 (a ragged edge past the last 128-column block is
+    N a multiple of 16 (a ragged edge past the last column tile is
     masked); bf16 or f32 outputs; int8 with bf16 scales; int4 with bf16 or
     f32 scales and group sizes of 32 or a multiple of BLOCK_K dividing K.
     Any M from 1 up."""
@@ -118,19 +124,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(m: int, n: int, k: int, sms: int = 132, mode: str = "int8") -> tuple[int, int]:
-    """``(config, splits)`` of a launch, from shapes and the leaf format
-    alone (so a replay and an eager launch take the same plan and the same
-    bits): the block shape by rows (16 up to 16 rows, 64 up to 64, 128
-    beyond) and a K split that fills the grid to BLOCKS_PER_SM blocks an
-    SM, each split walking at least MIN_SPLIT_TILES K tiles. An int4
-    decode block's ring holds half an int8 one's bytes, so its grid is
-    filled twice as deep."""
-    config = 0 if m <= BLOCK_M[0] else 1 if m <= BLOCK_M[1] else 2
-    tiles = -(-n // BLOCK_N) * -(-m // BLOCK_M[config])
-    blocks = BLOCKS_PER_SM * sms * (2 if config == 0 and mode == "int4" else 1)
-    max_splits = max(1, (k // BLOCK_K) // MIN_SPLIT_TILES)
-    return config, max(1, min(-(-blocks // tiles), max_splits))
+def plan(m: int, n: int, k: int, sms: int = 132, mode: str = "int8") -> tuple[int, int, int]:
+    """``(form, param, splits)`` of a launch, from shapes, the leaf format
+    and the SM count alone, so a replay and an eager launch take the same
+    plan and the same bits.
+
+    Up to DECODE_MAX_M rows the decode form: ``param`` n8 row tiles (the
+    fewest of DECODE_TILES that hold M) over DECODE_BLOCK_N-column tiles,
+    their K range cut into ``splits``, one cluster: the fewest, a power of
+    two, that keep each split within DECODE_SPLIT_STAGES stages and the
+    grid at an SM's worth of blocks, at most MAX_SPLITS and each split at
+    least MIN_SPLIT_STAGES stages. Above it the prefill form: ``param`` the
+    block's x rows, 256 from M 256 on where the 256-row grid still has a
+    block for every SM, else 128; K cut likewise (each split at least
+    PREFILL_MIN_SPLIT_STAGES stages) as far as the grid stays one wave (a
+    prefill block takes a whole SM's shared memory). Both formats take the
+    same plan (``mode`` is the leaf format; their tiles differ in bytes, not
+    in shape)."""
+    del mode
+    nk = k // BLOCK_K
+    if m <= DECODE_MAX_M:
+        mt = next(t for t in DECODE_TILES if m <= 8 * t)
+        tiles = -(-n // DECODE_BLOCK_N)
+        want = max(-(-nk // DECODE_SPLIT_STAGES), -(-sms // tiles))
+        splits = 1
+        while splits < want and 2 * splits <= min(MAX_SPLITS, nk // MIN_SPLIT_STAGES):
+            splits *= 2
+        return FORM_DECODE, mt, splits
+    wide = m >= PREFILL_BLOCK_M[1] and -(-m // PREFILL_BLOCK_M[1]) * -(-n // PREFILL_BLOCK_N) >= sms
+    rows = PREFILL_BLOCK_M[1] if wide else PREFILL_BLOCK_M[0]
+    tiles = -(-m // rows) * -(-n // PREFILL_BLOCK_N)
+    splits = 1
+    while 2 * tiles * splits <= sms and 2 * splits <= min(MAX_SPLITS, nk // PREFILL_MIN_SPLIT_STAGES):
+        splits *= 2
+    return FORM_PREFILL, rows, splits
 
 
 def _check_leaf(leaf: dict, k: int) -> tuple[str, torch.Tensor, int, int]:
@@ -169,12 +196,11 @@ def quant_matmul(x: torch.Tensor, leaf: dict, out_dtype: torch.dtype | None = No
     out = torch.empty((m, n), dtype=odt, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
-    config, splits = plan(m, n, k, _sm_count(x.device.index or 0), mode)
-    ws = torch.empty(splits * m * n, dtype=torch.float32, device=x.device) if splits > 1 else None
+    form, param, splits = plan(m, n, k, _sm_count(x.device.index or 0), mode)
     fn = build.load("quant_matmul")
     err = fn(x2.data_ptr(), qw.data_ptr(), scale.data_ptr(), qbias.data_ptr() if qbias is not None else None,
-             out.data_ptr(), ws.data_ptr() if ws is not None else None, m, n, k, 0 if mode == "int8" else 1, gs,
-             build.DTYPE_CODES[scale.dtype], build.DTYPE_CODES[odt], config, splits, build.stream_of(x))
+             out.data_ptr(), m, n, k, 0 if mode == "int8" else 1, gs, build.DTYPE_CODES[scale.dtype],
+             build.DTYPE_CODES[odt], form, param, splits, build.stream_of(x))
     build.check_launch("quant_matmul", err)
     build.count_launch(globals(), f"launches_{mode}")
     return out.reshape(*x.shape[:-1], n)

@@ -202,14 +202,115 @@ def test_quant_matmul_on_the_cpu_takes_the_plain_version_and_kernel_shapes():
     assert not qmm.quant_matmul_supported(4096, 128, mode="int4", group=96, **ok)
     assert not qmm.quant_matmul_supported(4096, 128, mode="int8", **{**ok, "x_dtype": torch.float32})
     assert not qmm.quant_matmul_supported(4096, 128, mode="int8", **{**ok, "scale_dtype": torch.float32})
-    assert qmm.plan(8, 14336, 4096) == (0, 3) and qmm.plan(2048, 14336, 4096) == (2, 1)
-    assert qmm.plan(8, 14336, 4096, mode="int4") == (0, 5)  # int4 decode fills the grid twice as deep
-    assert qmm.plan(64, 4096, 4096, mode="int4") == (1, 9)
-    assert qmm.plan(64, 4096, 4096)[0] == 1 and qmm.plan(1, 1024, 4096) == (0, 16)
-    for m in (1, 5, 64, 2051):
-        for n, k in ((576, 4096), (128256, 4096), (2048, 8192)):
-            config, splits = qmm.plan(m, n, k, mode="int4")
-            assert 1 <= splits <= max(1, k // qmm.BLOCK_K // qmm.MIN_SPLIT_TILES)
+    d, p = qmm.FORM_DECODE, qmm.FORM_PREFILL
+    assert qmm.plan(8, 14336, 4096) == (d, 1, 4) and qmm.plan(2048, 14336, 4096) == (p, 256, 1)
+    assert qmm.plan(8, 14336, 4096, mode="int4") == (d, 1, 4)  # both formats take the same plan
+    assert qmm.plan(16, 4096, 14336) == (d, 2, 8) and qmm.plan(17, 4096, 14336) == (p, 128, 4)
+    assert qmm.plan(64, 4096, 4096) == (p, 128, 4) and qmm.plan(2048, 4096, 4096) == (p, 256, 1)
+    assert qmm.plan(64, 14336, 4096) == (p, 128, 1) and qmm.plan(512, 14336, 4096) == (p, 256, 1)
+    assert qmm.plan(8, 128256, 4096) == (d, 1, 2) and qmm.plan(1, 1024, 256) == (d, 1, 1)
+    assert qmm.plan(8, 28672, 8192) == (d, 1, 4) and qmm.plan(8, 8192, 28672) == (d, 1, 8)
+    assert qmm.plan(512, 4096, 14336) == (p, 128, 1) and qmm.plan(2048, 4096, 14336) == (p, 256, 1)
+
+
+# -- the kernel's plan and tiling (mirrored from csrc/quant_matmul.cu) ---------------
+
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can take on an H100
+
+
+def _smem_bytes(form: int, param: int, splits: int, k: int, mode: str, scale_bytes: int) -> int:
+    """A block's dynamic shared memory (csrc/quant_matmul.cu WStage,
+    DecLayout::bytes with x_chunks, PreLayout::kBytes)."""
+    bn = qmm.DECODE_BLOCK_N if form == qmm.FORM_DECODE else qmm.PREFILL_BLOCK_N
+    rows = 32 if mode == "int4" else 64
+    ks = 2 * bn * scale_bytes if mode == "int4" else 0
+    stage = -(-(bn // 128 * rows * 128 + 2 * ks) // 1024) * 1024
+    if form == qmm.FORM_PREFILL:
+        ring = 5 if param == 256 else 8
+        return 1024 + ring * (param * 128 + stage) + 2 * ring * 8
+    ring = 6 if mode == "int4" else 4
+    mp = 8 * param
+    longest = -(-(k // qmm.BLOCK_K) // splits)
+    slots = 1 if longest * mp * 128 <= 24 * 1024 else 2
+    spc = longest if slots == 1 else 12 * 1024 // (mp * 128)
+    return 1024 + ring * stage + slots * spc * mp * 128 + (mp * qmm.DECODE_BLOCK_N * 4 if splits > 1 else 0) + (
+        2 * ring + 4) * 8
+
+
+def _quantized_shapes() -> set[tuple[int, int]]:
+    """(K, N) of every quantized leaf of every preset the kernel takes, and
+    of chip_smoke.py's QUANT_SHAPES."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = {kn for kns in smoke.QUANT_SHAPES.values() for kn in kns}
+    for cfg in PRESETS.values():
+        seen = []
+        llama.build_params(cfg, lambda name, shape, fan_in: seen.append((name, shape[-2:])), lambda shape, value: None)
+        shapes |= {(k, n) for name, (k, n) in seen if name in quant._MATMUL_LEAVES
+                   and qmm.quant_matmul_supported(k, n, mode="int8")}
+    return shapes
+
+
+def test_plan_is_a_pure_function_and_every_form_tiles_every_served_shape():
+    """``plan`` depends on (M, N, K, format, SMs) alone: the same arguments
+    give the same plan in any call order. For every quantized leaf the
+    presets and the smoke serve and every M from decode to a mixed step, the
+    chosen form's tiles cover M and N, its K splits partition the K stages
+    (none empty, at most a cluster's 8, a power of two), the decode form's
+    row tiles hold M, and every block fits the card's shared memory at
+    either scale width."""
+    shapes = sorted(_quantized_shapes())
+    assert (4096, 14336) in shapes and (28672, 8192) in shapes and (4096, 576) in shapes
+    ms = (1, 5, 8, 9, 16, 17, 40, 64, 65, 128, 256, 512, 2051)
+    first = {(m, n, k, sms): qmm.plan(m, n, k, sms) for m in ms for k, n in shapes for sms in (132, 114)}
+    for (m, n, k, sms), want in reversed(list(first.items())):
+        assert qmm.plan(m, n, k, sms, "int4") == qmm.plan(m, n, k, sms, "int8") == want
+    for (m, n, k, sms), (form, param, splits) in first.items():
+        nk = k // qmm.BLOCK_K
+        assert 1 <= splits <= min(qmm.MAX_SPLITS, nk) and splits & (splits - 1) == 0
+        bounds = [s * nk // splits for s in range(splits + 1)]  # the kernel's split ranges
+        assert bounds[0] == 0 and bounds[-1] == nk and all(b < e for b, e in zip(bounds, bounds[1:]))
+        if form == qmm.FORM_DECODE:
+            assert m <= qmm.DECODE_MAX_M and param in qmm.DECODE_TILES and m <= 8 * param
+            assert -(-n // qmm.DECODE_BLOCK_N) * qmm.DECODE_BLOCK_N >= n
+        else:
+            assert m > qmm.DECODE_MAX_M and param in qmm.PREFILL_BLOCK_M
+            assert -(-n // qmm.PREFILL_BLOCK_N) * qmm.PREFILL_BLOCK_N >= n and -(-m // param) * param >= m
+        for mode in ("int8", "int4"):
+            for scale_bytes in ((2,) if mode == "int8" else (2, 4)):
+                assert _smem_bytes(form, param, splits, k, mode, scale_bytes) <= SMEM_LIMIT, (m, n, k, mode)
+
+
+def _supported_before(k, n, *, mode, group=0, x_dtype=torch.bfloat16, scale_dtype=torch.bfloat16,
+                      out_dtype=torch.bfloat16):
+    """quant_matmul_supported as the first kernel (mma.sync) had it."""
+    if x_dtype != torch.bfloat16 or out_dtype not in qmm.OUT_DTYPES or k % 64 or n % 16 or k <= 0 or n <= 0:
+        return False
+    if mode == "int8":
+        return scale_dtype == torch.bfloat16
+    if mode != "int4" or scale_dtype not in (torch.bfloat16, torch.float32):
+        return False
+    return group > 0 and group % 32 == 0 and (64 % group == 0 or group % 64 == 0) and k % group == 0
+
+
+def test_quant_matmul_supported_takes_exactly_what_it_took_before():
+    """The redesign keeps the contract: the same (K, N, format, group,
+    dtypes) accepted and refused."""
+    dts = (torch.bfloat16, torch.float32, torch.float16)
+    for k in (0, 32, 64, 96, 128, 192, 256, 4096, 4160, 14336):
+        for n in (0, 8, 16, 24, 48, 100, 128, 576, 4096):
+            for mode in ("int8", "int4", "int2"):
+                for group in (0, 16, 32, 48, 64, 96, 128, 256):
+                    for x_dtype in dts[:2]:
+                        for scale_dtype in dts:
+                            for out_dtype in dts:
+                                kw = dict(mode=mode, group=group, x_dtype=x_dtype, scale_dtype=scale_dtype,
+                                          out_dtype=out_dtype)
+                                assert qmm.quant_matmul_supported(k, n, **kw) == _supported_before(k, n, **kw), kw
 
 
 # -- init_params_quantized ---------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Two builds of the attention kernels on the same inputs, on one card.
+"""Two builds of the port's kernels on the same inputs, on one card.
 
-    python3 tools/kernel_ab.py --other DIR
+    python3 tools/kernel_ab.py --other DIR [--kernels attention quant_matmul]
 
 ``DIR`` is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``). Its ``paged_decode``,
@@ -16,8 +16,15 @@ mla-8b-proxy's decode, prefill chunk and mixed step), on bf16 and on fp8
 caches, both see the same inputs: the lines say whether the outputs are
 bitwise equal over the real rows (else their largest difference) and each
 version's device ms (CUDA-graph replay, ``chip_smoke.time_ms``), timed in
-turns: other, this, this, other. Prints one JSON line per shape, then the
-card's name and power limit. Imports nothing of JAX.
+turns: other, this, this, other. ``quant_matmul`` (``--kernels
+quant_matmul``): at ``chip_smoke.py``'s timed products (QUANT_TIMED at
+QUANT_TIMED_M rows, int8 and int4, and the head at M 8, f32 out), each tree
+with its own plan (its ``ops/quant_matmul.py``; an older tree's entry point
+takes a split-K workspace), the weights cycled through copies that exceed
+the L2 as ``kernel_timing_quant`` cycles them; the two sum in different
+orders, so the outputs are held within ``chip_smoke.REL_TOL`` per row, not
+bitwise. Prints one JSON line per shape, then the card's name and power
+limit. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from dynamo_tpu_torch.ops import build  # noqa: E402
 from dynamo_tpu_torch.ops import paged_decode as pd  # noqa: E402
 from dynamo_tpu_torch.ops import paged_mla as pm  # noqa: E402
 from dynamo_tpu_torch.ops import paged_prefill as pp  # noqa: E402
+from dynamo_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 
 FP8 = cs.FP8
 
@@ -65,6 +73,71 @@ def other_entry_points(root: str) -> dict:
     takes_share = len(other.SIGNATURES["paged_mla"][1]) == len(build.SIGNATURES["paged_mla"][1])
     return {"paged_decode": (other.load("paged_decode"), split_plan), "paged_prefill": (other.load("paged_prefill"),),
             "paged_mla": (other.load("paged_mla"), takes_share)}
+
+
+def other_quant(root: str):
+    """The other checkout's quant_matmul entry point and its plan."""
+    other = _module(root, "other_build_quant", "dynamo_tpu_torch/ops/build.py")
+    other.build(("quant_matmul",))
+    return other.load("quant_matmul"), _module(root, "other_quant_matmul", "dynamo_tpu_torch/ops/quant_matmul.py").plan
+
+
+def call_other_quant(fn, plan, x: torch.Tensor, leaf: dict, odt: torch.dtype, sms: int) -> torch.Tensor:
+    """One launch of another tree's quant_matmul with its own plan: an
+    entry point whose plan is (config, splits) also takes a split-K
+    workspace; one whose plan is (form, param, splits) does not."""
+    mode = "int4" if "qw4" in leaf else "int8"
+    qw, scale, qbias = leaf["qw4" if mode == "int4" else "qw"], leaf["scale"], leaf.get("qbias")
+    m, k = x.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=odt, device=x.device)
+    p = plan(m, n, k, sms, mode)
+    head = [x.data_ptr(), qw.data_ptr(), scale.data_ptr(), qbias.data_ptr() if qbias is not None else None,
+            out.data_ptr()]
+    tail = [m, n, k, 0 if mode == "int8" else 1, qmm.group_size(leaf), build.DTYPE_CODES[scale.dtype],
+            build.DTYPE_CODES[odt], *p, build.stream_of(x)]
+    if len(p) == 2:
+        ws = torch.empty(p[1] * m * n, dtype=torch.float32, device=x.device) if p[1] > 1 else None
+        head.append(ws.data_ptr() if ws is not None else None)
+    build.check_launch("other quant_matmul", fn(*head, *tail))
+    return out
+
+
+def quant_ab(root: str, dev) -> list[dict]:
+    """This tree's quant_matmul against the other's at the smoke's timed products."""
+    fn, plan = other_quant(root)
+    build.build(("quant_matmul",))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(31)
+    timed = [(fmt, name, k, n, cs.QUANT_TIMED_M, torch.bfloat16) for fmt in ("int8", "int4")
+             for name, k, n in cs.QUANT_TIMED]
+    timed.append(("int8", "llama-3-8b lm_head", 4096, cs.QUANT_HEAD_N, (8,), torch.float32))
+    records = []
+    for fmt, name, k, n, ms, odt in timed:
+        leaf = cs.quant_leaf(dev, gen, k, n, fmt)
+        nbytes = sum(t.numel() * t.element_size() for t in leaf.values())
+        copies = [leaf] + [{c: t.clone() for c, t in leaf.items()} for _ in range(-(-4 * cs.L2_BYTES // nbytes) - 1)]
+        for m in ms:
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            this = qmm.quant_matmul(x, leaf, odt)
+            other = call_other_quant(fn, plan, x, leaf, odt, sms)
+            err = cs.compare_rows(f"quant_matmul {fmt} {name} M={m}: this tree against the other", this, other)
+            t_this = lambda: [qmm.quant_matmul(x, c, odt) for c in copies]  # noqa: E731
+            t_other = lambda: [call_other_quant(fn, plan, x, c, odt, sms) for c in copies]  # noqa: E731
+            o1 = cs.time_ms(t_other, iters=2) / len(copies)
+            t1 = cs.time_ms(t_this, iters=2) / len(copies)
+            t2 = cs.time_ms(t_this, iters=2) / len(copies)
+            o2 = cs.time_ms(t_other, iters=2) / len(copies)
+            rec = {"kernel": "quant_matmul", "format": fmt, "shape": name, "m": m,
+                   "out": str(odt).removeprefix("torch."),
+                   "this_plan": list(qmm.plan(m, n, k, sms, fmt)), "other_plan": list(plan(m, n, k, sms, fmt)),
+                   "max_abs_diff": err, "within_rel_tol": True, "other_ms": [o1, o2], "this_ms": [t1, t2],
+                   "this_over_other": (t1 + t2) / (o1 + o2)}
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del copies, leaf
+        torch.cuda.empty_cache()
+    return records
 
 
 def call_decode(fn, q, kc, vc, tb, pos, scale, splits: int, bps: int, what: str = "other paged_decode"):
@@ -125,11 +198,24 @@ def compare(kernel: str, shape: str, cache, this, other, rows, iters: int) -> di
     return rec
 
 
-def main(root: str) -> int:
+def main(root: str, kernels) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    records = quant_ab(root, dev) if "quant_matmul" in kernels else []
+    if "attention" in kernels:
+        records += attention_ab(root, dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    bf16 = [r for r in records if r.get("cache") == "bfloat16"]
+    print(json.dumps({"bf16_bitwise_equal": all(r["bitwise_equal"] for r in bf16), "records": len(records)}))
+    return 0
+
+
+def attention_ab(root: str, dev) -> list[dict]:
+    """This tree's attention kernels against the other's at the smoke's shapes."""
     other = other_entry_points(root)
     build.build(("paged_decode", "paged_prefill", "paged_mla"))
     rng = torch.Generator(device=dev).manual_seed(30)
@@ -186,15 +272,13 @@ def main(root: str) -> int:
                 lambda: pm.paged_mla(q_lat, q_rope, c, r, tb0, posd, scale=scale, walk=walk),
                 lambda: other_mla(*other["paged_mla"], q_lat, q_rope, c, r, tb0, posd, scale, walk),
                 [(i, n) for i, (_, n) in enumerate(spans)], 50 if t == 1 else 20))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    bf16 = [r for r in records if r["cache"] == "bfloat16"]
-    print(json.dumps({"bf16_bitwise_equal": all(r["bitwise_equal"] for r in bf16), "records": len(records)}))
-    return 0
+    return records
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--other", required=True, help="root of the other checkout")
-    sys.exit(main(ap.parse_args().other))
+    ap.add_argument("--kernels", nargs="+", default=["attention", "quant_matmul"],
+                    choices=["attention", "quant_matmul"])
+    args = ap.parse_args()
+    sys.exit(main(args.other, args.kernels))
