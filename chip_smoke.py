@@ -160,6 +160,45 @@ failure exits non-zero:
               import's, its config the preset's, every position's logprobs
               equal an in-process serve of the imported leaves.
 
+10. constrained — constrained decoding (``constrained_phase``): the serve
+              mix with its four greedy even requests asking for
+              ``response_format: json_object``, on llama-3.2-1b, prefix
+              caching off (the untimed pass is the timed mix, so the timed
+              pass replays its graphs): graphs + overlap at
+              DYN_CONSTRAINT_LOOKAHEAD_TOKENS 32 and 0, eager +
+              synchronous, and the same mix without json_mode; with the
+              byte tokenizer on bf16 and fp8 caches and the SentencePiece
+              model of phase 7 on bf16. Every constrained output parses
+              (random weights: the force-close), greedy tokens are equal
+              across the modes, a lookahead step is chained; barriers by
+              reason, mask-cache hits, misses and build seconds, the mask
+              bytes a constrained step ships (and the JAX build's unpacked
+              layout's), graph keys and tok/s beside the plain mix. Then
+              four json_object chat requests over ``run_local``'s HTTP
+              frontend, the launcher's warm-up thread on: all parse.
+11. tiers   — the G2/G3 KV tiers (``tiers_phase``): ``read_pages`` /
+              ``write_pages`` of 64 pages on bf16 and fp8 caches (round
+              trip and the cache's pages bitwise, GB/s); a prompt set
+              sharing a 1024-token prefix (1280–2048 tokens) served, pushed
+              out of a 256-page pool by four other 2048-token prompts, and
+              served again, one request at a time, its repeat a G1 hit (a
+              roomy pool), onboarded from G2 and from G3 (a temporary
+              directory), synchronously and in the background
+              (``async_onboard``), or recomputed (prefix caching off), on
+              bf16 (G1 and G2 on fp8 too): pages offloaded and onboarded by
+              tier, the shortfall, repeat TTFT by way, the async sessions'
+              overlap and stall steps; every onboarded repeat's greedy
+              tokens equal the G1 hit's; every async repeat opens a
+              background session, and one more, sent beside a live decode
+              row, onboards while that row's steps run (overlap steps > 0);
+              the G1 hit's and recompute's tokens pass the teacher-forced
+              check (recompute's may part from the G1 hit's at a near-tie).
+              Page reads and every way's flushes split into dispatch, copy
+              wait, per-page host copies, tier puts and disk writes. Then
+              the serve mix profiled with every committed page written
+              through to G2 and without tiers: the device busy share, tok/s
+              and the flushes' split seconds.
+
 Then the kernels line (quant_matmul_int8 and quant_matmul_int4 timed at
 llama-3-8b's w_gate at M = 8, their launches summed over the quantized
 main-path serves), the card's name and power limit, and the last line
@@ -174,6 +213,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -283,6 +323,20 @@ def device_us_by_kernel(fn, calls: int = 10) -> dict:
             name = re.search(r"(\w+)\s*[<(]", e.name.replace("(anonymous namespace)::", "")).group(1)
             out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / calls
     return out
+
+
+def busy_us(kernels) -> float:
+    """The union of the intervals of profiler ``kernels`` (µs): the time the
+    device was busy."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 def host_us(fn, calls: int = 100) -> float:
@@ -1514,18 +1568,19 @@ async def warm_up(pipeline, model: str = MODEL) -> None:
 
 async def send_all(pipeline, bodies: list[dict], lengths: list[int] = SERVE_LENGTHS) -> list[dict]:
     """Send every body concurrently; per request its prompt length (from
-    ``lengths``), tokens, time to first token and finish reason."""
+    ``lengths``), tokens, text, time to first token and finish reason."""
     from dynamo_tpu_torch.runtime.engine import Context
 
     async def one(body: dict, n: int) -> dict:
         sent = time.perf_counter()
-        first, toks, finish = None, [], None
+        first, toks, text, finish = None, [], "", None
         async for out in pipeline.generate(body, Context()):
             if out.token_ids and first is None:
                 first = time.perf_counter() - sent
             toks += out.token_ids
+            text += out.text or ""
             finish = out.finish_reason
-        return {"n_prompt": n, "tokens": toks, "ttft_s": first, "finish": finish}
+        return {"n_prompt": n, "tokens": toks, "text": text, "ttft_s": first, "finish": finish}
 
     return await asyncio.gather(*(one(body, n) for body, n in zip(bodies, lengths)))
 
@@ -2464,6 +2519,624 @@ def checkpoint_phase(dev, params: dict) -> dict:
     return record
 
 
+# -- constrained decoding and the KV tiers ---------------------------------------
+
+LOOKAHEAD = 32  # DYN_CONSTRAINT_LOOKAHEAD_TOKENS, the JAX build's default
+
+
+def _kernel_counters(cache_dtype: torch.dtype | None) -> dict:
+    """The serve kernels' launch counters on ``cache_dtype`` caches."""
+    fp8 = cache_dtype == FP8
+    return {name + ("_fp8" if fp8 else ""): (importlib.import_module(f"dynamo_tpu_torch.ops.{name}"),
+                                             "launches_fp8" if fp8 else "launches")
+            for name in GQA_KERNELS}
+
+
+def constrained_bodies(rng: np.random.Generator, json_mode: bool = True) -> list[dict]:
+    """The serve mix, every other request (the greedy ones of even index)
+    asking for ``response_format: json_object``; those stop at EOS or at
+    their 32 tokens, by then a complete value (the force-close)."""
+    bodies = serve_bodies(rng)
+    if json_mode:
+        for body in bodies[::2]:
+            body.update(response_format={"type": "json_object"}, nvext={})
+    return bodies
+
+
+def _mask_bytes(runner, log: list) -> None:
+    """Record each dispatch's mask section as the port packs it and as the
+    JAX build lays it out (bool masks, int32 group ids) through ``_pad``."""
+    pad = runner._pad
+
+    def spy(batch):
+        padded = pad(batch)
+        vocab = runner.cfg.vocab_size
+        if padded.la_masks is not None:
+            b, g, _ = padded.la_masks.shape
+            log.append((runner._mask_layout(b, False, g)[-1], b * vocab * 4 + b * g * vocab, g))
+        elif padded.logit_mask is not None:
+            b = padded.logit_mask.shape[0]
+            log.append((runner._mask_layout(b, True, 0)[-1], b * vocab, 0))
+        return padded
+
+    runner._pad = spy
+
+
+async def serve_constrained(params: dict, cache_dtype: torch.dtype | None, *, eager: bool, lookahead: int,
+                            json_mode: bool = True, sp_dir: pathlib.Path | None = None) -> tuple[dict, list]:
+    """The constrained mix on llama-3.2-1b, through ``build_engine_service``
+    with DYN_CONSTRAINT_LOOKAHEAD_TOKENS=``lookahead`` behind
+    ``build_pipeline``: the main path or, with ``eager``, the eager runner
+    behind the synchronous engine; the byte tokenizer, or the SentencePiece
+    model in ``sp_dir`` (its </s> the EOS) for the pipeline and the
+    constraint masks. Prefix caching off, so the two untimed passes (after
+    a warm-up request) are the timed mix itself: the first warms the mask
+    cache, the second captures the graphs of the lookahead steps' group
+    counts, which the timed pass replays. The kernel counters at 0 just
+    before the timed pass and read just after."""
+    from dynamo_tpu_torch.launch import build_pipeline
+    from dynamo_tpu_torch.tokenizer import load_tokenizer
+
+    os.environ["DYN_CONSTRAINT_LOOKAHEAD_TOKENS"] = str(lookahead)
+    tok = load_tokenizer(sp_dir) if sp_dir is not None else None
+    extra = {"eos_token_ids": (2,)} if tok is not None else {}
+    service, _ = await build_serving(MODEL, cache_dtype, params, graphs=not eager, overlap=not eager,
+                                     enable_prefix_caching=False, **extra)
+    core, runner = service.core, service.core.runner
+    pipeline = build_pipeline(service, tok)
+    if tok is not None:
+        core.set_constraint_tokenizer(tok)
+    counters = _kernel_counters(cache_dtype)
+    masks: list = []
+    try:
+        t0 = time.perf_counter()
+        core.warm_constraints()
+        warm_s = time.perf_counter() - t0
+        await warm_up(pipeline)
+        for _ in range(2):
+            await send_all(pipeline, constrained_bodies(np.random.default_rng(3), json_mode))
+        torch.cuda.synchronize()
+        core.drain_constraint_build_seconds()
+        graphs0, overlap0 = runner.graph_stats(), _overlap_counts(core)
+        hits0, misses0 = core.constraint_mask_cache_hits, core.constraint_mask_cache_misses
+        steps0 = sum(core.attn_dispatch_counts.values())
+        _mask_bytes(runner, masks)
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        bodies = constrained_bodies(np.random.default_rng(3), json_mode)
+        start = time.perf_counter()
+        results = await send_all(pipeline, bodies)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        overlap1, graphs1 = _overlap_counts(core), runner.graph_stats()
+        record = {
+            "mode": "eager, synchronous engine" if eager else "cuda graphs, overlapped engine",
+            "lookahead_tokens": lookahead, "json_requests": sum("response_format" in b for b in bodies),
+            "output_tokens_per_s": sum(len(r["tokens"]) for r in results) / wall, "wall_s": wall,
+            "engine_steps": sum(core.attn_dispatch_counts.values()) - steps0,
+            "barriers": _counts_since(overlap1["barriers"], overlap0["barriers"]),
+            "overlapped_steps": overlap1["steps"].get("overlapped", 0) - overlap0["steps"].get("overlapped", 0),
+            "mask_cache": {"hits": core.constraint_mask_cache_hits - hits0,
+                           "misses": core.constraint_mask_cache_misses - misses0,
+                           "build_s": sum(core.drain_constraint_build_seconds()), "warm_s": warm_s},
+            "masked_steps": len(masks), "lookahead_steps": sum(1 for m in masks if m[2]),
+            "mask_bytes_per_step": sum(m[0] for m in masks) / max(1, len(masks)),
+            "jax_layout_bytes_per_step": sum(m[1] for m in masks) / max(1, len(masks)),
+            "max_groups": max([m[2] for m in masks] or [0]),
+            "graph_keys": graphs1["keys"] if runner.graphs else 0,
+            "graph_keys_captured_in_window": graphs1["keys"] - graphs0["keys"], "kernel_launches": launches,
+        }
+    finally:
+        await service.close()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the constrained serve never launched: {launches}")
+    return record, results
+
+
+async def json_over_http(params: dict) -> dict:
+    """Four json_object chat requests, concurrent, over ``run_local``'s HTTP
+    frontend (one worker, the main path, the constraint warm-up thread on):
+    every answer parses."""
+    import aiohttp
+
+    from dynamo_tpu_torch.launch import run_local, shutdown
+
+    os.environ["DYNAMO_WARM_CONSTRAINTS"] = "1"
+    handles = await run_local(MODEL, port=0, device="cuda", params=params, overlap=True, **SERVE_ENGINE)
+    try:
+        async with aiohttp.ClientSession() as session:
+            async def one(i: int) -> str:
+                body = {"model": MODEL, "max_tokens": 48, "temperature": 0.7 if i % 2 else 0.0, "seed": i,
+                        "response_format": {"type": "json_object"},
+                        "messages": [{"role": "user", "content": f"give me json number {i}"}]}
+                async with session.post(f"http://127.0.0.1:{handles['port']}/v1/chat/completions",
+                                        json=body) as r:
+                    return (await r.json())["choices"][0]["message"]["content"]
+
+            answers = await asyncio.gather(*(one(i) for i in range(4)))
+        rejected = handles["services"][0].core.admission_rejections
+    finally:
+        await shutdown(handles)
+        os.environ["DYNAMO_WARM_CONSTRAINTS"] = "0"
+    parsed = []
+    for a in answers:
+        try:
+            json.loads(a)
+            parsed.append(True)
+        except ValueError:
+            parsed.append(False)
+    return {"requests": len(answers), "parsed": sum(parsed), "rejected": rejected, "answers": answers}
+
+
+def constrained_phase(dev, params: dict) -> dict:
+    """Constrained decoding on the card (phase "constrained"): the serve mix
+    with half its requests json_object, on llama-3.2-1b, served graphs +
+    overlap at lookahead 32 and 0 and eager + synchronous, beside the same
+    mix without json_mode; with the byte tokenizer on bf16 and fp8 caches,
+    and with the checkpoint phase's SentencePiece model on bf16. Every
+    constrained output must parse and every greedy request's tokens must be
+    equal across the modes; barrier reasons, mask-cache counts and build
+    seconds, the mask bytes a constrained step ships (and what the JAX
+    build's unpacked layout would), graph keys and tok/s are reported."""
+    import shutil
+    import tempfile
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    (root / "tokenizer.model").write_bytes(_sentencepiece_model())
+    runs = [("byte", None, "plain", dict(eager=False, lookahead=LOOKAHEAD, json_mode=False)),
+            ("byte", None, "overlap_la32", dict(eager=False, lookahead=LOOKAHEAD)),
+            ("byte", None, "overlap_la0", dict(eager=False, lookahead=0)),
+            ("byte", None, "eager_sync", dict(eager=True, lookahead=LOOKAHEAD)),
+            ("sentencepiece", None, "overlap_la32", dict(eager=False, lookahead=LOOKAHEAD, sp_dir=root)),
+            ("sentencepiece", None, "eager_sync", dict(eager=True, lookahead=LOOKAHEAD, sp_dir=root)),
+            ("byte", FP8, "overlap_la32", dict(eager=False, lookahead=LOOKAHEAD)),
+            ("byte", FP8, "eager_sync", dict(eager=True, lookahead=LOOKAHEAD))]
+    greedy = [i for i, b in enumerate(constrained_bodies(np.random.default_rng(3))) if b["temperature"] == 0]
+    jsons = [i for i, b in enumerate(constrained_bodies(np.random.default_rng(3))) if "response_format" in b]
+    records, failures = {}, []
+    try:
+        for tokenizer, cache, name, kw in runs:
+            rec, results = asyncio.run(serve_constrained(params, cache, **kw))
+            gc.collect()
+            torch.cuda.empty_cache()
+            group = f"{tokenizer}/{'fp8' if cache == FP8 else 'bf16'}"
+            bad = []
+            for i in jsons if kw.get("json_mode", True) else []:
+                try:
+                    json.loads(results[i]["text"])
+                except ValueError:
+                    bad.append(results[i]["text"])
+            rec["json_outputs_parse"] = not bad
+            rec["json_finish"] = sorted({results[i]["finish"].value for i in jsons})
+            records.setdefault(group, {})[name] = (rec, [r["tokens"] for r in results])
+            if bad:
+                failures.append(f"{group} {name}: unparsable outputs {bad}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("DYN_CONSTRAINT_LOOKAHEAD_TOKENS", None)
+    http = asyncio.run(json_over_http(params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "constrained", "model": MODEL, "runs": {}, "http": http}
+    for group, runs_ in records.items():
+        base = runs_.get("overlap_la32")[1]
+        equal = {name: all(toks[i] == base[i] for i in greedy) for name, (_, toks) in runs_.items()
+                 if name != "plain"}
+        out["runs"][group] = {"greedy_tokens_equal_across_modes": equal,
+                              **{name: rec for name, (rec, _) in runs_.items()}}
+        if "plain" in runs_:
+            out["runs"][group]["tok_s_json_vs_plain"] = (runs_["overlap_la32"][0]["output_tokens_per_s"]
+                                                         / runs_["plain"][0]["output_tokens_per_s"])
+        if not all(equal.values()):
+            failures.append(f"{group}: greedy tokens differ across modes {equal}")
+        la = runs_["overlap_la32"][0]
+        if la["overlapped_steps"] <= 0 or la["lookahead_steps"] <= 0:
+            failures.append(f"{group}: the overlapped constrained serve never chained a lookahead step")
+        if "overlap_la0" in runs_ and runs_["overlap_la0"][0]["barriers"].get("constraint", 0) <= 0:
+            failures.append(f"{group}: lookahead 0 never barriered with reason constraint")
+    if http["parsed"] != http["requests"] or http["rejected"]:
+        failures.append(f"json_object over HTTP: {http}")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+TIER_PREFIX = 1024  # tokens every tier prompt shares
+TIER_LENGTHS = [1280, 1536, 1792, 2048]  # prompt tokens, BOS included
+TIER_TOKENS = 16
+TIER_POOL = 256  # pages: a small pool evicts the prompts between their two serves
+TIER_G2_BLOCKS, TIER_G3_BLOCKS = 2048, 2048
+TIER_G2_OVER_G3 = 64  # the host tier over the disk tier: too small to keep the set, which spills to disk
+TIER_IO_PAGES = 64  # pages a timed read_pages / write_pages moves
+TIER_LIVE_TOKENS = 256  # the live decode row an async onboarding runs beside
+
+
+@contextlib.contextmanager
+def flush_profile(core):
+    """For as long as the context lasts, the host seconds of ``core``'s tier
+    flushes that had pages pending, split into the page read's dispatch
+    (gather and pinned copy issued, pinned buffers allocated), its wait for
+    the copy, the per-page copies out of the pinned buffer
+    (``InFlightPages.wait``), and the tier puts (G2, with what they cascade
+    into G3), the G3 disk writes among them; puts and writes outside a
+    flush (a G3 hit promoted to G2 as it is fetched) are not counted.
+    Yields the dict."""
+    import threading
+
+    prof = dict(flushes=0, pages=0, flush_s=0.0, dispatch_s=0.0, copy_wait_s=0.0, host_copy_s=0.0,
+                tier_put_s=0.0, disk_write_s=0.0)
+    runner, bm = core.runner, core.block_manager
+    flush, read_async = core.flush_offloads, runner.read_pages_async
+    disk = bm.g3.storage if bm.g3 is not None else None
+    flushing = set()  # the thread running a flush
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if threading.get_ident() in flushing:
+                    prof[key] += time.perf_counter() - t0
+        return call
+
+    def timed_flush():
+        if not core.pending_offloads:
+            return flush()
+        prof["flushes"] += 1
+        flushing.add(threading.get_ident())
+        try:
+            return timed("flush_s", flush)()
+        finally:
+            flushing.discard(threading.get_ident())
+
+    def timed_read(page_ids):
+        t0 = time.perf_counter()
+        handle = read_async(page_ids)
+        prof["dispatch_s"] += time.perf_counter() - t0
+        prof["pages"] += len(page_ids)
+        wait = handle.wait
+
+        def timed_wait():
+            t0 = time.perf_counter()
+            if handle._event is not None:
+                handle._event.synchronize()
+            t1 = time.perf_counter()
+            out = wait()
+            prof["copy_wait_s"] += t1 - t0
+            prof["host_copy_s"] += time.perf_counter() - t1
+            return out
+
+        handle.wait = timed_wait
+        return handle
+
+    core.flush_offloads, runner.read_pages_async = timed_flush, timed_read
+    bm.g2.put = timed("tier_put_s", bm.g2.put)
+    if disk is not None:
+        disk.write = timed("disk_write_s", disk.write)
+    try:
+        yield prof
+    finally:
+        del core.flush_offloads, runner.read_pages_async, bm.g2.put
+        if disk is not None:
+            del disk.write
+
+
+def tier_prompts(rng: np.random.Generator, shared: bool = True) -> list[list[int]]:
+    """Prompts of TIER_LENGTHS tokens as byte-tokenizer ids (BOS + letters),
+    sharing their first TIER_PREFIX tokens when ``shared``."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    prefix = rng.choice(letters, TIER_PREFIX - 1).tolist()
+    out = []
+    for n in TIER_LENGTHS:
+        body = prefix if shared else rng.choice(letters, TIER_PREFIX - 1).tolist()
+        out.append([256] + body + rng.choice(letters, n - TIER_PREFIX).tolist())
+    return out
+
+
+def _tier_body(prompt: list[int]) -> dict:
+    return {"model": MODEL, "prompt": prompt, "max_tokens": TIER_TOKENS, "temperature": 0.0,
+            "nvext": {"ignore_eos": True}}
+
+
+async def serve_tiers(params: dict, cache_dtype: torch.dtype | None, way: str, g3_root: pathlib.Path) -> dict:
+    """One way of serving a repeated prompt set on llama-3.2-1b, the main
+    path: the set A (TIER_LENGTHS, one shared prefix), then a set of four
+    2048-token prompts, then A again, one request at a time (so a repeat's
+    steps carry the same rows whichever way it was cached); first all of it
+    on other prompts, untimed, to capture the graphs. ``way``: "g1"
+    (a pool that keeps A), "g2"/"g3" (a TIER_POOL pool with a host tier, or
+    a small host tier over a disk tier in ``g3_root``), with "_async" the
+    background onboard, or "recompute" (prefix caching off). Returns A's
+    repeat tokens and TTFTs, and the engine's tier counters."""
+    from dynamo_tpu_torch.blocks import BlockManagerConfig
+    from dynamo_tpu_torch.engine.core import EngineConfig
+
+    kw: dict = {"num_pages": SERVE_ENGINE["num_pages"] if way == "g1" else TIER_POOL}
+    if way.startswith(("g2", "g3")):
+        g3 = way.startswith("g3")
+        # onboard_limit covers a whole prompt: a repeat's cached prefix is then the G1 hit's.
+        kw["block_manager_config"] = BlockManagerConfig(
+            g2_capacity_blocks=TIER_G2_OVER_G3 if g3 else TIER_G2_BLOCKS,
+            g3_capacity_blocks=TIER_G3_BLOCKS if g3 else 0,
+            g3_path=g3_root / way, onboard_limit=max(TIER_LENGTHS) // 16)
+        kw["async_onboard"] = way.endswith("_async")
+    if way == "recompute":
+        kw["enable_prefix_caching"] = False
+    counters = _kernel_counters(cache_dtype)
+    from dynamo_tpu_torch.launch import build_engine_service, build_pipeline
+
+    engine = {**SERVE_ENGINE, **kw}
+    service = await build_engine_service(MODEL, cache_dtype=cache_dtype, params=params, overlap=True, **engine)
+    pipeline = build_pipeline(service)
+    core = service.core
+    if not isinstance(core.config, EngineConfig) or core.runner.num_pages != engine["num_pages"]:
+        raise AssertionError("the tier serve did not take its pool")
+    async def alone(prompts: list[list[int]]) -> list[dict]:
+        return [(await send_all(pipeline, [_tier_body(p)], [len(p)]))[0] for p in prompts]
+
+    async def beside_live(prompt: list[int]) -> dict:
+        """``prompt`` sent once a live decode row has streamed its first
+        token, so its onboarding runs beside that row's steps."""
+        from dynamo_tpu_torch.runtime.engine import Context
+
+        live_body = {"model": MODEL, "prompt": [256] + [ord("z")] * 63, "max_tokens": TIER_LIVE_TOKENS,
+                     "temperature": 0.0, "nvext": {"ignore_eos": True}}
+        started = asyncio.Event()
+
+        async def live() -> int:
+            n = 0
+            async for out in pipeline.generate(live_body, Context()):
+                n += len(out.token_ids)
+                started.set()
+            return n
+
+        task = asyncio.create_task(live())
+        await started.wait()
+        rep = (await send_all(pipeline, [_tier_body(prompt)], [len(prompt)]))[0]
+        live_tokens = await task
+        if live_tokens != TIER_LIVE_TOKENS:
+            raise AssertionError(f"{way}: the live row ended early ({live_tokens} tokens)")
+        return rep
+
+    bm = core.block_manager
+    profiling = flush_profile(core) if bm is not None else contextlib.nullcontext({})
+    try:
+        with profiling as flushes:
+            await warm_up(pipeline)
+            flushes.update(dict.fromkeys(flushes, 0))  # the warm-up's flush is not counted
+            for seed in (12, 11):  # the untimed cycle, then the measured one
+                rng = np.random.default_rng(seed)
+                a_set, others = tier_prompts(rng), tier_prompts(rng, shared=False)
+                first = await alone(a_set)
+                await alone(others)
+                if seed == 12:
+                    await alone(a_set)
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            ob0, sh0 = dict(core.onboard_page_counts), core.onboard_shortfall_pages
+            sess0, over0, stall0 = core.onboard_sessions, core.onboard_overlap_steps, core.onboard_stall_steps
+            wait0, waits0 = core.onboard_wait_ms_sum, core.onboard_wait_count
+            repeat = await alone(a_set)
+            torch.cuda.synchronize()
+            launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+            record = {
+                "way": way, "pool_pages": engine["num_pages"],
+                "repeat_ttft_s": [r["ttft_s"] for r in repeat], "first_ttft_s": [r["ttft_s"] for r in first],
+                "onboarded_pages": _counts_since(core.onboard_page_counts, ob0),
+                "shortfall_pages": core.onboard_shortfall_pages - sh0,
+                "kernel_launches": launches,
+                "onboard_sessions": core.onboard_sessions - sess0,
+                "onboard_overlap_steps": core.onboard_overlap_steps - over0,
+                "onboard_stall_steps": core.onboard_stall_steps - stall0,
+                "onboard_wait_ms_mean": (core.onboard_wait_ms_sum - wait0) / max(1, core.onboard_wait_count - waits0),
+            }
+            if way.endswith("_async"):
+                # A's first prompt out of G1 again, then back beside a live row.
+                await alone(others)
+                ob0, sess0 = dict(core.onboard_page_counts), core.onboard_sessions
+                over0, stall0 = core.onboard_overlap_steps, core.onboard_stall_steps
+                rep = await beside_live(a_set[0])
+                record["beside_live"] = {
+                    "live_tokens": TIER_LIVE_TOKENS, "ttft_s": rep["ttft_s"],
+                    "onboarded_pages": _counts_since(core.onboard_page_counts, ob0),
+                    "onboard_sessions": core.onboard_sessions - sess0,
+                    "onboard_overlap_steps": core.onboard_overlap_steps - over0,
+                    "onboard_stall_steps": core.onboard_stall_steps - stall0,
+                    "tokens_equal_alone": rep["tokens"] == repeat[0]["tokens"]}
+            if bm is not None:
+                st = bm.stats()
+                record.update(offloaded_pages=st["offloaded"], onboarded_total=st["onboarded"],
+                              tiers={t: st[t] for t in ("g2", "g3") if t in st}, flush_profile=flushes)
+            tokens = [r["tokens"] for r in repeat]
+    finally:
+        await service.close()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the tier serve never launched: {launches}")
+    if any(len(t) != TIER_TOKENS for t in tokens):
+        raise AssertionError(f"{way}: a repeat request ended early")
+    return {**record, "tokens": tokens, "prompts": a_set}
+
+
+def page_io(dev, params: dict, cache_dtype: torch.dtype) -> dict:
+    """read_pages / write_pages at TIER_IO_PAGES pages of llama-3.2-1b on a
+    runner whose cache holds random bytes: the round trip (read, write to
+    other pages, read again) bitwise, the cache's pages byte for byte, and
+    each direction's GB/s (host clock around the call, which waits for its
+    copies: median of 9)."""
+    from dynamo_tpu_torch.engine.runner import TorchModelRunner
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    runner = TorchModelRunner(PRESETS[MODEL], params, num_pages=512, page_size=16, cache_dtype=cache_dtype,
+                              device=dev, graphs=False)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for cache in (runner.k_cache, runner.v_cache):
+        bits = cache.view(torch.uint8)
+        bits.copy_(torch.randint(0, 256, bits.shape, dtype=torch.uint8, device=dev, generator=gen))
+    src = list(range(1, 1 + TIER_IO_PAGES))
+    dst = list(range(256, 256 + TIER_IO_PAGES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = runner.read_pages(src)
+    first_read_s = time.perf_counter() - t0
+    runner.write_pages(dst, [k for k, _ in first], [v for _, v in first])
+    again = runner.read_pages(dst)
+    bitwise = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(first, again))
+    s, d = torch.tensor(src, device=dev), torch.tensor(dst, device=dev)
+    on_card = all(torch.equal(c.view(torch.uint8)[:, s], c.view(torch.uint8)[:, d])
+                  for c in (runner.k_cache, runner.v_cache))
+    nbytes = sum(k.nbytes + v.nbytes for k, v in first)
+
+    def clock(fn) -> float:
+        times = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    def read_split() -> tuple[float, float, float]:
+        """One read's host seconds: dispatch (gather, pinned buffers, copy
+        issued), the wait for the copy, the per-page copies out of it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = runner.read_pages_async(src)
+        t1 = time.perf_counter()
+        handle._event.synchronize()
+        t2 = time.perf_counter()
+        handle.wait()
+        return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+    split = [read_split() for _ in range(9)]
+    read_s = clock(lambda: runner.read_pages(src))
+    write_s = clock(lambda: runner.write_pages(dst, [k for k, _ in first], [v for _, v in first]))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cache": str(cache_dtype).removeprefix("torch."), "pages": TIER_IO_PAGES, "bytes": nbytes,
+            "payload_dtype": str(first[0][0].dtype), "round_trip_bitwise": bitwise and on_card,
+            "read_pages_gb_per_s": nbytes / read_s * 1e-9, "write_pages_gb_per_s": nbytes / write_s * 1e-9,
+            "read_ms": read_s * 1e3, "write_ms": write_s * 1e3, "first_read_ms": first_read_s * 1e3,
+            "read_split_ms": {part: {"median": 1e3 * statistics.median(t[i] for t in split),
+                                     "max": 1e3 * max(t[i] for t in split)}
+                              for i, part in enumerate(("dispatch", "copy_wait", "host_copy"))}}
+
+
+async def busy_share(params: dict, tiers: bool) -> dict:
+    """The serve mix on the main path under ``torch.profiler``: the device's
+    busy share (the union of its kernels' intervals over the wall time),
+    with every committed page written through to a host tier (``tiers``)
+    or with no tier."""
+    from dynamo_tpu_torch.blocks import BlockManagerConfig
+
+    kw = {"block_manager_config": BlockManagerConfig(g2_capacity_blocks=4 * TIER_G2_BLOCKS)} if tiers else {}
+    service, pipeline = await build_serving(MODEL, None, params, **kw)
+    core = service.core
+    try:
+        await warm_up(pipeline)
+        await send_all(pipeline, serve_bodies(np.random.default_rng(4)))
+        torch.cuda.synchronize()
+        off0 = core.block_manager.offloaded if tiers else 0
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with (flush_profile(core) if tiers else contextlib.nullcontext({})) as flushes:
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                results = await send_all(pipeline, serve_bodies(np.random.default_rng(3)))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        offloaded = core.block_manager.offloaded - off0 if tiers else 0
+    finally:
+        await service.close()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out_tokens = sum(len(r["tokens"]) for r in results)
+    return {"device_busy_share": busy_us(kernels) / 1e6 / wall, "wall_s": wall,
+            "output_tokens_per_s": out_tokens / wall, "offloaded_pages": offloaded, "cuda_kernels": len(kernels),
+            "flush_profile": flushes}
+
+
+def tiers_phase(dev, params: dict) -> dict:
+    """The G2/G3 KV tiers on the card (phase "tiers"): page I/O round trips
+    and GB/s on bf16 and fp8 caches; a prompt set with a shared
+    1024-token prefix served, pushed out of a small pool, and served again,
+    one request at a time, its repeat's prefix a G1 hit (a pool that keeps
+    it), onboarded from G2 and from G3, synchronously and in the background,
+    or recomputed (prefix caching off), on bf16 (and G1 / G2 on fp8): pages
+    offloaded and onboarded by tier, the shortfall, repeat TTFT by way, the
+    async sessions' overlap and stall steps (each async way once more
+    beside a live decode row), the flushes' split seconds; every onboarded
+    repeat's greedy tokens equal the G1 hit's, and the G1 hit's and
+    recompute's pass the teacher-forced check. Then the device busy share
+    of the serve mix with offload on and off."""
+    import shutil
+    import tempfile
+
+    io = [page_io(dev, params, dt) for dt in (torch.bfloat16, FP8)]
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_g3_"))
+    ways = {}
+    try:
+        for cache, way in ([(None, w) for w in ("g1", "g2", "g2_async", "g3", "g3_async", "recompute")]
+                           + [(FP8, "g1"), (FP8, "g2")]):
+            ways[f"{'fp8' if cache == FP8 else 'bf16'}/{way}"] = asyncio.run(serve_tiers(params, cache, way, root))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    busy = {"offload_on": asyncio.run(busy_share(params, True))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy["offload_off"] = asyncio.run(busy_share(params, False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = [f"page round trip on {r['cache']} not bitwise" for r in io if not r["round_trip_bitwise"]]
+    equal = {}
+    for key, rec in ways.items():
+        cache, way = key.split("/")
+        equal[key] = rec["tokens"] == ways[f"{cache}/g1"]["tokens"]
+        if way.startswith(("g2", "g3")):
+            tier = way[:2]
+            if rec["onboarded_pages"].get(tier, 0) <= 0 or not equal[key]:
+                failures.append(f"{key}: onboarded {rec['onboarded_pages']}, tokens equal the G1 hit's: "
+                                f"{equal[key]}")
+        if way.endswith("_async"):
+            live = rec["beside_live"]
+            if rec["onboard_sessions"] <= 0:
+                failures.append(f"{key}: the repeat opened no background onboarding session")
+            if live["onboard_sessions"] <= 0 or live["onboard_overlap_steps"] <= 0 \
+                    or live["onboarded_pages"].get(way[:2], 0) <= 0:
+                failures.append(f"{key}: the repeat beside a live row did not onboard in the background "
+                                f"while that row decoded: {live}")
+    # Recompute prefills the whole prompt in one chunk, the G1 hit only the
+    # suffix over the cached prefix: the matmuls round differently, so greedy
+    # tokens may part at a near-tie. Both are held to an eager forward's
+    # argmax over prompt + output, and the first position where they part is
+    # reported.
+    forced, parted = {}, []
+    for key in ("bf16/g1", "bf16/recompute"):
+        served = list(zip(ways[key]["prompts"], ways[key]["tokens"]))
+        forced[key] = teacher_forced(dev, MODEL, params, None, served, list(range(len(served))))
+        if not forced[key]["ok"]:
+            failures.append(f"{key}: teacher-forced check failed: {forced[key]}")
+    for a, b in zip(ways["bf16/g1"]["tokens"], ways["bf16/recompute"]["tokens"]):
+        parted.append(next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None))
+    if busy["offload_on"]["offloaded_pages"] <= 0:
+        failures.append("the offload-on serve wrote no page through")
+    out = {"phase": "tiers", "model": MODEL, "page_io": io,
+           "ways": {k: {kk: v for kk, v in r.items() if kk not in ("tokens", "prompts")} for k, r in ways.items()},
+           "repeat_tokens_equal_g1_hit": equal,
+           "recompute_vs_g1": {"first_differing_position": parted, "teacher_forced": forced},
+           "repeat_ttft_ms_median": {k: 1e3 * statistics.median(r["repeat_ttft_s"]) for k, r in ways.items()},
+           "device_busy": busy}
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 # -- quantized weights: quant_matmul -------------------------------------------------
 
 # decode rows, a ragged row tile, rows at each side of the decode/prefill switch, verify rows, prefill
@@ -2827,6 +3500,10 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the dynamo_tpu_torch package is not importable here: {exc}", file=sys.stderr)
         return 2
+    # The launcher warms constraint masks on a thread at every worker's
+    # start; the constrained phase warms them itself (and turns the thread
+    # on for its HTTP serve), so no other phase runs beside one.
+    os.environ["DYNAMO_WARM_CONSTRAINTS"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2890,6 +3567,8 @@ def main() -> int:
         spec_phase(dev, model, params)
         if model == MODEL:
             checkpoint_phase(dev, params)
+            constrained_phase(dev, params)
+            tiers_phase(dev, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()

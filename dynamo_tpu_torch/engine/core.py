@@ -38,18 +38,34 @@ is prefill XOR decode).
 - Decode bursts (``EngineConfig.decode_steps``): a pure-decode step runs
   ``decode_steps`` fused steps in one dispatch (``runner.multi_step``);
   with overlap, as many chained sub-steps behind one dispatch.
+- Constrained decoding (``response_format: json_object``, ``constrained.py``):
+  a json_mode row samples under its JSON machine's token mask, built on the
+  host and applied on the device. A chained row's input token is still in
+  flight when its step is composed, so the engine ships one mask per
+  successor state of the candidates of that token
+  (``constraint_lookahead_tokens`` caps them; past the cap, or on a cold
+  mask, the step barriers with reason ``constraint_miss``, and with the cap
+  at 0 every constrained step barriers with reason ``constraint``).
+  Constrained rows draft nothing and never ride a decode burst; a batch
+  holding one runs a plain step.
+- KV tiers (``block_manager``, ``blocks/``): committed pages are written
+  through to G2 (host RAM, cascading to G3 on disk) by a batched page read
+  after the step (``flush_offloads``); admission extends its prefix match
+  from the tiers and copies the pages back with one batched write, in the
+  step (synchronous) or from a background fetch that lands later
+  (``async_onboard``).
 
 Not ported yet, and without a config field here, so setting their flag
-fails: SLO scheduling, cache-aware admission and async tier onboarding.
-Per-request features that are not ported (constrained decoding, multimodal
-inputs) finish the request with an error. The block manager, fault points,
-tracing spans and the flight recorder are not part of this core.
+fails: SLO scheduling, cache-aware admission and sliding-window page
+release. Multimodal requests finish with an error. Fault points, tracing
+spans and the flight recorder are not part of this core.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -58,7 +74,7 @@ from typing import Callable
 import numpy as np
 
 from dynamo_tpu_torch.engine.allocator import OutOfPagesError, PageAllocator
-from dynamo_tpu_torch.engine.runner import StepBatch, next_pow2
+from dynamo_tpu_torch.engine.runner import StepBatch, next_pow2, pack_masks
 from dynamo_tpu_torch.engine.sequence import SeqStatus, Sequence
 from dynamo_tpu_torch.protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.protocols.kv import ForwardPassMetrics, KvCacheEvent
@@ -77,6 +93,8 @@ BARRIER_REASONS = (
     "cancel",  # cancellation reaped mid-pipeline: in-flight writes are stale
     "runner",  # runner has no step_async
     "prefill",  # legacy XOR mode: whole-prompt prefill steps carry no decodes
+    "constraint",  # constrained rows with lookahead disabled (knob = 0)
+    "constraint_miss",  # lookahead mask-cache miss or candidate-cap overflow
     "drain",  # every live row finishes inside the in-flight step
     "pages",  # sole candidate cannot extend: commit in-flight, then re-check
     "spec",  # speculation: the step in flight is harvested first, or spec cannot chain
@@ -89,9 +107,8 @@ BARRIER_REASONS = (
 class EngineConfig:
     """The JAX build's EngineConfig with the same names and defaults, less
     every field only an unported feature reads (``slo_sched``,
-    ``cache_aware``, ``async_onboard``, ``swa_free_pages``,
-    ``constraint_lookahead_tokens``): passing one fails with a ``TypeError``
-    that names it."""
+    ``cache_aware``, ``swa_free_pages``): passing one fails with a
+    ``TypeError`` that names it."""
 
     num_pages: int = 512
     page_size: int = 16
@@ -124,6 +141,17 @@ class EngineConfig:
     # its base token from the device. Off barriers every spec step to the
     # synchronous path; output streams are identical either way.
     overlap_spec: bool = True
+    # Pipelined tier onboarding (DYN_ASYNC_ONBOARD): admission does not wait
+    # for G2/G3 payload reads; a background fetch reads them and they land
+    # through the batched write_pages scatter while other rows compute. The
+    # row's num_cached advances only when the session lands; a fetch
+    # shortfall recomputes, as the synchronous path does.
+    async_onboard: bool = False
+    # Constrained-decode lookahead (DYN_CONSTRAINT_LOOKAHEAD_TOKENS): the most
+    # distinct successor machine states a chained json_mode row may fan out
+    # to per step. Overflow or a cold mask barriers that step (reason
+    # "constraint_miss"); 0 barriers every constrained step ("constraint").
+    constraint_lookahead_tokens: int = 32
 
 
 @dataclasses.dataclass
@@ -147,6 +175,26 @@ class _InflightStep:
     extra: list = dataclasses.field(default_factory=list)  # burst sub-step handles
 
 
+@dataclasses.dataclass
+class _OnboardSession:
+    """An admitted row's tier onboarding in flight (``async_onboard``;
+    ``dynamo_tpu/engine/core.py:_OnboardSession``). The fetch thread fills
+    ``payloads``/``tiers`` and sets ``done`` (host I/O only); the engine
+    thread lands the session under ``step_lock``. Cancellation drops the
+    session from the engine's list: the orphaned fetch finishes into this
+    object, which nothing reads, so stale payloads never land."""
+
+    seq: Sequence
+    hashes: list  # full block-hash chain of the sequence
+    start: int  # first onboard block index (== resident match length)
+    pages: list  # freshly allocated pages awaiting payloads
+    t0: float  # session start (perf_counter), for the wait counters
+    count_at_start: bool  # fold landed pages into num_cached_at_start
+    payloads: list = dataclasses.field(default_factory=list)
+    tiers: list = dataclasses.field(default_factory=list)
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+
+
 class EngineCore:
     """Synchronous scheduler + executor. The async service layer drives it."""
 
@@ -156,11 +204,13 @@ class EngineCore:
         config: EngineConfig,
         *,
         on_kv_event: Callable[[KvCacheEvent], None] | None = None,
+        block_manager=None,  # blocks.KvBlockManager (the G2/G3 tiers)
     ) -> None:
         if runner.num_pages != config.num_pages or runner.page_size != config.page_size:
             raise ValueError("runner and engine config disagree on cache geometry")
         self.runner = runner
         self.config = config
+        self.block_manager = block_manager
         self.allocator = PageAllocator(config.num_pages, config.page_size, on_event=on_kv_event)
         self.waiting: deque[Sequence] = deque()
         self.running: list[Sequence] = []
@@ -212,6 +262,33 @@ class EngineCore:
             from dynamo_tpu_torch.engine.spec import build_proposer
 
             self._proposer = build_proposer()
+        # Tier write-through, collected per step and flushed as one batched
+        # page read: after the step (direct callers), or by the service after
+        # it routed the step's outputs (``defer_offloads``).
+        self.pending_offloads: list[tuple[int, int]] = []  # (block_hash, page_id)
+        self.defer_offloads = False
+        # Async tier onboarding: live sessions, the lazy fetch pool, and the
+        # JAX build's counters (overlap_frac = overlap / (overlap + stall)).
+        self._onboards: list[_OnboardSession] = []
+        self._onboard_pool = None
+        self.onboard_sessions = 0
+        self.onboard_page_counts: dict[str, int] = {}  # tier -> pages landed
+        self.onboard_shortfall_pages = 0  # probed but gone at fetch: recomputed
+        self._onboard_waits: list[float] = []
+        self.onboard_wait_ms_sum = 0.0
+        self.onboard_wait_count = 0
+        self.onboard_overlap_steps = 0
+        self.onboard_stall_steps = 0
+        self._onboard_pending_step = False
+        # Constrained decoding: the mask cache needs token text, so a
+        # tokenizer (or a factory for one) is installed before json_mode
+        # requests arrive; the lookahead plans of the step being composed
+        # (seq_id -> (successor masks, token -> group)).
+        self._constraint_tok = None
+        self._constraint_tok_factory = None
+        self._mask_cache = None
+        self._constraint_lock = threading.Lock()
+        self._la_plan: dict[int, tuple[list, np.ndarray]] = {}
 
     # -- request intake ----------------------------------------------------
 
@@ -226,9 +303,15 @@ class EngineCore:
             return self._reject(seq, FinishReason.ERROR)
         if len(request.token_ids) > self.config.max_seq_len - 1:
             return self._reject(seq, FinishReason.LENGTH)
-        if request.sampling.json_mode or request.mm_inputs:
-            logger.warning("rejecting request %s: constrained decoding and multimodal inputs "
-                           "are not ported to dynamo_tpu_torch yet", request.request_id)
+        if request.sampling.json_mode:
+            try:
+                seq.constraint = self._make_constraint()
+            except ValueError as exc:
+                logger.warning("rejecting json_mode request: %s", exc)
+                return self._reject(seq, FinishReason.ERROR)
+        if request.mm_inputs:
+            logger.warning("rejecting request %s: multimodal inputs are not ported to dynamo_tpu_torch yet",
+                           request.request_id)
             return self._reject(seq, FinishReason.ERROR)
         # A prompt needing more pages than the pool holds can never be
         # scheduled; admitting it would wedge the FIFO head forever.
@@ -247,6 +330,82 @@ class EngineCore:
         seq.finish_reason = reason
         return seq
 
+    # -- constrained decoding ----------------------------------------------
+
+    def set_constraint_tokenizer(self, tokenizer) -> None:
+        self._constraint_tok = tokenizer
+
+    def set_constraint_tokenizer_factory(self, factory) -> None:
+        """Install the tokenizer source for constrained decoding, loaded by
+        :meth:`warm_constraints` or, failing that, by the first json_mode
+        request."""
+        self._constraint_tok_factory = factory
+
+    def _make_constraint(self):
+        from dynamo_tpu_torch.constrained import JsonConstraint, TokenMaskCache
+
+        with self._constraint_lock:
+            if self._mask_cache is None:
+                tok = self._constraint_tok
+                if tok is None and self._constraint_tok_factory is not None:
+                    tok = self._constraint_tok = self._constraint_tok_factory()
+                if tok is None:
+                    raise ValueError("json_mode needs a tokenizer on the engine worker")
+                self._mask_cache = TokenMaskCache(tok, self.runner.cfg.vocab_size, tuple(self._eos))
+            return JsonConstraint(self._mask_cache)
+
+    def warm_constraints(self) -> None:
+        """Build the vocab piece table and the hot masks off the serving
+        loop (a cold 128k-vocab build takes seconds): the launcher runs this
+        on a daemon thread at worker start; a json_mode request racing it
+        blocks on the same lock until it finishes."""
+        from dynamo_tpu_torch.constrained import MachineState, advance_text
+
+        try:
+            c = self._make_constraint()
+            for prefix in ("", "{", '{"', '{"k"', '{"k":', '{"k": 1', "["):
+                c.cache.mask_for(advance_text(MachineState(), prefix))
+        except Exception:
+            logger.debug("constraint warm-up skipped", exc_info=True)
+
+    @property
+    def constraint_mask_cache_hits(self) -> int:
+        """Cumulative TokenMaskCache hits (mask builds and lookahead plans)."""
+        return self._mask_cache.hits if self._mask_cache is not None else 0
+
+    @property
+    def constraint_mask_cache_misses(self) -> int:
+        return self._mask_cache.misses if self._mask_cache is not None else 0
+
+    def drain_constraint_build_seconds(self) -> list[float]:
+        """Cold mask-build durations since the last call."""
+        if self._mask_cache is None:
+            return []
+        return self._mask_cache.drain_build_seconds()
+
+    def _constraint_masks(self, batch: list[Sequence]) -> np.ndarray | None:
+        """bool[B, vocab] for a step whose input tokens the host knows:
+        constrained rows get their machine's allowed set (force-closing near
+        the budget), the others all-True."""
+        if not any(s.constraint is not None for s in batch):
+            return None
+        mask = np.ones((len(batch), self.runner.cfg.vocab_size), bool)
+        for i, s in enumerate(batch):
+            if s.constraint is not None:
+                mask[i] = s.constraint.mask(s.remaining_tokens(self.config.max_seq_len))
+        return mask
+
+    def _accept_constrained(self, seq: Sequence, tokens: list[int]) -> None:
+        """Advance the row's machine; without an EOS id a completed value
+        ends the sequence (with one, the mask steers the model to emit it)."""
+        if seq.constraint is None:
+            return
+        for t in tokens:
+            seq.constraint.accept(int(t))
+        st = seq.constraint.state
+        if not self._eos and st.complete() and st.mode == "A" and not seq.is_finished:
+            self._finish(seq, FinishReason.STOP)
+
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self.prefilling or self._inflight is not None)
@@ -260,7 +419,16 @@ class EngineCore:
             self._overlap_mode = None
             self._overlap_barrier_reason = None
             out = self._step_locked()
-            if self.last_step_info is prev_info and not out and not self.running:
+            fresh = self.last_step_info is not prev_info  # a dispatch composed this step
+            if self._onboard_pending_step:
+                # A tier fetch was in flight across this step: did the step
+                # still dispatch work (overlap) or idle on it (stall)?
+                if fresh:
+                    self.onboard_overlap_steps += 1
+                else:
+                    self.onboard_stall_steps += 1
+                self._onboard_pending_step = False
+            if not fresh and not out and not self.running:
                 return out  # idle drain: nothing dispatched, nothing to record
             if self.config.overlap:
                 mode = self._overlap_mode or "barrier"
@@ -277,6 +445,15 @@ class EngineCore:
             return out
 
     def _step_locked(self) -> list[tuple[Sequence, EngineOutput]]:
+        # Pending offloads are read before allocate() can evict their pages
+        # (a no-op when the service already flushed them).
+        self.flush_offloads()
+        out = self._step_body()
+        if not self.defer_offloads:
+            self.flush_offloads()
+        return out
+
+    def _step_body(self) -> list[tuple[Sequence, EngineOutput]]:
         cancelled = self._reap_cancelled()
         if self._inflight is not None and (
             cancelled or (not self.config.overlap and (self.waiting or self.prefilling))
@@ -389,12 +566,97 @@ class EngineCore:
             # Nothing schedulable. If a step is in flight its rows are all
             # finishing: the next step harvests it; otherwise idle.
             return (self._inflight is not None), None
+        if any(s.constraint is not None for s in rows):
+            if cfg.constraint_lookahead_tokens <= 0:
+                return False, "constraint"
+            if not self._plan_constraint_lookahead(rows):
+                # Cold successor mask or candidate fan-out past the cap:
+                # barrier to the synchronous mask path (which warms exactly
+                # the states that missed) and retry the pipeline next step.
+                return False, "constraint_miss"
         if self._spec_active() and not self._spec_chains():
             # Speculation is on but cannot chain (overlap_spec off, or a
             # runner without an async verify): barrier to the synchronous
             # verify path rather than drop the drafts.
             return False, "spec"
         return True, None
+
+    def _plan_constraint_lookahead(self, rows) -> bool:
+        """Build the successor masks of every constrained row whose input
+        token is still in flight (``dynamo_tpu/engine/core.py:_plan_constraint_lookahead``).
+        Returns False (barrier "constraint_miss") when a plan would need a
+        mask the cache cannot give warm.
+
+        With one step unharvested, the row's machine is current through the
+        token before the one in flight, so ``constraint.mask(remaining)`` is
+        the mask that token is being sampled under. Every token it admits
+        (less EOS, whose sample the late stop check discards) is a
+        candidate; candidates collapse into successor machine states, and
+        each state's mask at the row's remaining budget after the token in
+        flight is one lookahead group."""
+        cap = self.config.constraint_lookahead_tokens
+        cache = self._mask_cache
+        plan: dict[int, tuple[list, np.ndarray]] = {}
+        self._la_plan = plan
+        ok = True
+        for s in rows:
+            if s.constraint is None or not self._adv(s)[1]:
+                continue  # the host knows this row's input token: its exact mask rides
+            allowed = s.constraint.mask(s.remaining_tokens(self.config.max_seq_len))
+            la = cache.lookahead_groups(s.constraint.state, allowed, cap)
+            if la is None:
+                ok = False
+                continue
+            states, group_of = la
+            rem_next = self._eff_remaining(s)
+            masks = []
+            for ns in states:
+                m = cache.peek_mask(ns, rem_next)
+                if m is None:
+                    # Cold successor: this step barriers anyway, so warm it
+                    # now (a successor the stream never takes would re-miss
+                    # every step it stays a candidate).
+                    cache.mask_for(ns, remaining=rem_next)
+                    ok = False
+                masks.append(m)
+            if ok:
+                plan[s.seq_id] = (masks, group_of)
+        return ok
+
+    def _attach_lookahead_masks(self, sb: StepBatch, batch: list[Sequence]) -> None:
+        """Ship the rows' constraint masks as lookahead groups on a chained
+        dispatch: ``la_masks[i, la_groups[i, tok]]`` is row i's mask once its
+        chained input token ``tok`` is on the device. Group 0 is all-True
+        (unconstrained rows; EOS candidates, whose rows finish at harvest).
+        The masks are bit-packed as they are gathered (``pack_masks``): the
+        host never holds the B x G x vocab booleans."""
+        vocab = self.runner.cfg.vocab_size
+        rows: dict[int, tuple[list, np.ndarray | None]] = {}
+        for i, s in enumerate(batch):
+            if s.constraint is None:
+                continue
+            if self._adv(s)[1]:
+                # Routed here only after _plan_constraint_lookahead succeeded
+                # for every constrained row in flight: a missing plan is a bug.
+                rows[i] = self._la_plan[s.seq_id]
+            else:
+                # The host knows this row's input token (a chunk row, or a
+                # decode row whose token was harvested): one group holding
+                # its exact mask.
+                rows[i] = ([s.constraint.mask(s.remaining_tokens(self.config.max_seq_len))], None)
+        g_max = 1 + max(len(masks) for masks, _ in rows.values())
+        groups = np.zeros((len(batch), vocab), np.uint8 if g_max <= 255 else np.int32)
+        la = np.zeros((len(batch), g_max, -(-vocab // 8)), np.uint8)
+        la[:, 0] = 0xFF
+        for i, (masks, group_of) in rows.items():
+            if group_of is None:
+                groups[i] = 1
+            else:
+                np.add(group_of, 1, out=groups[i], casting="unsafe")  # -1 (no candidate) -> group 0
+            for g, m in enumerate(masks):  # none: every candidate is EOS, and the row finishes at harvest
+                la[i, g + 1] = pack_masks(m)
+        sb.la_masks = la
+        sb.la_groups = groups
 
     def _spec_chains(self) -> bool:
         """Verify dispatches ride the overlapped pipeline."""
@@ -410,7 +672,13 @@ class EngineCore:
         ``chunk_prefill_tokens`` while decodable sequences are running, the
         full ``max_prefill_tokens`` otherwise. A resumed (preempted)
         sequence recomputes everything generated so far; its final chunk's
-        sample is the legitimate next token."""
+        sample is the legitimate next token. With a block manager, the prefix
+        match extends into the tiers and those pages are copied back (the
+        JAX build's tier branches)."""
+        # Land finished onboarding sessions first: their rows' num_cached
+        # advances here, on the engine thread under step_lock.
+        if self._onboards:
+            self._poll_onboards(wait=False)
         ps = self.config.page_size
         chunk_budget = self.config.chunk_prefill_tokens
         chunked = chunk_budget > 0
@@ -449,6 +717,10 @@ class EngineCore:
                 break
             if self._decodes_next(seq):
                 continue  # a decode row of this step (overlap)
+            if seq.onboard_pending:
+                # Tier payloads in flight: the cached prefix is not final,
+                # so a chunk now would recompute what the session lands.
+                continue
             # A chunk already in flight counts as computed (overlap): the
             # next chunk starts where the in-flight one will leave off.
             dc = self._adv(seq)[0]
@@ -474,14 +746,36 @@ class EngineCore:
             seq = self.waiting[0]
             total = len(seq.tokens)  # prompt + any generated-before-preemption
             matched: list[int] = []
+            onboard_n = 0  # tier blocks to onboard (payloads fetched after allocation)
+            hashes: list[int] = []
             if self.config.enable_prefix_caching:
-                matched = self.allocator.match_prefix(seq.block_seq.block_hashes)
+                hashes = seq.block_seq.block_hashes
+                matched = self.allocator.match_prefix(hashes)
+                if self.block_manager is not None:
+                    # Extend the match from the capacity tiers (membership only).
+                    onboard_n = self.block_manager.probe_prefix(hashes, len(matched))
                 # Must compute at least the final token's logits.
-                while len(matched) * ps > total - 1:
-                    self.allocator.release([matched.pop()])
-            cached_len = len(matched) * ps
+                while (len(matched) + onboard_n) * ps > total - 1:
+                    if onboard_n:
+                        onboard_n -= 1
+                    else:
+                        self.allocator.release([matched.pop()])
+            cached_len = (len(matched) + onboard_n) * ps
             num_new = total - cached_len
-            if chunked:
+            # Pipelined onboarding: admit the row with only its onboard pages
+            # and no chunk; a background session fetches the payloads. Legacy
+            # unchunked mode stays synchronous (no later chunk to overlap).
+            async_ob = self.config.async_onboard and chunked and onboard_n > 0
+            if async_ob:
+                n = 0
+                try:
+                    new_pages = self.allocator.allocate(onboard_n)
+                except OutOfPagesError:
+                    self.allocator.release(matched)
+                    if not chunks and not self.running:
+                        self._note_head_stall(seq, num_new)
+                    break
+            elif chunked:
                 n = min(num_new, budget)
                 n = min(n, (len(matched) + free_pages()) * ps - cached_len)
                 if n <= 0:
@@ -494,37 +788,73 @@ class EngineCore:
                 if chunks and n > budget:
                     self.allocator.release(matched)
                     break
-            pages_goal = -(-(cached_len + n) // ps)
-            try:
-                new_pages = self.allocator.allocate(pages_goal - len(matched))
-            except OutOfPagesError:
-                self.allocator.release(matched)
-                if not chunks and not self.running:
-                    self._note_head_stall(seq, num_new)
-                break
+            if not async_ob:
+                pages_goal = -(-(cached_len + n) // ps)
+                try:
+                    new_pages = self.allocator.allocate(pages_goal - len(matched))
+                except OutOfPagesError:
+                    self.allocator.release(matched)
+                    if not chunks and not self.running:
+                        self._note_head_stall(seq, num_new)
+                    break
             self.waiting.popleft()
             seq.admitted_time = time.monotonic()
+            if onboard_n and not async_ob:
+                # Pages exist now: fetch the payloads, copy them in, commit
+                # them (they re-enter the prefix cache and re-announce). A
+                # shortfall (evicted since the probe) is recomputed.
+                onboard, tiers = self.block_manager.fetch_prefix_tiered(hashes, len(matched), onboard_n)
+                if len(onboard) < onboard_n:
+                    shortfall = onboard_n - len(onboard)
+                    self.onboard_shortfall_pages += shortfall
+                    onboard_n = len(onboard)
+                    cached_len = (len(matched) + onboard_n) * ps
+                    n += min(shortfall * ps, total - cached_len - n)
+                self.block_manager.onboard(new_pages[:onboard_n], onboard)
+                blocks = seq.block_seq.blocks
+                for i, pid in enumerate(new_pages[:onboard_n]):
+                    blk = blocks[len(matched) + i]
+                    self.allocator.commit(pid, blk.block_hash, blk.parent_hash, blk.tokens)
+                for tier in tiers[:onboard_n]:
+                    self.onboard_page_counts[tier] = self.onboard_page_counts.get(tier, 0) + 1
             seq.pages = matched + new_pages
             seq.prefill_chunks = 0
-            seq.committed_pages = len(matched)
-            seq.num_cached = cached_len
-            if seq.status is not SeqStatus.PREEMPTED:
-                seq.num_cached_at_start = cached_len
+            if async_ob:
+                # The onboard region is pending: the cached state is the
+                # resident match until the session lands.
+                seq.committed_pages = len(matched)
+                seq.num_cached = len(matched) * ps
+                if seq.status is not SeqStatus.PREEMPTED:
+                    seq.num_cached_at_start = seq.num_cached  # set again at landing
+                self._start_onboard(seq, hashes, len(matched), new_pages,
+                                    count_at_start=seq.status is not SeqStatus.PREEMPTED)
+            else:
+                seq.committed_pages = len(matched) + onboard_n
+                seq.num_cached = cached_len
+                if seq.status is not SeqStatus.PREEMPTED:
+                    seq.num_cached_at_start = cached_len
             seq.status = SeqStatus.RUNNING
             self.prefilling.append(seq)
             budget -= n
-            chunks.append((seq, n))
+            if n:
+                chunks.append((seq, n))
         if chunks:
             self._head_stall_steps = 0
-        elif chunked and not self.running and len(self.prefilling) > 1 and self._inflight is None:
+        elif (chunked and not self.running and len(self.prefilling) > 1 and self._inflight is None
+              and not self._onboards):
             # Nothing can move: mid-prompt sequences pin every page among
             # themselves. Preempt the most recently arrived one and retry
             # (bounded by the prefilling count; a sole mid-prompt sequence
             # always fits — its prompt passed the pool check at intake).
-            # With a step in flight, emptiness is progress (its chunks land
-            # next step): never preempt a row whose chunk is mid-air.
+            # With a step or an onboarding in flight, emptiness is progress
+            # (its chunks or pages land soon): never preempt then.
             self._preempt(self.prefilling[-1])
             return self._schedule_prefill()
+        if self._onboards and not chunks and not self.running:
+            # Nothing else to run: wait briefly for the fetch instead of
+            # spinning the step loop (bounded: a hung read never wedges us).
+            self._poll_onboards(wait=True)
+        self._onboard_pending_step = bool(self._onboards)
         return chunks
 
     def _note_head_stall(self, seq: Sequence, num_new: int) -> None:
@@ -535,6 +865,92 @@ class EngineCore:
                 "(free %d pages) with nothing running; stalled %d steps",
                 seq.seq_id, num_new, self.allocator.num_free(), self._head_stall_steps,
             )
+
+    # -- async tier onboarding ---------------------------------------------
+
+    def _start_onboard(self, seq: Sequence, hashes: list, start: int, pages: list, *,
+                       count_at_start: bool) -> None:
+        if self._onboard_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            # Pool width bounds how many tier fetches overlap the steps.
+            width = max(1, int(os.environ.get("DYN_ONBOARD_POOL_WIDTH", "2")))
+            self._onboard_pool = ThreadPoolExecutor(max_workers=width, thread_name_prefix="kv-onboard")
+        sess = _OnboardSession(seq=seq, hashes=list(hashes), start=start, pages=list(pages),
+                               t0=time.perf_counter(), count_at_start=count_at_start)
+        seq.onboard_pending = len(pages)
+        self._onboards.append(sess)
+        self.onboard_sessions += 1
+        self._onboard_pool.submit(self._onboard_fetch, sess)
+
+    def _onboard_fetch(self, sess: _OnboardSession) -> None:
+        """Background thread: tier reads only, never scheduler state nor the
+        card. A failure degrades to an empty fetch (the row recomputes)."""
+        try:
+            sess.payloads, sess.tiers = self.block_manager.fetch_prefix_tiered(
+                sess.hashes, sess.start, len(sess.pages))
+        except Exception:
+            logger.exception("tier fetch failed for seq %d; onboarding degrades to recompute", sess.seq.seq_id)
+            sess.payloads, sess.tiers = [], []
+        finally:
+            sess.done.set()
+
+    def _cancel_onboards(self, seq: Sequence) -> None:
+        """Forget any session of ``seq`` (preempted or finished): its pages
+        are released, so a later landing would write into reused pages."""
+        if self._onboards:
+            self._onboards = [s for s in self._onboards if s.seq is not seq]
+        seq.onboard_pending = 0
+
+    def _poll_onboards(self, *, wait: bool) -> None:
+        """Land finished sessions (engine thread, under step_lock); ``wait``
+        blocks briefly on the oldest one."""
+        if wait and self._onboards:
+            self._onboards[0].done.wait(timeout=0.05)
+        rest: list[_OnboardSession] = []
+        for sess in self._onboards:
+            if sess.done.is_set():
+                self._land_onboard(sess)
+            else:
+                rest.append(sess)
+        self._onboards = rest
+
+    def _land_onboard(self, sess: _OnboardSession) -> None:
+        """Apply a finished session: the batched write to the card, the
+        prefix-cache commit and the row's num_cached advance. A shortfall
+        leaves the trailing pages as plain pages that the next chunks
+        compute, as on the synchronous path."""
+        seq = sess.seq
+        wait_s = time.perf_counter() - sess.t0
+        self._onboard_waits.append(wait_s)
+        self.onboard_wait_ms_sum += wait_s * 1e3
+        self.onboard_wait_count += 1
+        if seq.status is not SeqStatus.RUNNING or seq not in self.prefilling:
+            seq.onboard_pending = 0  # finished or preempted meanwhile
+            return
+        ps = self.config.page_size
+        expected = len(sess.pages)
+        landed = min(len(sess.payloads), expected)
+        if landed:
+            self.block_manager.onboard(sess.pages[:landed], sess.payloads[:landed])
+            blocks = seq.block_seq.blocks
+            for i, pid in enumerate(sess.pages[:landed]):
+                blk = blocks[sess.start + i]
+                self.allocator.commit(pid, blk.block_hash, blk.parent_hash, blk.tokens)
+            for tier in sess.tiers[:landed]:
+                self.onboard_page_counts[tier] = self.onboard_page_counts.get(tier, 0) + 1
+        if landed < expected:
+            self.onboard_shortfall_pages += expected - landed
+        seq.num_cached += landed * ps
+        seq.committed_pages += landed
+        if sess.count_at_start:
+            seq.num_cached_at_start = seq.num_cached
+        seq.onboard_pending = 0
+
+    def drain_onboard_waits(self) -> list[float]:
+        """The session wait times (seconds) since the last call."""
+        out, self._onboard_waits = self._onboard_waits, []
+        return out
 
     # -- speculative decoding ----------------------------------------------
 
@@ -553,7 +969,8 @@ class EngineCore:
         exhaustion the row's drafts are dropped rather than preempting
         anyone. Rows with repetition penalties never draft: they sample from
         a history that grows per accepted token, which the per-column verify
-        sample cannot replay."""
+        sample cannot replay; nor do constrained rows (their machine advances
+        per accepted token)."""
         k = self.config.spec_k
         budget = None
         if self.config.chunk_prefill_tokens > 0:
@@ -571,7 +988,7 @@ class EngineCore:
             if budget is not None:
                 cap = min(cap, budget)
             sp = s.request.sampling
-            if cap <= 0 or sp.frequency_penalty or sp.presence_penalty:
+            if cap <= 0 or sp.frequency_penalty or sp.presence_penalty or s.constraint is not None:
                 drafts.append([])
                 continue
             # A chained row (de=1) has a host context one token short: propose
@@ -664,7 +1081,10 @@ class EngineCore:
             if failed is not None:
                 out.append((failed, self._final_output(failed)))
             decode_rows = list(self.running)
-        # After _ensure_burst_pages: its preemptions change the row list.
+        # After _ensure_burst_pages: its preemptions change the row list. A
+        # verify carries no mask: a batch with a constrained row runs a plain
+        # step (drafts dropped, losslessly).
+        spec = spec and not self._any_constrained(decode_rows, chunks)
         drafts = self._propose_drafts(decode_rows, chunks) if spec and decode_rows else [[] for _ in decode_rows]
         use_spec = spec and bool(decode_rows)
         self.last_step_info = {
@@ -686,6 +1106,7 @@ class EngineCore:
         # decode rows, and exactly the chunks that finish their prompt.
         tokens, positions, block_tables, slots, last, _, samples = self._compose(batch, ns, n_dec, drafts, False)
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
+        sb.logit_mask = self._constraint_masks(batch)
         lp_k = LOGPROBS_TOP_K if any(
             s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
         ) else 0
@@ -760,6 +1181,7 @@ class EngineCore:
                         if extra:
                             self.allocator.release(extra)
                 self._commit_filled_pages(s)
+                self._accept_constrained(s, accepted)  # may finish the row: after the commit
                 out.append(self._emit_many(s, accepted, self._lp_cols(s, lp_aux, i, accepted)))
                 continue
             # Prompt-token accounting: only the prompt part of the span.
@@ -772,6 +1194,7 @@ class EngineCore:
                 s.append_token(tok)
                 self._generated_tokens_total += 1
                 self._commit_filled_pages(s)
+                self._accept_constrained(s, [tok])  # may finish the row: after the commit
                 if chain_out and not s.is_finished:
                     self._chain_map[s.seq_id] = i * rec.v  # its column 0
                 lp = self._lp_cols(s, lp_aux, i, [tok]) if use_spec else self._lp_entries(s, lp_aux, i)
@@ -845,7 +1268,7 @@ class EngineCore:
     def _run_mixed_overlapped(self, chunks: list[tuple[Sequence, int]]) -> list[tuple[Sequence, EngineOutput]]:
         """Depth-1 overlapped pipeline over mixed steps
         (``dynamo_tpu/engine/core.py:_run_mixed_overlapped``, less its
-        constrained and multimodal branches).
+        multimodal branches).
 
         Step N+1 is composed at the sequences' effective state
         (``_inflight_adv``) and dispatched before step N's tokens reach the
@@ -893,13 +1316,16 @@ class EngineCore:
                 self._note_barrier("drain")
                 out += self._drain_inflight()
             return out
-        spec = self._spec_active()
+        # A verify carries no mask: a batch with a constrained row runs a
+        # plain chained step (drafts dropped, losslessly).
+        spec = self._spec_active() and not self._any_constrained(decode_rows, chunks)
         # decode_steps > 1: only clean decode batches burst (chunks change
         # the composition mid-burst, speculation already amortizes the round
-        # trip, logprobs and penalty history need the host between tokens).
+        # trip, a constraint needs a fresh mask per token, logprobs and
+        # penalty history need the host between tokens).
         k_cfg = max(1, self.config.decode_steps)
         want_burst = k_cfg > 1 and not chunks and not spec and bool(decode_rows) and not any(
-            s.request.sampling.logprobs or s.request.sampling.frequency_penalty
+            s.constraint is not None or s.request.sampling.logprobs or s.request.sampling.frequency_penalty
             or s.request.sampling.presence_penalty for s in decode_rows)
         failed = self._ensure_lookahead_pages(decode_rows, k_cfg if want_burst else 1)
         if failed is not None and want_burst:
@@ -943,6 +1369,13 @@ class EngineCore:
         chained = int((chain_src >= 0).sum())
         info["chained_rows"] = chained + b * (k_burst - 1)  # every sub-step row chains
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, last)
+        if any(s.constraint is not None for s in batch):
+            if chained:
+                # Masks resolve on the device against the chained token.
+                self._attach_lookahead_masks(sb, batch)
+            else:
+                # Pipeline fill: every input token is on the host.
+                sb.logit_mask = self._constraint_masks(batch)
         lp_k = LOGPROBS_TOP_K if any(
             s.request.sampling.logprobs and smp for s, smp in zip(batch, samples)
         ) else 0
@@ -1048,8 +1481,8 @@ class EngineCore:
         if self.running:
             rem = max(s.remaining_tokens(self.config.max_seq_len) for s in self.running)
             k = max(1, min(k, next_pow2(rem)))
-        if any(s.request.sampling.logprobs for s in self.running):
-            k = 1
+        if any(s.request.sampling.logprobs or s.constraint is not None for s in self.running):
+            k = 1  # logprobs and masks take single steps
         failed = self._ensure_burst_pages(k)
         if failed is not None:
             return [(failed, self._final_output(failed))]
@@ -1070,6 +1503,8 @@ class EngineCore:
             block_tables[i, : len(s.pages)] = s.pages
             slots[i, 0] = s.pages[pos // ps] * ps + pos % ps
         sb = self._sampling_batch(batch, tokens, positions, block_tables, slots, np.zeros(b, np.int32))
+        if k == 1:
+            sb.logit_mask = self._constraint_masks(batch)
         lp_k = LOGPROBS_TOP_K if any(s.request.sampling.logprobs for s in batch) else 0
         lp_aux = None
         try:
@@ -1096,6 +1531,7 @@ class EngineCore:
                 if s.check_stop(self._eos, self.config.max_seq_len) is not None:
                     break  # the burst's overshoot is discarded
             self._commit_filled_pages(s)
+            self._accept_constrained(s, accepted)  # may finish the row: after the commit
             outputs.append(self._emit_many(s, accepted, self._lp_entries(s, lp_aux, i)))
         return outputs
 
@@ -1161,8 +1597,13 @@ class EngineCore:
         return StepBatch(tokens, positions, block_tables, slots, last, temp, top_k, top_p,
                          seeds, steps, freq, pres, limits, history)
 
+    def _any_constrained(self, decode_rows: list[Sequence], chunks: list[tuple[Sequence, int]]) -> bool:
+        return any(s.constraint is not None for s in decode_rows) or any(
+            s.constraint is not None for s, _ in chunks)
+
     def _commit_filled_pages(self, seq: Sequence) -> None:
-        """Publish newly-filled pages to the prefix cache (emits stored events)."""
+        """Publish newly-filled pages to the prefix cache (emits stored events)
+        and queue them for write-through to the capacity tiers."""
         if not self.config.enable_prefix_caching:
             return
         full_pages = seq.num_cached // self.config.page_size
@@ -1170,8 +1611,26 @@ class EngineCore:
         while seq.committed_pages < full_pages:
             idx = seq.committed_pages
             blk = blocks[idx]
-            self.allocator.commit(seq.pages[idx], blk.block_hash, blk.parent_hash, blk.tokens)
+            newly_cached = self.allocator.commit(seq.pages[idx], blk.block_hash, blk.parent_hash, blk.tokens)
+            if newly_cached and self.block_manager is not None:
+                # Read in flush_offloads, batched, after the step's outputs.
+                self.pending_offloads.append((blk.block_hash, seq.pages[idx]))
             seq.committed_pages += 1
+
+    def flush_offloads(self) -> None:
+        """Write the pending committed pages through to the capacity tiers
+        with one batched page read (``runner.read_pages_async``): between
+        steps, under step_lock, so the pages are still live."""
+        with self.step_lock:
+            if self.block_manager is None or not self.pending_offloads:
+                self.pending_offloads = []
+                return
+            items, self.pending_offloads = self.pending_offloads, []
+            self.block_manager.offload_batch(
+                items,
+                read_pages=getattr(self.runner, "read_pages", None),
+                read_pages_async=getattr(self.runner, "read_pages_async", None),
+            )
 
     def abort_all(self, reason: FinishReason = FinishReason.ERROR) -> None:
         """Finish every live sequence (releasing its pages) and drop the step
@@ -1180,11 +1639,13 @@ class EngineCore:
             self._inflight = None
             self._inflight_adv = {}
             self._chain_map = {}
+            self._onboards = []  # orphaned fetch threads write into dropped sessions
             if hasattr(self.runner, "reset_chain"):
                 self.runner.reset_chain()
             for seq in list(self.running) + list(self.prefilling) + list(self.waiting):
                 seq.context.kill()
                 self._finish(seq, reason)
+            self.pending_offloads = []
 
     def _emit(self, seq: Sequence, token: int, logprobs: list[dict] | None = None) -> tuple[Sequence, EngineOutput]:
         reason = seq.check_stop(self._eos, self.config.max_seq_len)
@@ -1237,6 +1698,7 @@ class EngineCore:
     def _preempt(self, seq: Sequence) -> None:
         logger.info("preempting seq %d (%d pages)", seq.seq_id, len(seq.pages))
         self.num_preemptions += 1
+        self._cancel_onboards(seq)
         self.allocator.release([p for p in seq.pages if p != 0])
         seq.pages = []
         seq.committed_pages = 0
@@ -1256,6 +1718,7 @@ class EngineCore:
     def _finish(self, seq: Sequence, reason: FinishReason) -> None:
         seq.status = SeqStatus.FINISHED
         seq.finish_reason = reason
+        self._cancel_onboards(seq)
         if seq.pages:
             self.allocator.release([p for p in seq.pages if p != 0])
             seq.pages = []

@@ -7,7 +7,7 @@ device and serves the seam ``EngineCore`` drives: ``step``, ``step_async``,
 ``last_attn_dispatch``. Host arrays are padded onto the same bucket lattice
 as the JAX build (batch and chunk length to powers of two, table width and
 penalty history to powers of two), packed into one buffer (int32 fields,
-then the optional logit mask's bytes) and sent to the device in a single
+then any constraint masks, bit-packed) and sent to the device in a single
 copy from pinned memory; only the sampled token ids (and logprobs when
 asked) come back, by one copy into pinned memory that a CUDA event closes.
 The KV cache is updated in place by the forward.
@@ -40,7 +40,25 @@ prefix comparison. Its targets become the chain buffer, flat ``[B*V]``.
 step's sample the next one's input. Each is a CUDA graph per dispatch key
 on the card, V (or the burst length) in the key.
 
-Not ported yet: ``read_page(s)``, ``write_page(s)`` and ``embed``.
+Constrained rows (``response_format: json_object``) carry their masks in
+the packed input, bit-packed: a host-known mask (``logit_mask``, on a step
+whose input tokens the host knows) or, on a chained step, one mask per
+successor state of the row's token in flight (``la_masks``) and the
+token -> group table (``la_groups``, in the narrowest integer the group
+count allows); the step picks ``la_masks[i, la_groups[i, tokens[i, 0]]]`` on
+the device once the chained token is gathered, as the JAX build's chained
+program does. G's power-of-two bucket is in the dispatch key.
+
+Page I/O for the KV tiers (``blocks/``): ``read_pages_async`` gathers pages
+with one ``index_select`` on a stream of its own, fenced behind the last
+``write_pages`` and ahead of every later step, and copies them into pinned
+host memory (``InFlightPages.wait`` waits for that copy); ``write_pages``
+scatters payloads back with one ``index_copy_`` on the steps' stream. A
+payload is the page's bytes in the cache's ``[L, ps, W]`` layout as an
+unsigned-integer view (numpy has no bf16 or e4m3). Page ids are padded to a
+power-of-two bucket with the null page.
+
+Not ported yet: ``embed``.
 """
 
 from __future__ import annotations
@@ -118,6 +136,13 @@ class StepBatch:
     pos_limit: np.ndarray  # i32[B] first absolute position KV must never be written at
     history: np.ndarray  # i32[B, H] generated tokens so far, pad -1 (H=1 when no penalties)
     logit_mask: np.ndarray | None = None  # bool[B, vocab] allowed tokens (None = all)
+    # Constrained decoding on a chained step: one-step-lookahead mask groups
+    # (``dynamo_tpu/engine/runner.py:StepBatch``). Row i samples under
+    # la_masks[i, la_groups[i, tokens[i, 0]]], taken on the device after the
+    # chain gather; group 0 is all-True. Excludes logit_mask; needs a chain.
+    # The masks come bit-packed (``pack_masks`` of the JAX build's bool[B, G, vocab]).
+    la_masks: np.ndarray | None = None  # u8[B, G, ceil(vocab/8)]
+    la_groups: np.ndarray | None = None  # i32[B, vocab] (or any narrower integer)
     # Speculative verify: each row's first verify column (0 for decode rows,
     # n-1 for prefill-chunk rows, which score only their last column).
     spec_start: np.ndarray | None = None  # i32[B]
@@ -205,6 +230,72 @@ def _pinned(n: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(next_pow2(n), dtype=dtype, pin_memory=True)
 
 
+# Lookahead groups are padded to a power of two of at least this many: fewer
+# dispatch keys (each a graph to capture) for a few more bytes of packed masks.
+MIN_GROUPS = 8
+
+
+def pack_masks(masks: np.ndarray) -> np.ndarray:
+    """bool[..., vocab] -> the bit-packed u8[..., ceil(vocab/8)] the runner
+    ships (bit i of byte j is token 8j+i)."""
+    return np.packbits(masks, axis=-1, bitorder="little")
+
+
+def _group_dtype(groups: int) -> tuple[np.dtype, torch.dtype]:
+    """The narrowest integer that holds ``groups`` lookahead group ids."""
+    if groups <= 256:
+        return np.dtype(np.uint8), torch.uint8
+    if groups <= 1 << 15:
+        return np.dtype(np.int16), torch.int16
+    return np.dtype(np.int32), torch.int32
+
+
+def _unpack_bits(packed: torch.Tensor, vocab: int) -> torch.Tensor:
+    """bool[..., vocab] from ``np.packbits(..., bitorder="little")`` bytes."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :vocab].bool()
+
+
+# Payload views: a page's bytes as numpy carries them (numpy has neither bf16
+# nor e4m3), by element size; torch views through the signed type of that size.
+_PAYLOAD_VIEWS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.uint16), 4: (torch.int32, np.uint32)}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as the signed integer of its element size (index_select
+    and index_copy_ take every such type; not every float type, e4m3 among them)."""
+    return t.view(_PAYLOAD_VIEWS[t.element_size()][0])
+
+
+def _payload_to_host(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(_PAYLOAD_VIEWS[t.element_size()][1])
+
+
+class InFlightPages:
+    """Handle to a dispatched page gather whose copy to host is in flight
+    (``dynamo_tpu/engine/runner.py:InFlightPages``)."""
+
+    def __init__(self, k: torch.Tensor | None, v: torch.Tensor | None, n: int, event=None) -> None:
+        self._k, self._v, self._n = k, v, n  # host [Np, L, ps, W] (page-major); pinned on the card
+        self._event = event  # recorded after the copies (None on the CPU)
+
+    @property
+    def num_pages(self) -> int:
+        return self._n
+
+    def wait(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Block until the pages are on the host; returns ``[(k, v), ...]``
+        per page, ``[L, ps, W]`` each as an unsigned-integer view of the
+        cache dtype, the padding sliced off."""
+        if self._n == 0:
+            return []
+        if self._event is not None:
+            self._event.synchronize()
+        k, v = _payload_to_host(self._k), _payload_to_host(self._v)
+        return [(k[i].copy(), v[i].copy()) for i in range(self._n)]
+
+
 class TorchModelRunner:
     """Owns device state (params + paged KV cache) and runs engine steps."""
 
@@ -273,6 +364,12 @@ class TorchModelRunner:
         self.draw_hook: Callable[[StepBatch, dict], None] | None = None
         self._graphs: dict[tuple, _Graph] = {}
         self.capture_seconds = 0.0
+        # Page reads run on a stream of their own (a gather need not wait for
+        # a step in flight: the pages the engine reads were written by steps
+        # it has harvested); ``_kv_fence`` is recorded after each page write,
+        # which a later read waits for.
+        self._io_stream = torch.cuda.Stream(self.device, priority=-1) if self.device.type == "cuda" else None
+        self._kv_fence = None
         if self.graphs:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
@@ -369,6 +466,15 @@ class TorchModelRunner:
         if batch.logit_mask is not None:
             lmask = np.ones((bp, batch.logit_mask.shape[1]), bool)
             lmask[: batch.logit_mask.shape[0]] = batch.logit_mask
+        la_m = la_g = None
+        if batch.la_masks is not None:
+            gb, g, row = batch.la_masks.shape
+            # Pad rows and pad groups are all-True with group id 0: padding
+            # samples stay unconstrained, as on the synchronous path.
+            la_m = np.full((bp, max(MIN_GROUPS, next_pow2(g)), row), 0xFF, np.uint8)
+            la_m[:gb, :g] = batch.la_masks
+            la_g = np.zeros((bp, batch.la_groups.shape[1]), batch.la_groups.dtype)
+            la_g[: batch.la_groups.shape[0]] = batch.la_groups
 
         def pad2(a, rows, cols, fill=0):
             out = np.full((rows, cols), fill, a.dtype)
@@ -396,6 +502,8 @@ class TorchModelRunner:
             pos_limit=pad1(batch.pos_limit, bp),  # pad rows: limit 0 -> null page
             history=pad2(batch.history, bp, hp, fill=-1),
             logit_mask=lmask,
+            la_masks=la_m,
+            la_groups=la_g,
             spec_start=None if batch.spec_start is None else pad1(np.asarray(batch.spec_start, np.int32), bp),
         )
 
@@ -509,6 +617,104 @@ class TorchModelRunner:
     def reset_chain(self) -> None:
         self._chain_rows = 0
 
+    # -- tier access (block manager offload/onboard) -----------------------
+
+    def read_page(self, page_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """One page to the host: ``(k, v)``, ``[L, ps, W]`` each."""
+        return self.read_pages([page_id])[0]
+
+    def read_pages(self, page_ids: list[int]) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Batched copy to the host: one gather and one transfer for N pages."""
+        return self.read_pages_async(page_ids).wait()
+
+    def read_pages_async(self, page_ids: list[int]) -> InFlightPages:
+        """Gather ``page_ids`` into a fresh buffer (ids padded to a power of
+        two with the null page) and start its copy into pinned host memory,
+        without waiting for it (``dynamo_tpu/engine/runner.py:read_pages_async``).
+
+        On the card both run on the runner's I/O stream: it waits for the
+        last :meth:`write_pages`, and the steps' stream waits for the gather
+        before its next step, so a page can be written again only after it
+        was read. A step in flight is not waited for: the engine reads only
+        pages of steps it has harvested."""
+        if not page_ids:
+            return InFlightPages(None, None, 0)
+        n = len(page_ids)
+        ids = np.zeros(next_pow2(n), np.int64)
+        ids[:n] = page_ids
+        with self.io_lock:
+            if self._io_stream is None:
+                return InFlightPages(*self._gather(self._ids_to_device(ids)), n)
+            main = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._io_stream):
+                if self._kv_fence is not None:
+                    self._io_stream.wait_event(self._kv_fence)
+                k, v = self._gather(self._ids_to_device(ids))
+                gathered = torch.cuda.Event()
+                gathered.record()
+                k_host = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+                v_host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                k_host.copy_(k, non_blocking=True)
+                v_host.copy_(v, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            main.wait_event(gathered)
+            return InFlightPages(k_host, v_host, n, done)
+
+    def _ids_to_device(self, ids: np.ndarray) -> torch.Tensor:
+        """Page ids to the device; to the card without waiting (a copy from
+        pageable memory would first wait for the current stream's work, a
+        step in flight among it)."""
+        ids = torch.from_numpy(ids)
+        return ids if self.device.type == "cpu" else ids.pin_memory().to(self.device, non_blocking=True)
+
+    def _gather(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pages ``idx`` of both caches, page-major ``[N, L, ps, W]`` (each
+        page one contiguous block for the host), as :func:`_bits` views."""
+        return tuple(_bits(c).index_select(1, idx).transpose(0, 1).contiguous()
+                     for c in (self.k_cache, self.v_cache))
+
+    def write_page(self, page_id: int, k: np.ndarray, v: np.ndarray) -> None:
+        """One page from the host (see :meth:`write_pages`)."""
+        self.write_pages([page_id], [k], [v])
+
+    def write_pages(self, page_ids: list[int], ks, vs) -> None:
+        """Batched write from the host (``dynamo_tpu/engine/runner.py:write_pages``):
+        one transfer and one in-place ``index_copy_`` scatter for N pages, on
+        the steps' stream, so the next step reads them. ``ks``/``vs``: per-page
+        arrays ``[L, ps, W]`` or stacks ``[L, N, ps, W]``: the payload's
+        unsigned-integer view of the cache dtype (its bytes, bit for bit), as
+        :meth:`read_pages` gives it. Padding writes land in the null page."""
+        if not page_ids:
+            return
+        n = len(page_ids)
+        ids = np.zeros(next_pow2(n), np.int64)
+        ids[:n] = page_ids
+        with self.io_lock:
+            idx = self._ids_to_device(ids)
+            for cache, pages in ((self.k_cache, ks), (self.v_cache, vs)):
+                _bits(cache).index_copy_(1, idx, self._payload_to_device(pages, cache, len(ids)).transpose(0, 1))
+            if self._io_stream is not None:
+                self._kv_fence = torch.cuda.Event()
+                self._kv_fence.record()
+
+    def _payload_to_device(self, pages, cache: torch.Tensor, padded: int) -> torch.Tensor:
+        """Host payloads -> the bytes of ``padded`` pages of the cache's dtype
+        on the device (:func:`_bits`), page-major ``[padded, L, ps, W]``,
+        each page copied once into a contiguous block of a pinned staging
+        buffer on the card's side."""
+        pages = list(pages) if isinstance(pages, (list, tuple)) else [pages[:, i] for i in range(pages.shape[1])]
+        shape = (padded, *pages[0].shape)
+        host = torch.zeros(shape, dtype=_PAYLOAD_VIEWS[cache.element_size()][0],
+                           pin_memory=self.device.type == "cuda")
+        staged = host.numpy()
+        for i, page in enumerate(pages):
+            page = np.asarray(page)
+            if page.dtype.kind not in "ui" or page.dtype.itemsize != cache.element_size():
+                raise ValueError(f"payload of {page.dtype} does not carry {cache.dtype} pages")
+            staged[i] = page.view(staged.dtype)
+        return host.to(self.device, non_blocking=True) if self.device.type == "cuda" else host
+
     def graph_stats(self) -> dict:
         """Captured keys, seconds spent warming up and capturing them, and
         the bytes the shared graph pool holds on the card."""
@@ -519,11 +725,21 @@ class TorchModelRunner:
         return {"keys": len(self._graphs), "capture_s": self.capture_seconds, "pool_bytes": pool}
 
     def _layout(self, key: tuple) -> tuple[list[int], int]:
-        """The int32 fields of a key's packed input buffer, and its bytes
-        (the fields, then the logit mask's bytes when the key has one)."""
-        kind, b, t, n, h, width, _, _, _, _, masked = key
+        """The int32 fields of a key's packed input buffer, and its bytes:
+        the fields, then a host mask's bits (``masked``), or the lookahead
+        groups' table and their masks' bits (``groups`` > 0)."""
+        kind, b, t, n, h, width, _, _, _, _, masked, groups = key
         sizes = [b * t, b * t, b * n, b * t] + [b] * 8 + [b * h, b, b, b * width if kind == "spec" else 0]
-        return sizes, 4 * sum(sizes) + (b * self.cfg.vocab_size if masked else 0)
+        return sizes, 4 * sum(sizes) + self._mask_layout(b, masked, groups)[-1]
+
+    def _mask_layout(self, b: int, masked: bool, groups: int) -> tuple[int, int, int]:
+        """Bytes of a key's mask section: (group table, packed masks, total)."""
+        vocab = self.cfg.vocab_size
+        row = -(-vocab // 8)
+        if groups:
+            table = b * vocab * _group_dtype(groups)[0].itemsize
+            return table, b * groups * row, table + b * groups * row
+        return 0, b * row if masked else 0, b * row if masked else 0
 
     def _dispatch(self, batch: StepBatch, lp_k: int, chain_src: np.ndarray | None, *,
                   kind: str = "step", width: int = 1) -> DeviceStepTokens:
@@ -533,8 +749,11 @@ class TorchModelRunner:
         b_real = batch.batch_size
         if b_real > self.max_batch_size:
             raise ValueError(f"a step of {b_real} rows exceeds max_batch_size {self.max_batch_size}")
-        if kind != "step" and batch.logit_mask is not None:
+        if kind != "step" and (batch.logit_mask is not None or batch.la_masks is not None):
             raise ValueError("constrained rows take plain steps (a verify or a burst carries no logit mask)")
+        if batch.la_masks is not None and (chain_src is None or batch.logit_mask is not None):
+            raise ValueError("lookahead mask groups resolve against a chained token; host-known tokens take "
+                             "logit_mask")
         padded = self._pad(batch)
         b, t = padded.tokens.shape
         if t > 1 and kind == "step":
@@ -545,7 +764,8 @@ class TorchModelRunner:
         # Decided on the host: a captured step never reads a flag back.
         key = (kind, b, t, padded.block_tables.shape[1], padded.history.shape[1], width, lp_k,
                chain_src is not None, bool((padded.temperature > 0).any()),
-               bool(padded.freq_pen.any() or padded.pres_pen.any()), padded.logit_mask is not None)
+               bool(padded.freq_pen.any() or padded.pres_pen.any()), padded.logit_mask is not None,
+               0 if padded.la_masks is None else padded.la_masks.shape[1])
         samples = b * width if kind == "spec" else b
         self._ensure_chain(samples)
         sizes, nbytes = self._layout(key)
@@ -627,8 +847,14 @@ class TorchModelRunner:
         for size, a in zip(sizes, fields):
             ints[off:off + size] = np.asarray(a).reshape(-1)
             off += size
+        tail = host[4 * n_ints:]
         if padded.logit_mask is not None:
-            host[4 * n_ints:] = padded.logit_mask.reshape(-1)
+            tail[:] = pack_masks(padded.logit_mask).reshape(-1)
+        elif padded.la_masks is not None:
+            narrow = _group_dtype(padded.la_masks.shape[1])[0]
+            table = padded.la_groups.astype(narrow, copy=False).reshape(-1).view(np.uint8)
+            tail[:table.size] = table
+            tail[table.size:] = padded.la_masks.reshape(-1)
 
     def _capture(self, key: tuple, buf: torch.Tensor) -> _Graph:
         """Warm ``key`` up eagerly on a side stream (first launches build
@@ -658,7 +884,7 @@ class TorchModelRunner:
         results: chain, forward, sample, logprobs. Writes the samples into
         ``chain_out``. Copies nothing to or from the host and branches only
         on ``key``, so it can be captured."""
-        kind, b, t, n, h, width, lp_k, chain, sampled, penalized, masked = key
+        kind, b, t, n, h, width, lp_k, chain, sampled, penalized, masked, groups = key
         sizes, _ = self._layout(key)
         ints = buf[:4 * sum(sizes)].view(torch.int32)
         (tokens, positions, tables, slot_mapping, last_idx, temperature, top_k, top_p, seeds, sample_steps,
@@ -692,9 +918,21 @@ class TorchModelRunner:
                 tables, slot_mapping, last_idx, inv_freq=self._inv_freq,
             )
         sample_logits = logits
-        if masked:
-            vocab = self.cfg.vocab_size
-            mask = buf[4 * sum(sizes):4 * sum(sizes) + b * vocab].view(torch.bool).view(b, vocab)
+        if masked or groups:
+            # Constrained rows: disallowed tokens never sample; logprobs stay
+            # on the raw logits (the model's distribution), as in the JAX build.
+            vocab, off = self.cfg.vocab_size, 4 * sum(sizes)
+            table, bits, _ = self._mask_layout(b, masked, groups)
+            packed = buf[off + table:off + table + bits]
+            if groups:
+                # The row's group at its input token, read after the chain
+                # gather: the token the host did not know at compose time.
+                rows = torch.arange(b, device=buf.device)
+                group_of = buf[off:off + table].view(_group_dtype(groups)[1]).view(b, vocab)
+                g = group_of[rows, tokens[:, 0].long()].long()
+                mask = _unpack_bits(packed.view(b, groups, -1)[rows, g], vocab)
+            else:
+                mask = _unpack_bits(packed.view(b, -1), vocab)
             sample_logits = torch.where(mask, logits, NEG_INF)
         gumbel = gumbel_noise(seeds, sample_steps, temperature, min(CANDIDATES, logits.shape[-1])) \
             if sampled else None

@@ -8,7 +8,8 @@ per-request asyncio queues. The step's kernels (a CUDA graph's replay on
 the card) launch on the worker thread's current stream; the runner waits
 for a step's tokens (an event after their copy to host) before handing
 them back, and with ``EngineConfig.overlap`` the next step is already on
-the stream by then.
+the stream by then. Committed pages are written through to the KV tiers
+after each step's outputs are routed.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class TorchEngineService(AsyncEngine[Any, dict]):
 
     def __init__(self, core: EngineCore) -> None:
         self.core = core
+        core.defer_offloads = True  # flushed after the step's outputs are routed (below)
         self._intake: asyncio.Queue = asyncio.Queue()
         self._streams: dict[int, asyncio.Queue] = {}
         self._loop_task: asyncio.Task | None = None
@@ -124,6 +126,13 @@ class TorchEngineService(AsyncEngine[Any, dict]):
                 self.core.abort_all()
                 continue
             self._route(outputs)
+            # Tier write-through after the outputs are routed, so token
+            # delivery never waits on the page copies to the host.
+            if self.core.pending_offloads:
+                try:
+                    await loop.run_in_executor(None, self.core.flush_offloads)
+                except Exception:
+                    logger.exception("tier offload flush failed (non-fatal)")
 
     def _notify_streams_failed(self) -> None:
         for q in self._streams.values():

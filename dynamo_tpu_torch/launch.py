@@ -27,7 +27,13 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
   the kernels' fp8 forms; ``--overlap``, or ``DYN_OVERLAP=1``, runs the
   engine's overlapped pipeline; ``--spec-k K``, or ``DYN_SPEC_K``, drafts
   K tokens a row for a speculative verify; ``--decode-steps K``, or
-  ``DYNAMO_DECODE_STEPS``, fuses K decode steps a dispatch).
+  ``DYNAMO_DECODE_STEPS``, fuses K decode steps a dispatch; ``--g2-blocks
+  N`` / ``--g3-blocks N`` put N-block host-RAM / disk KV tiers behind the
+  card's pages, each worker with a G3 directory of its own under the
+  temporary directory, ``DYN_ASYNC_ONBOARD=1`` fetching their pages off the
+  step loop; ``DYN_CONSTRAINT_LOOKAHEAD_TOKENS`` caps the constrained
+  lookahead of ``response_format: json_object`` requests, whose masks a
+  daemon thread warms at worker start unless ``DYNAMO_WARM_CONSTRAINTS=0``).
 
 On the card every engine step replays a CUDA graph (``TorchModelRunner``).
 
@@ -36,8 +42,8 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet: the multi-process roles (``--role``, the TCP store and
 transport), disaggregated prefill workers, the ``text`` and ``batch:``
 inputs, vision checkpoints, the worker telemetry plane, and
-the JAX build's other engine options. The command line refuses each of
-those options by name.
+the JAX build's other engine options (``--g4-blocks``, ``DYN_SLO_SCHED``,
+``DYN_CACHE_AWARE``, ...). Each is refused by name.
 """
 
 from __future__ import annotations
@@ -47,11 +53,14 @@ import asyncio
 import logging
 import os
 import pathlib
+import tempfile
+import threading
 from typing import Any
 
 import torch
 
 from dynamo_tpu_torch.backend import Backend
+from dynamo_tpu_torch.blocks import BlockManagerConfig, KvBlockManager
 from dynamo_tpu_torch.config import env_flag
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.core import EngineConfig, EngineCore
@@ -66,8 +75,9 @@ from dynamo_tpu_torch.models.quant import init_params_quantized, quantize_params
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventBroadcaster
 from dynamo_tpu_torch.router.metrics import WorkerMetricsPublisher
+from dynamo_tpu_torch.router.router import UNPORTED_SCHED_FLAGS
 from dynamo_tpu_torch.runtime.component import DistributedRuntime
-from dynamo_tpu_torch.tokenizer import BaseTokenizer, ByteTokenizer
+from dynamo_tpu_torch.tokenizer import BaseTokenizer, ByteTokenizer, load_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -104,14 +114,23 @@ def _engine_env() -> dict[str, Any]:
     (``dynamo_tpu/launch.py:WorkerSpec._engine_cfg``): ``decode_steps`` from
     DYNAMO_DECODE_STEPS / DYN_WORKER_DECODE_STEPS (``--decode-steps`` sets
     the latter), ``spec_k`` from DYN_SPEC_K / DYN_WORKER_SPEC_K
-    (``--spec-k``), ``overlap`` (:func:`_overlap`) and ``overlap_spec``,
-    on unless DYN_OVERLAP_SPEC or DYN_WORKER_OVERLAP_SPEC is false."""
+    (``--spec-k``), ``overlap`` (:func:`_overlap`), ``overlap_spec``,
+    on unless DYN_OVERLAP_SPEC or DYN_WORKER_OVERLAP_SPEC is false,
+    ``async_onboard`` from DYN_ASYNC_ONBOARD and
+    ``constraint_lookahead_tokens`` from DYN_CONSTRAINT_LOOKAHEAD_TOKENS
+    (default 32). DYN_SLO_SCHED and DYN_CACHE_AWARE, whose SLO scheduler is
+    not ported, are refused by name."""
+    armed = [flag for flag in UNPORTED_SCHED_FLAGS if env_flag(os.environ, flag)]
+    if armed:
+        raise NotImplementedError(f"{', '.join(armed)}: the SLO scheduler is not ported to dynamo_tpu_torch yet")
     return {
         "decode_steps": int(os.environ.get("DYNAMO_DECODE_STEPS") or os.environ.get("DYN_WORKER_DECODE_STEPS", "1")),
         "spec_k": int(os.environ.get("DYN_SPEC_K") or os.environ.get("DYN_WORKER_SPEC_K", "0")),
         "overlap": _overlap(),
         "overlap_spec": (env_flag(os.environ, "DYN_OVERLAP_SPEC", default=True)
                          and env_flag(os.environ, "DYN_WORKER_OVERLAP_SPEC", default=True)),
+        "async_onboard": env_flag(os.environ, "DYN_ASYNC_ONBOARD"),
+        "constraint_lookahead_tokens": int(os.environ.get("DYN_CONSTRAINT_LOOKAHEAD_TOKENS", "32")),
     }
 
 
@@ -176,6 +195,7 @@ async def build_engine_service(
     graphs: bool | None = None,
     quantize: str = "",
     on_kv_event=None,
+    block_manager_config: BlockManagerConfig | None = None,
     **engine_kw,
 ) -> TorchEngineService:
     """Bring up a started engine service for ``model``: a preset, an HF
@@ -194,7 +214,11 @@ async def build_engine_service(
     ``overlap_spec`` from the environment (:func:`_engine_env`).
     ``cache_dtype`` None takes :func:`_kv_cache_dtype` (the environment;
     unset keeps the model's dtype). ``graphs`` is the runner's (None: CUDA
-    graphs on the card). Raises without a GPU unless ``device="cpu"``."""
+    graphs on the card). ``block_manager_config`` puts the G2/G3 KV tiers
+    behind the pages, reading and writing them through the runner. The
+    engine takes the card's tokenizer for json_mode requests, warmed on a
+    daemon thread unless DYNAMO_WARM_CONSTRAINTS=0. Raises without a GPU
+    unless ``device="cpu"``."""
     cfg, model_dir = resolve_model(model)
     dev = resolve_device(device)
     if cache_dtype is None:
@@ -222,7 +246,16 @@ async def build_engine_service(
         )
 
     runner = await asyncio.get_running_loop().run_in_executor(None, _build)
-    return await TorchEngineService(EngineCore(runner, config, on_kv_event=on_kv_event)).start()
+    block_manager = None
+    if block_manager_config is not None:
+        block_manager = KvBlockManager(block_manager_config, read_page=runner.read_page,
+                                       write_page=runner.write_page, write_pages=runner.write_pages)
+    core = EngineCore(runner, config, on_kv_event=on_kv_event, block_manager=block_manager)
+    tokenizer_spec = worker_card(model, config).tokenizer
+    core.set_constraint_tokenizer_factory(lambda: load_tokenizer(tokenizer_spec))
+    if os.environ.get("DYNAMO_WARM_CONSTRAINTS", "1") != "0":
+        threading.Thread(target=core.warm_constraints, daemon=True, name="constraint-warmup").start()
+    return await TorchEngineService(core).start()
 
 
 def build_pipeline(
@@ -268,6 +301,7 @@ async def serve_worker(
     seed: int = 0,
     cache_dtype: torch.dtype | None = None,
     quantize: str = "",
+    block_manager_config: BlockManagerConfig | None = None,
     **engine_kw: Any,
 ) -> TorchEngineService:
     """Serve the engine + KV event stream + metrics and publish the model card.
@@ -281,7 +315,7 @@ async def serve_worker(
     broadcaster.bind_loop(asyncio.get_running_loop())
     service = await build_engine_service(
         model, device=device, params=params, seed=seed, cache_dtype=cache_dtype, quantize=quantize,
-        on_kv_event=broadcaster.publish, **engine_kw,
+        on_kv_event=broadcaster.publish, block_manager_config=block_manager_config, **engine_kw,
     )
     broadcaster.bind_snapshot(service.core.allocator.cache_snapshot)
     card = worker_card(model, service.core.config, router_mode=router_mode)
@@ -333,6 +367,8 @@ async def run_local(
     params: dict | None = None,
     cache_dtype: torch.dtype | None = None,
     quantize: str = "",
+    g2_blocks: int = 0,
+    g3_blocks: int = 0,
     **engine_kw: Any,
 ) -> dict[str, Any]:
     """Single-process serving: ``num_workers`` workers + the frontend.
@@ -341,26 +377,36 @@ async def run_local(
     (:func:`resolve_model`). Every worker takes the same ``params``, or
     random-inits from the same ``seed`` (a directory or file: loads its
     weights), as the JAX build's workers do; ``quantize`` ("", "int8",
-    "int4") as in :func:`build_engine_service`. Raises without a GPU unless
-    ``device="cpu"``, before anything is started."""
+    "int4") as in :func:`build_engine_service`. ``g2_blocks``/``g3_blocks``
+    give every worker host-RAM/disk KV tiers of that many blocks, worker i's
+    disk tier in ``dynamo_tpu_torch_g3_w{i}`` under the temporary directory.
+    Raises without a GPU unless ``device="cpu"``, before anything is
+    started."""
     resolve_device(device)
     if router_mode not in ("round_robin", "random", "kv"):
         raise ValueError(f"unknown router mode {router_mode!r} (want round_robin, random or kv)")
     runtime = DistributedRuntime.detached()
     services: list[TorchEngineService] = []
-    for _ in range(num_workers):
+    for i in range(num_workers):
         # Each worker needs its own lease/instance: secondary leases per worker.
         lease = await runtime.secondary_lease() if num_workers > 1 else None
+        tiers = None
+        if g2_blocks or g3_blocks:
+            tiers = BlockManagerConfig(g2_capacity_blocks=g2_blocks, g3_capacity_blocks=g3_blocks,
+                                       g3_path=os.path.join(tempfile.gettempdir(), f"dynamo_tpu_torch_g3_w{i}"))
         services.append(await serve_worker(
             runtime, preset, lease=lease, router_mode=router_mode, device=device, params=params,
-            seed=seed, cache_dtype=cache_dtype, quantize=quantize, **engine_kw,
+            seed=seed, cache_dtype=cache_dtype, quantize=quantize, block_manager_config=tiers, **engine_kw,
         ))
 
     def clear(core: EngineCore) -> int:
         # Steps run in the executor under step_lock: clearing under it cannot
         # interleave with a step's page allocation.
         with core.step_lock:
-            return core.allocator.clear_cache()
+            n = core.allocator.clear_cache()
+            if core.block_manager is not None:
+                n += core.block_manager.clear()
+            return n
 
     async def clear_all() -> int:
         loop = asyncio.get_running_loop()
@@ -419,6 +465,8 @@ async def _amain(args: argparse.Namespace, *, device: str | torch.device = "cuda
         quantize=args.quantize,
         num_pages=args.num_pages,
         max_batch_size=args.max_batch_size,
+        g2_blocks=args.g2_blocks,
+        g3_blocks=args.g3_blocks,
     )
     logger.info("serving %s on port %d", args.model, handles["port"])
     try:
@@ -459,6 +507,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spec-k", type=int, default=0,
                         help="speculative decoding draft length (lossless n-gram self-drafting fused into "
                              "mixed steps); 0 = off")
+    parser.add_argument("--g2-blocks", type=int, default=0, help="host-RAM KV tier capacity (blocks); 0 disables")
+    parser.add_argument("--g3-blocks", type=int, default=0, help="disk KV tier capacity (blocks); 0 disables")
     return parser
 
 

@@ -168,7 +168,7 @@ def test_pipeline_text_equals_jax():
     assert got == want and got
 
 
-@pytest.mark.parametrize("flag", [dict(slo_sched=True), dict(cache_aware=True), dict(async_onboard=True)])
+@pytest.mark.parametrize("flag", [dict(slo_sched=True), dict(cache_aware=True), dict(swa_free_pages=True)])
 def test_unported_engine_flags_are_refused(flag):
     with pytest.raises(TypeError, match=next(iter(flag))):  # no such field: the error names the flag
         EngineConfig(**{**ENGINE, **flag})

@@ -105,3 +105,26 @@ def test_quantized_and_gguf_entry_points_are_guarded_too(monkeypatch):
         load_gguf_params("missing.gguf", PRESETS["test-tiny"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         asyncio.run(build_engine_service("test-tiny", quantize="int8"))
+
+
+_IMPORT_HOST_ONLY = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(sorted({m.split(".")[0] for m in sys.modules} & {"jax", "dynamo_tpu", "torch"}))
+"""
+
+
+def test_constraint_and_tier_modules_are_host_code():
+    """Constrained decoding and the KV tiers are among the modules the
+    import guard walks, and import numpy and the standard library only:
+    neither JAX nor anything of dynamo_tpu, nor torch (the runner does
+    their device work)."""
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    mods = ["constrained", "blocks/__init__", "blocks/tier", "blocks/storage", "blocks/manager"]
+    assert {m + ".py" for m in mods} <= files
+    names = ["dynamo_tpu_torch." + m.replace("/", ".").removesuffix(".__init__") for m in mods]
+    out = subprocess.run([sys.executable, "-c", _IMPORT_HOST_ONLY, *names], capture_output=True, text=True,
+                         timeout=120, cwd=PKG.parent)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

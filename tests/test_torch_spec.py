@@ -388,14 +388,19 @@ def test_rng_fold_advances_once_per_emitted_token():
 
 
 def test_spec_and_burst_flags_and_env_are_parsed(monkeypatch):
+    # The launcher's other engine knobs, at their defaults throughout.
+    others = {"async_onboard": False, "constraint_lookahead_tokens": 32}
     for key in ("DYN_SPEC_K", "DYN_WORKER_SPEC_K", "DYNAMO_DECODE_STEPS", "DYN_WORKER_DECODE_STEPS",
-                "DYN_OVERLAP_SPEC", "DYN_WORKER_OVERLAP_SPEC", "DYN_OVERLAP", "DYN_WORKER_OVERLAP"):
+                "DYN_OVERLAP_SPEC", "DYN_WORKER_OVERLAP_SPEC", "DYN_OVERLAP", "DYN_WORKER_OVERLAP",
+                "DYN_ASYNC_ONBOARD", "DYN_CONSTRAINT_LOOKAHEAD_TOKENS"):
         monkeypatch.delenv(key, raising=False)
-    assert launch._engine_env() == {"decode_steps": 1, "spec_k": 0, "overlap": False, "overlap_spec": True}
+    assert launch._engine_env() == {"decode_steps": 1, "spec_k": 0, "overlap": False, "overlap_spec": True,
+                                    **others}
     monkeypatch.setenv("DYN_WORKER_SPEC_K", "3")
     monkeypatch.setenv("DYN_WORKER_DECODE_STEPS", "8")
     monkeypatch.setenv("DYN_OVERLAP_SPEC", "0")
-    assert launch._engine_env() == {"decode_steps": 8, "spec_k": 3, "overlap": False, "overlap_spec": False}
+    assert launch._engine_env() == {"decode_steps": 8, "spec_k": 3, "overlap": False, "overlap_spec": False,
+                                    **others}
     monkeypatch.setenv("DYN_SPEC_K", "2")  # the short name wins, as in the JAX launcher
     monkeypatch.setenv("DYNAMO_DECODE_STEPS", "4")
     assert launch._engine_env()["spec_k"] == 2 and launch._engine_env()["decode_steps"] == 4

@@ -107,17 +107,7 @@ async def main(out_dir: str, model: str, graphs: bool, overlap: bool, kv_cache_d
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS:
             launch_calls[e.name] = launch_calls.get(e.name, 0) + 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of kernel intervals (us)
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = chip_smoke.busy_us(kernels)
     by_family: dict[str, float] = {}
     for e in kernels:
         fam = family(e.name)
