@@ -198,6 +198,40 @@ failure exits non-zero:
               the serve mix profiled with every committed page written
               through to G2 and without tiers: the device busy share, tok/s
               and the flushes' split seconds.
+12. slo     — the SLO admission plane, cache-aware admission and routing,
+              the flight recorder, fault points and spans (``slo_phase``),
+              every part through ``run_local`` over HTTP on llama-3.2-1b,
+              bf16, graphs + overlap, with phase 4's weights. (a) 16
+              1024-token requests of tenant "heavy" at priority 2, then 50
+              ms later 8 128-token requests of tenant "light" at priority
+              0, 32 tokens each, max_batch_size 8: served with the plane
+              off, then with DYN_SLO_SCHED=1 and DYN_TENANT_QUOTAS capping
+              heavy at 4096 live prompt tokens; each way untimed, timed
+              (TTFT p50 / p99 per tier, tok/s, graph keys captured, the
+              chunk budgets seen) and under the profiler (device busy
+              share); with the plane on every stream ends with its 32
+              tokens, heavy's live prompt tokens never pass 4096 and it is
+              throttled, no heavy request is admitted ahead of a waiting
+              light one, every greedy token passes the teacher-forced check,
+              and the host µs of ``admission.prepare`` a step are reported.
+              (d) on that stack a request with a ``traceparent`` leaves
+              engine_queue_wait, engine_admission_wait, engine_first_token
+              and engine_request under its trace; (c) DYN_FAULTS=
+              engine.step:crash@12 with DYN_FLIGHT_DUMP_DIR: one STEP record
+              per engine step before the crash, one CRASH record, a JSONL
+              dump equal to the ring, both in-flight streams ending in an
+              error, nothing left live, the next request served;
+              ``sched.admit:delay`` holds admission back 0.2 s. (b)
+              DYN_SLO_SCHED, DYN_CACHE_AWARE, DYN_ASYNC_ONBOARD and a G2 tier
+              behind a 320-page pool: a 2048-token prompt served, sent again
+              beside four cold 512-token prompts (a G1 hit), pushed out of G1
+              by three more, and sent beside four other cold ones: its
+              admission step's STEP record with cached_frac > 0, its quota
+              charge the residual, its tokens the G1 hit's, an
+              engine_onboard_wait span; then two workers behind the KV
+              router with the cache-aware term: every repeat of a warm
+              prefix goes to the worker holding it (decisions and costs
+              printed).
 
 Then the kernels line (quant_matmul_int8 and quant_matmul_int4 timed at
 llama-3-8b's w_gate at M = 8, their launches summed over the quantized
@@ -208,6 +242,7 @@ main-path serves), the card's name and power limit, and the last line
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -1805,18 +1840,25 @@ CLOSE_TOKENS = 256  # the request that outlives the other worker's close()
 LONG_TOKENS = 1024  # each request of the burst both workers must step beside
 
 
-async def stream_completion(session, base: str, body: dict, first_chunk: asyncio.Event | None = None) -> dict:
+async def stream_completion(session, base: str, body: dict, first_chunk: asyncio.Event | None = None, *,
+                            headers: dict | None = None, allow_error: bool = False) -> dict:
     """One streamed ``/v1/completions`` request with usage: the arrival time
     of each SSE chunk after sending, the text, finish reason and usage, the
     legacy logprobs (``token_logprobs``, ``top_logprobs``) where the body
     asked for them, and whether the stream ended with ``[DONE]``. Sets
-    ``first_chunk``, if given, when the first chunk arrives."""
+    ``first_chunk``, if given, when the first chunk arrives. ``headers`` go
+    with the request; with ``allow_error`` an HTTP error status or an error
+    event ends the stream and is returned under ``error`` instead of
+    raising."""
     sent = time.perf_counter()
     arrivals, text, finish, usage, done = [], [], None, None, False
     token_logprobs, top_logprobs = [], []
     body = {**body, "stream": True, "stream_options": {"include_usage": True}}
-    async with session.post(base + "/v1/completions", json=body) as r:
+    async with session.post(base + "/v1/completions", json=body, headers=headers) as r:
         if r.status != 200:
+            if allow_error:
+                return {"error": {"status": r.status, "body": await r.text()}, "arrivals": [], "done": False,
+                        "finish": None, "usage": None, "total_s": time.perf_counter() - sent}
             raise AssertionError(f"HTTP {r.status}: {await r.text()}")
         async for line in r.content:
             line = line.strip()
@@ -1830,7 +1872,10 @@ async def stream_completion(session, base: str, body: dict, first_chunk: asyncio
                 raise AssertionError("an SSE chunk after [DONE]")
             doc = json.loads(payload)
             if "error" in doc:
-                raise AssertionError(f"error event in the stream: {doc}")
+                if not allow_error:
+                    raise AssertionError(f"error event in the stream: {doc}")
+                finish = "error"
+                continue
             arrivals.append(time.perf_counter() - sent)
             if first_chunk is not None:
                 first_chunk.set()
@@ -3137,6 +3182,563 @@ def tiers_phase(dev, params: dict) -> dict:
     return out
 
 
+# -- phase 12: slo -----------------------------------------------------------------
+
+SLO_MIX = {"heavy": (16, 1024, 2), "light": (8, 128, 0)}  # tenant: requests, prompt tokens (BOS included), priority
+SLO_TOKENS = 32
+SLO_LIGHT_AFTER_S = 0.05  # the light tenant's requests follow the heavy burst by this
+SLO_QUOTAS = '{"heavy": {"max_inflight_tokens": 4096, "rate_tokens_per_s": 20000}}'  # DYN_TENANT_QUOTAS
+SLO_ENGINE = dict(num_pages=2048, max_batch_size=8)
+CACHE_PROMPT = 2048  # the prompt served, pushed out of G1 into G2, and sent again
+CACHE_COLD = (4, 512)  # the cold prompts sent beside its repeat
+CACHE_POOL = 320  # pages: CACHE_PUSHERS more CACHE_PROMPT-token prompts push the first out of G1
+CACHE_PUSHERS = 3
+CACHE_BESIDE_S = 0.05  # the warm prompt follows its four cold neighbours by this
+CACHE_G2_BLOCKS = 1024
+ROUTE_PREFIX, ROUTE_REPEATS = 1024, 3  # the warm prefix the router must send back to its worker
+CRASH_AT = 12  # DYN_FAULTS=engine.step:crash@CRASH_AT, counted from arming
+ADMIT_DELAY_S = 0.2  # DYN_FAULTS_DELAY_S of sched.admit:delay
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """The environment with ``values`` set (None: unset) for the block."""
+    def put(items):
+        for k, v in items:
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        put(values.items())
+        yield
+    finally:
+        put(old.items())
+
+
+def _letters(rng: np.random.Generator, n: int) -> str:
+    return bytes(rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", dtype=np.uint8), n)).decode()
+
+
+def slo_bodies(seed: int, tag: str) -> dict:
+    """The SLO mix: per tenant, its requests (the byte tokenizer adds BOS, so
+    a prompt of n-1 letters is n tokens), greedy, SLO_TOKENS out."""
+    rng = np.random.default_rng(seed)
+    return {tenant: [{"model": MODEL, "prompt": _letters(rng, length - 1), "max_tokens": SLO_TOKENS,
+                      "temperature": 0.0, "nvext": {"ignore_eos": True}, "priority": prio,
+                      "request_id": f"{tag}-{tenant}-{i}"} for i in range(n)]
+            for tenant, (n, length, prio) in SLO_MIX.items()}
+
+
+async def slo_mix(session, base: str, bodies: dict) -> dict:
+    """The heavy tenant's burst, then the light tenant's SLO_LIGHT_AFTER_S
+    later, each request streamed with its tenant header."""
+    t0 = time.perf_counter()
+    heavy = [asyncio.ensure_future(stream_completion(session, base, b, headers={"x-dynamo-tenant": "heavy"}))
+             for b in bodies["heavy"]]
+    await asyncio.sleep(SLO_LIGHT_AFTER_S)
+    light = [asyncio.ensure_future(stream_completion(session, base, b, headers={"x-dynamo-tenant": "light"}))
+             for b in bodies["light"]]
+    results = await asyncio.gather(*heavy, *light)
+    torch.cuda.synchronize()
+    return {"heavy": results[:len(heavy)], "light": results[len(heavy):], "wall_s": time.perf_counter() - t0}
+
+
+def _nearest_rank(xs: list[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _mix_stats(mix: dict) -> dict:
+    out_tokens = sum(r["usage"]["completion_tokens"] for tier in ("heavy", "light") for r in mix[tier])
+    return {"wall_s": mix["wall_s"], "output_tokens_per_s": out_tokens / mix["wall_s"],
+            "ttft_s": {tier: {"p50": _nearest_rank([r["arrivals"][0] for r in mix[tier]], 0.5),
+                              "p99": _nearest_rank([r["arrivals"][0] for r in mix[tier]], 0.99)}
+                       for tier in ("heavy", "light")}}
+
+
+class SeqLog:
+    """The core's sequences by request id (``add_request`` wrapped): prompt
+    and output token ids, arrival and admission times."""
+
+    def __init__(self, core):
+        self.seqs = {}
+        add = core.add_request
+
+        def logged(request, context=None):
+            seq = add(request, context)
+            self.seqs[request.request_id] = seq
+            return seq
+
+        core.add_request = logged
+
+    def served(self, request_id: str) -> tuple[list[int], list[int]]:
+        seq = self.seqs[request_id]
+        return list(seq.tokens[:seq.num_prompt]), list(seq.tokens[seq.num_prompt:])
+
+
+class AdmissionProbe:
+    """The core's admission controller wrapped: the host µs of each
+    ``prepare`` (under the step lock), the admissible EDF head it left and
+    the requests admitted after it, each admission's quota charge, the
+    heavy tenant's in-flight tokens in the controller's ledger after each
+    admission and, counted apart from the ledger, its prompt tokens live on
+    the card then, and the chunk budget at each prepare.
+
+    Live on the card means in ``core.running`` or ``core.prefilling``, the
+    admitted row included. ``heavy_card`` leaves out the rows that reach
+    their finish line inside the step in flight (effective state: the
+    synchronous engine would have finished them before admitting), which
+    is what the quota holds; ``heavy_card_raw`` keeps them."""
+
+    def __init__(self, core):
+        ctl = self.ctl = core.admission
+        self.prepare_us, self.steps, self.heavy_live, self.budgets, self.charges = [], [], [], [], {}
+        self.heavy_card, self.heavy_card_raw = [], []
+        prepare, on_admit = ctl.prepare, ctl.on_admit
+
+        def timed(waiting, **kw):
+            t0 = time.perf_counter()
+            n = prepare(waiting, **kw)
+            self.prepare_us.append((time.perf_counter() - t0) * 1e6)
+            self.steps.append({"head": [(s.seq_id, ctl.tenant_of(s)) for s in list(waiting)[:n]], "admitted": []})
+            self.budgets.append(core.chunk_budget_tokens())
+            return n
+
+        def recorded(seq, now=None):
+            on_admit(seq, now)
+            if self.steps:
+                self.steps[-1]["admitted"].append((seq.seq_id, ctl.tenant_of(seq)))
+            self.charges[seq.request.request_id] = ctl._charges.get(seq.seq_id)
+            self.heavy_live.append(ctl.tenants.inflight("heavy"))
+            rows = [s for s in core.running + core.prefilling if s.request.tenant_id == "heavy"]
+            own = seq.num_prompt if seq.request.tenant_id == "heavy" else 0
+            self.heavy_card_raw.append(own + sum(s.num_prompt for s in rows))
+            self.heavy_card.append(own + sum(s.num_prompt for s in rows if core._eff_remaining(s) >= 1))
+
+        ctl.prepare, ctl.on_admit = timed, recorded
+
+    def reset(self) -> None:
+        for x in (self.prepare_us, self.steps, self.heavy_live, self.heavy_card, self.heavy_card_raw, self.budgets):
+            x.clear()
+
+    def heavy_ahead_of_light(self) -> list[dict]:
+        """Steps that admitted a heavy request while a light one stood in the
+        admissible head (waiting, within its quota) and was not admitted
+        ahead of it."""
+        bad = []
+        for k, st in enumerate(self.steps):
+            pos = {sid: i for i, (sid, _) in enumerate(st["head"])}
+            heavy = [pos[sid] for sid, t in st["admitted"] if t == "heavy" and sid in pos]
+            if not heavy:
+                continue
+            admitted = {sid for sid, _ in st["admitted"]}
+            light = [sid for sid, t in st["head"] if t == "light" and (sid not in admitted or pos[sid] > min(heavy))]
+            if light:
+                bad.append({"prepare": k, "head": st["head"], "admitted": st["admitted"]})
+        return bad
+
+
+def _kernel_modules() -> dict:
+    return {name: importlib.import_module(f"dynamo_tpu_torch.ops.{name}") for name in SERVE_KERNELS[MODEL]}
+
+
+async def slo_edf_tenants(dev, params: dict, plane: bool, after=None) -> dict:
+    """Part (a) with the SLO plane off or on: ``run_local`` (one worker,
+    graphs + overlap, max_batch_size 8), the SLO mix served three times
+    with other prompts of the same lengths: untimed (graph keys), timed
+    (TTFT per tier, tok/s, the host cost of ``prepare``, the graph keys the
+    chunk controller's budgets reach), profiled (the device busy share).
+    ``after(session, base, handles)`` runs on the same stack between the
+    timed and the profiled pass."""
+    import aiohttp
+
+    from dynamo_tpu_torch.launch import run_local, shutdown
+
+    kernels = _kernel_modules()
+    env = {"DYN_SLO_SCHED": "1" if plane else None, "DYN_TENANT_QUOTAS": SLO_QUOTAS if plane else None}
+    with _env(**env):
+        handles = await run_local(MODEL, port=0, num_workers=1, device="cuda", params=params, overlap=True,
+                                  **SLO_ENGINE)
+        base = f"http://127.0.0.1:{handles['port']}"
+        core = handles["services"][0].core
+        if (core.admission is not None) != plane or (core.chunk_controller is not None) != plane:
+            raise AssertionError(f"DYN_SLO_SCHED={int(plane)} built admission {core.admission}, chunk "
+                                 f"controller {core.chunk_controller}")
+        probe = AdmissionProbe(core) if plane else None
+        log = SeqLog(core)
+        extra = None
+        try:
+            async with aiohttp.ClientSession() as session:
+                await slo_mix(session, base, slo_bodies(20, "warm"))
+                if probe:
+                    probe.reset()
+                    throttled0 = dict(probe.ctl.tenants.throttled)
+                for mod in kernels.values():
+                    mod.launches = 0
+                dispatch0 = dict(core.attn_dispatch_counts)
+                graphs0, keys0 = core.runner.graph_stats(), set(core.runner._graphs)
+                ring0 = core.flight.snapshot()[-1]["seq"]
+                timed = await slo_mix(session, base, slo_bodies(21, "timed"))
+                n_prepares = len(probe.prepare_us) if probe else 0  # the timed window's
+                launches = {name: mod.launches for name, mod in kernels.items()}
+                graphs1, new_keys = core.runner.graph_stats(), set(core.runner._graphs) - keys0
+                dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
+                records = [r for r in core.flight.snapshot(kind="step") if r["seq"] > ring0]
+                if after is not None:
+                    extra = await after(session, base, handles)
+                # Last on the stack: stopping the profiler holds the
+                # interpreter for seconds while it collects the window's
+                # kernels, which can outlast the runtime's lease (nothing is
+                # routed after it). It starts and stops off the event loop,
+                # on one thread (its state is the thread's).
+                loop = asyncio.get_running_loop()
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                with concurrent.futures.ThreadPoolExecutor(max_workers=1) as one:
+                    await loop.run_in_executor(one, prof.__enter__)
+                    try:
+                        profiled = await slo_mix(session, base, slo_bodies(22, "profiled"))
+                    finally:
+                        t_stop = time.perf_counter()
+                        await loop.run_in_executor(one, prof.__exit__, None, None, None)
+                        profiler_stop_s = time.perf_counter() - t_stop
+        finally:
+            await shutdown(handles)
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = busy_us([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]) / 1e6
+    failures = []
+    for tier in ("heavy", "light"):
+        for r in timed[tier] + profiled[tier]:
+            n_out = (r["usage"] or {}).get("completion_tokens")
+            if not r["done"] or r["finish"] != "length" or n_out != SLO_TOKENS:
+                failures.append(f"a {tier} stream: [DONE] {r['done']}, finish {r['finish']}, {n_out} tokens")
+    if failures:
+        raise AssertionError(f"the SLO mix, plane {'on' if plane else 'off'}: " + "; ".join(failures[:4]))
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never launched: {launches}")
+    off_kernel = {k: n for k, n in dispatch.items() if n and not k.endswith("/kernel")}
+    if off_kernel:
+        failures.append(f"steps whose attention did not run in the kernels: {off_kernel}")
+    out = {"plane": "on" if plane else "off", **_mix_stats(timed),
+           "device_busy_share": busy / profiled["wall_s"], "profiled_wall_s": profiled["wall_s"],
+           "profiler_stop_s": profiler_stop_s,
+           "engine_steps": len(records), "kernel_launches": launches,
+           "graph_keys_captured_in_window": graphs1["keys"] - graphs0["keys"],
+           "capture_s_in_window": graphs1["capture_s"] - graphs0["capture_s"],
+           # (kind, rows, tokens a row, table width, history width, ...): runner._dispatch's key
+           "graph_keys_new": sorted(str(k[:4]) for k in new_keys),
+           "chunk_tokens_per_step_max": max((r["chunk_tokens"] for r in records), default=0),
+           "decode_step_wall_ms": {q: _nearest_rank([r["wall_ms"] for r in records if r["decode_rows"]], v)
+                                   for q, v in (("p50", 0.5), ("p99", 0.99), ("max", 1.0))}}
+    if plane:
+        ids = [f"timed-{t}-{i}" for t in ("heavy", "light") for i in range(SLO_MIX[t][0])]
+        served = [log.served(rid) for rid in ids]
+        forced = teacher_forced(dev, MODEL, params, None, served, list(range(len(served))))
+        # The quota and order checks cover every pass from the timed one on;
+        # the host cost and the budgets are the timed window's.
+        ahead = probe.heavy_ahead_of_light()
+        throttled = probe.ctl.tenants.throttled.get("heavy", 0) - throttled0.get("heavy", 0)
+        us = probe.prepare_us[:n_prepares]
+        out.update({
+            "prepare_host_us": {"calls": len(us), "mean": statistics.mean(us), "p50": _nearest_rank(us, 0.5),
+                                "max": max(us), "per_engine_step": sum(us) / max(1, len(records))},
+            "heavy_ledger_tokens_max": max(probe.heavy_live),
+            "heavy_live_prompt_tokens_max": max(probe.heavy_card),
+            "heavy_live_prompt_tokens_raw_max": max(probe.heavy_card_raw), "heavy_throttled": throttled,
+            "deferred_steps": sum(r["deferred"] > 0 for r in records),
+            "chunk_budgets_seen": sorted(set(probe.budgets[:n_prepares])),
+            "chunk_controller": {"shrinks": core.chunk_controller.shrinks, "relaxes": core.chunk_controller.relaxes,
+                                 "budget": core.chunk_controller.budget()},
+            "heavy_admitted_ahead_of_light": ahead, "teacher_forced": forced})
+        if any(len(o) != SLO_TOKENS for _, o in served):
+            failures.append("a timed request's engine sequence does not hold its tokens")
+        cap = json.loads(SLO_QUOTAS)["heavy"]["max_inflight_tokens"]
+        if max(out["heavy_live_prompt_tokens_max"], out["heavy_ledger_tokens_max"]) > cap or throttled <= 0:
+            failures.append(f"heavy tenant: live prompt tokens up to {out['heavy_live_prompt_tokens_max']} "
+                            f"(ledger {out['heavy_ledger_tokens_max']}) "
+                            f"(cap {cap}), throttled {throttled} times (want > 0)")
+        if ahead:
+            failures.append(f"heavy requests admitted ahead of waiting light ones: {ahead[:3]}")
+        if not forced["ok"]:
+            failures.append(f"teacher-forced check failed: {forced}")
+    if failures:
+        emit({"phase": "slo", "part": "edf_tenants", **out, "failures": failures})
+        raise AssertionError("; ".join(failures))
+    return {**out, "extra": extra}
+
+
+async def slo_flight_faults(session, base: str, handles: dict) -> dict:
+    """Parts (d) and (c) on the SLO stack of part (a): a traced request's
+    engine spans; ``engine.step:crash@CRASH_AT`` armed from DYN_FAULTS with a
+    flight dump directory (STEP records, the CRASH record, the dump, the
+    streams' errors, the request served after it); ``sched.admit:delay``."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.runtime.faults import FAULTS
+    from dynamo_tpu_torch.tracing import SPANS, TraceContext
+
+    svc = handles["services"][0]
+    core = svc.core
+    log = SeqLog(core)
+    light = slo_bodies(23, "ff")["light"]
+    failures = []
+
+    # (d) spans under the caller's trace.
+    trace = TraceContext.new()
+    traced = await stream_completion(session, base, {**light[0], "request_id": "ff-traced"},
+                                     headers={"x-dynamo-tenant": "light", "traceparent": trace.to_traceparent()})
+    spans = {s["name"]: s for s in SPANS.query(trace_id=trace.trace_id)}
+    want = {"engine_queue_wait", "engine_request", "engine_first_token", "engine_admission_wait"}
+    if not want <= set(spans) or traced["finish"] != "length":
+        failures.append(f"the traced request left spans {sorted(spans)}")
+    req = spans.get("engine_request", {})
+    if spans.get("engine_first_token", {}).get("parent_id") != req.get("span_id"):
+        failures.append("engine_first_token is not a child of engine_request")
+
+    # (c) a crash before the CRASH_AT-th engine step after arming.
+    steps = {"work": 0}
+    step = core.step
+
+    def counted():
+        before = (core.last_step_info, core.runner.dispatch_seconds_total)
+        out = step()
+        if out or (core.last_step_info, core.runner.dispatch_seconds_total) != before or core.running:
+            steps["work"] += 1
+        return out
+
+    core.step = counted
+    dump_dir = tempfile.mkdtemp(prefix="dynamo_flight_")
+    ring0 = core.flight.snapshot()[-1]["seq"]
+    with _env(DYN_FLIGHT_DUMP_DIR=dump_dir, DYN_FAULTS=f"engine.step:crash@{CRASH_AT}"):
+        FAULTS.arm(os.environ["DYN_FAULTS"])
+        try:
+            crashed = await asyncio.gather(*(stream_completion(
+                session, base, {**b, "max_tokens": 4 * SLO_TOKENS, "request_id": f"ff-crash-{i}"},
+                headers={"x-dynamo-tenant": "light"}, allow_error=True) for i, b in enumerate(light[1:3])))
+            fired = FAULTS.fired("engine.step")
+        finally:
+            FAULTS.disarm()
+    core.step = step
+    ring = [r for r in core.flight.snapshot() if r["seq"] > ring0]
+    dumps = sorted(pathlib.Path(dump_dir).glob("flight-*.jsonl"))
+    lines = [json.loads(x) for x in dumps[0].read_text().splitlines()] if len(dumps) == 1 else []
+    dumped = [r for r in lines[1:] if r["seq"] > ring0]
+    crash = [r for r in ring if r["kind"] == "crash"]
+    stream_errors = [r.get("error", {}).get("status") or r["finish"] for r in crashed]
+    after_crash = {"has_work": core.has_work, "active_pages": core.allocator.stats().active_pages}
+    served_after = await stream_completion(session, base, {**light[3], "request_id": "ff-after"},
+                                           headers={"x-dynamo-tenant": "light"})
+    if fired != 1 or len(crash) != 1 or crash[0].get("where") != "engine_loop" or crash[0].get("error") != "CrashFault":
+        failures.append(f"engine.step fired {fired} times, CRASH records {crash}")
+    if sum(r["kind"] == "step" for r in ring) != steps["work"] or steps["work"] < CRASH_AT - 1:
+        failures.append(f"{sum(r['kind'] == 'step' for r in ring)} STEP records for {steps['work']} engine steps")
+    if len(dumps) != 1 or lines[0].get("reason") != "engine_step_failure" or dumped != ring:
+        failures.append(f"flight dumps {dumps}: header {lines[:1]}, {len(dumped)} records against {len(ring)}")
+    if any(e not in (502, "error") for e in stream_errors):
+        failures.append(f"the in-flight streams ended {stream_errors}, not in an error")
+    if after_crash != {"has_work": False, "active_pages": 0} or served_after["finish"] != "length" or \
+            served_after["usage"]["completion_tokens"] != SLO_TOKENS:
+        failures.append(f"after the crash: {after_crash}, then a request ended {served_after['finish']}")
+
+    # sched.admit:delay holds the head back for DYN_FAULTS_DELAY_S.
+    with _env(DYN_FAULTS_DELAY_S=str(ADMIT_DELAY_S)):
+        FAULTS.arm("sched.admit:delay@1")
+        try:
+            delayed = await stream_completion(session, base, {**light[4], "request_id": "ff-delay"},
+                                              headers={"x-dynamo-tenant": "light"})
+            delay_fired = FAULTS.fired("sched.admit")
+        finally:
+            FAULTS.disarm()
+    seq = log.seqs["ff-delay"]
+    admit_wait = seq.admitted_time - seq.arrival_time
+    if delay_fired != 1 or admit_wait < ADMIT_DELAY_S or delayed["finish"] != "length":
+        failures.append(f"sched.admit:delay fired {delay_fired}, admission {admit_wait:.3f} s after arrival")
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    out = {"spans": {k: {"duration_ms": v["duration_ms"], "parent_is_engine_request": v.get("parent_id") == req.get("span_id")}
+                     for k, v in spans.items() if k.startswith("engine_")},
+           "crash": {"at_engine_step": CRASH_AT, "fired": fired, "step_records": sum(r["kind"] == "step" for r in ring),
+                     "engine_steps_with_work": steps["work"], "crash_records": len(crash),
+                     "dump_records": len(dumped), "stream_errors": stream_errors, "after": after_crash,
+                     "request_after_crash_tokens": served_after["usage"]["completion_tokens"]},
+           "sched_admit_delay": {"fired": delay_fired, "admission_wait_s": admit_wait, "armed_s": ADMIT_DELAY_S}}
+    if failures:
+        emit({"phase": "slo", "part": "flight_faults_spans", **out, "failures": failures})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+async def slo_cache_aware(params: dict) -> dict:
+    """Part (b): DYN_SLO_SCHED, DYN_CACHE_AWARE and DYN_ASYNC_ONBOARD with a
+    G2 tier behind a CACHE_POOL-page pool. A CACHE_PROMPT-token prompt is
+    served; then sent again beside CACHE_COLD cold prompts (sent just
+    before it, so it joins their decode steps): a G1 hit; pushed out of G1
+    by CACHE_PUSHERS more prompts; and sent once more beside as many other
+    cold prompts: its admission step's cached_frac, its quota charge (the
+    residual), its tokens against the G1 hit's, its onboard span. Then two
+    workers behind the KV router with the cache-aware cost term: every
+    repeat of a warm prefix goes to the worker that holds it."""
+    import aiohttp
+
+    from dynamo_tpu_torch.launch import run_local, shutdown
+    from dynamo_tpu_torch.router import scheduler as router_scheduler
+    from dynamo_tpu_torch.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+    from dynamo_tpu_torch.tracing import SPANS
+
+    rng = np.random.default_rng(30)
+    greedy = {"model": MODEL, "max_tokens": SLO_TOKENS, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+    warm = {**greedy, "prompt": _letters(rng, CACHE_PROMPT - 1)}
+    pushers = [{**greedy, "prompt": _letters(rng, CACHE_PROMPT - 1), "max_tokens": 4} for _ in range(CACHE_PUSHERS)]
+    colds = [[{**greedy, "prompt": _letters(rng, CACHE_COLD[1] - 1), "request_id": f"ca-{tag}-cold-{i}"}
+              for i in range(CACHE_COLD[0])] for tag in ("g1", "repeat")]
+
+    async def beside(session, base, tag, cold):
+        sent = [asyncio.ensure_future(stream_completion(session, base, b)) for b in cold]
+        await asyncio.sleep(CACHE_BESIDE_S)
+        return await asyncio.gather(stream_completion(session, base, {**warm, "request_id": f"ca-{tag}"}), *sent)
+
+    failures = []
+    with _env(DYN_SLO_SCHED="1", DYN_CACHE_AWARE="1", DYN_ASYNC_ONBOARD="1"):
+        handles = await run_local(MODEL, port=0, num_workers=1, device="cuda", params=params, overlap=True,
+                                  num_pages=CACHE_POOL, max_batch_size=8, g2_blocks=CACHE_G2_BLOCKS)
+        base = f"http://127.0.0.1:{handles['port']}"
+        core = handles["services"][0].core
+        log, probe = SeqLog(core), AdmissionProbe(core)
+        try:
+            async with aiohttp.ClientSession() as session:
+                first = await stream_completion(session, base, {**warm, "request_id": "ca-first"})
+                g1, *g1_colds = await beside(session, base, "g1", colds[0])
+                for i, body in enumerate(pushers):
+                    await stream_completion(session, base, {**body, "request_id": f"ca-push-{i}"})
+                hashes = log.seqs["ca-first"].block_seq.block_hashes[:CACHE_PROMPT // 16]  # the prompt's blocks
+                resident = core.allocator.peek_prefix(hashes)
+                in_g2 = sum(h in core.block_manager.g2 for h in hashes)
+                # Admission reads at most the manager's onboard_limit blocks
+                # from the tiers (64, the JAX build's default); the rest is
+                # recomputed, and priced so.
+                in_tiers = core.block_manager.probe_prefix(hashes, resident)
+                ring0 = core.flight.snapshot()[-1]["seq"]
+                onboard0 = dict(core.onboard_page_counts)
+                graphs0 = core.runner.graph_stats()
+                repeat, *repeat_colds = await beside(session, base, "repeat", colds[1])
+                graphs1 = core.runner.graph_stats()
+                records = [r for r in core.flight.snapshot(kind="step") if r["seq"] > ring0]
+                onboarded = {t: n - onboard0.get(t, 0) for t, n in core.onboard_page_counts.items()}
+        finally:
+            await shutdown(handles)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g1_tokens, repeat_tokens = log.served("ca-g1")[1], log.served("ca-repeat")[1]
+    charge = probe.charges.get("ca-repeat")
+    spans = [s for s in SPANS.query(request_id="ca-repeat") if s["name"] == "engine_onboard_wait"]
+    warm_steps = [r for r in records if r["admitted"] and r["cached_frac"] > 0]
+    g1_cached = ((g1["usage"] or {}).get("prompt_tokens_details") or {}).get("cached_tokens", 0)
+    if resident or in_g2 < CACHE_PROMPT // 16 or in_tiers != min(CACHE_PROMPT // 16, 64):
+        failures.append(f"the prompt was not pushed out of G1 into G2: {resident} blocks resident, {in_g2} in G2, "
+                        f"{in_tiers} probed")
+    if not warm_steps:
+        failures.append(f"no admission step with cached_frac > 0: {[(r['admitted'], r['cached_frac']) for r in records]}")
+    residual = CACHE_PROMPT - min(16 * (resident + in_tiers), CACHE_PROMPT - 1)  # the controller's estimate
+    if charge is None or charge[1] != residual or residual >= CACHE_PROMPT - 16:
+        failures.append(f"the repeat was charged {charge}, not its residual")
+    if repeat_tokens != g1_tokens:
+        failures.append(f"the repeat's tokens part from the G1 hit's at "
+                        f"{next((i for i, (a, b) in enumerate(zip(repeat_tokens, g1_tokens)) if a != b), None)}")
+    if not spans or onboarded.get("g2", 0) <= 0:
+        failures.append(f"no engine_onboard_wait span ({spans}) or no G2 page onboarded ({onboarded})")
+    for r in [first, g1, repeat, *g1_colds, *repeat_colds]:
+        if r["finish"] != "length" or r["usage"]["completion_tokens"] != SLO_TOKENS:
+            failures.append(f"a stream ended {r['finish']} after {r['usage']}")
+    out = {"pool_pages": CACHE_POOL, "after_push": {"g1_blocks": resident, "g2_blocks": in_g2,
+                                                    "onboard_probe_blocks": in_tiers},
+           "graph_keys_captured_in_repeat_window": graphs1["keys"] - graphs0["keys"],
+           "capture_s_in_repeat_window": graphs1["capture_s"] - graphs0["capture_s"],
+           "g1_hit_cached_tokens": g1_cached, "repeat_charge": charge,
+           "admission_steps": [{k: r[k] for k in ("admitted", "deferred", "cached_frac", "deadline_slack_ms")}
+                               for r in records if r["admitted"]],
+           "onboarded_pages": onboarded, "onboard_wait_ms": [s["duration_ms"] for s in spans],
+           "repeat_tokens_equal_g1_hit": repeat_tokens == g1_tokens,
+           "repeat_ttft_s": repeat["arrivals"][0], "g1_hit_ttft_s": g1["arrivals"][0],
+           "cold_ttft_s": sorted(r["arrivals"][0] for r in repeat_colds)}
+
+    # Two workers behind the KV router, the cache-aware term armed.
+    decisions = []
+    schedule = router_scheduler.KvScheduler.schedule
+
+    def logged(self, num_blocks, overlaps, metrics, worker_ids, *, staleness=None):
+        costs = self.costs(num_blocks, overlaps, metrics, worker_ids, staleness=staleness)
+        wid = self.select(costs)
+        decisions.append({"blocks": num_blocks, "overlaps": dict(overlaps.scores), "costs": costs, "worker": wid,
+                          "cache_aware_weight": self.config.cache_aware_weight})
+        return wid
+
+    prefix = _letters(rng, ROUTE_PREFIX - 1)
+    bodies = [{**greedy, "prompt": prefix + _letters(rng, 32), "max_tokens": 8} for _ in range(ROUTE_REPEATS + 1)]
+    router_scheduler.KvScheduler.schedule = logged
+    try:
+        with _env(DYN_CACHE_AWARE="1"):
+            handles = await run_local(MODEL, port=0, num_workers=2, router_mode="kv", device="cuda", params=params,
+                                      overlap=True, **SLO_ENGINE)
+            base = f"http://127.0.0.1:{handles['port']}"
+            try:
+                async with aiohttp.ClientSession() as session:
+                    await stream_completion(session, base, {**bodies[0], "request_id": "route-0"})
+                    entry = handles["http"].manager.get(MODEL)
+                    indexer = entry.aux[0].indexer
+                    hashes = compute_block_hashes(ByteTokenizer().encode(prefix, add_bos=True), 16)
+                    held = await until(lambda: {w: n for w, n in indexer.find_matches(hashes).scores.items()
+                                                if n >= len(hashes) - 1}, "the warm prefix in the router's indexer")
+                    first_decision = len(decisions)
+                    for i, body in enumerate(bodies[1:], 1):
+                        await stream_completion(session, base, {**body, "request_id": f"route-{i}"})
+            finally:
+                await shutdown(handles)
+    finally:
+        router_scheduler.KvScheduler.schedule = schedule
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeats = decisions[first_decision:]
+    holder = next(iter(held))
+    if len(held) != 1 or len(repeats) != ROUTE_REPEATS or any(d["worker"] != holder for d in repeats) \
+            or not all(d["cache_aware_weight"] > 0 for d in decisions):
+        failures.append(f"the warm prefix (held by {held}) was routed {[d['worker'] for d in repeats]}")
+    out["router"] = {"holder": f"{holder:x}", "decisions": [
+        {"worker": f"{d['worker']:x}", "blocks": d["blocks"], "overlap": {f"{w:x}": n for w, n in d["overlaps"].items()},
+         "costs": {f"{w:x}": c for w, c in d["costs"].items()}} for d in decisions]}
+    if failures:
+        emit({"phase": "slo", "part": "cache_aware", **out, "failures": failures})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def slo_phase(dev, params: dict) -> dict:
+    """Phase 12: the SLO admission plane, cache-aware admission and routing,
+    the flight recorder, fault points and spans, all through ``run_local``
+    over HTTP on the main path (llama-3.2-1b, bf16, graphs + overlap). (a)
+    the SLO mix with the plane off, then on (EDF, tenant quotas, the chunk
+    controller); (d) and (c) on the plane's stack; (b) cache-aware
+    admission over G2 and the cache-aware router term on two workers."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).add_(1)  # the profiler's one-time start-up, before any stack runs
+    off = asyncio.run(slo_edf_tenants(dev, params, plane=False))
+    on = asyncio.run(slo_edf_tenants(dev, params, plane=True, after=slo_flight_faults))
+    flight = on.pop("extra")
+    off.pop("extra")
+    edf = {"phase": "slo", "part": "edf_tenants", "model": MODEL,
+           "mix": {t: {"requests": n, "prompt_tokens": length, "priority": p} for t, (n, length, p) in SLO_MIX.items()},
+           "output_tokens": SLO_TOKENS, "tenant_quotas": json.loads(SLO_QUOTAS), **SLO_ENGINE,
+           "plane_off": off, "plane_on": on}
+    emit(edf)
+    emit({"phase": "slo", "part": "flight_faults_spans", **flight})
+    cache = {"phase": "slo", "part": "cache_aware", **asyncio.run(slo_cache_aware(params))}
+    emit(cache)
+    return {"edf_tenants": edf, "flight_faults_spans": flight, "cache_aware": cache}
+
+
 # -- quantized weights: quant_matmul -------------------------------------------------
 
 # decode rows, a ragged row tile, rows at each side of the decode/prefill switch, verify rows, prefill
@@ -3569,6 +4171,7 @@ def main() -> int:
             checkpoint_phase(dev, params)
             constrained_phase(dev, params)
             tiers_phase(dev, params)
+            slo_phase(dev, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()

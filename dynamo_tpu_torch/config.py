@@ -7,9 +7,11 @@ the JAX build, so one file and one environment configure both.
 
 Env naming: section ``router_resync`` field ``backoff_s`` ->
 ``DYN_ROUTER_RESYNC_BACKOFF_S``. The TOML file is taken from ``DYN_CONFIG``
-(path) unless given explicitly. The other sections (runtime, worker, store,
-SLO, anomaly and incident settings, ...) come with the features that read
-them.
+(path) unless given explicitly. The sections here are the ones the port
+reads: the router's resync knobs and the SLO plane's (``[slo]``,
+``[slo_sched]``, ``[tenant]``, ``[cache_aware]``); the other sections
+(runtime, worker, store, anomaly and incident settings, ...) come with the
+features that read them.
 """
 
 from __future__ import annotations
@@ -111,3 +113,92 @@ class RouterResyncSettings:
 
 def load_router_resync_settings(**kw) -> RouterResyncSettings:
     return load_config(RouterResyncSettings(), section="router_resync", **kw)
+
+
+@dataclasses.dataclass
+class SloSettings:
+    """Latency targets the deployment is accountable to.
+
+    The north-star metric is goodput *under* these targets (tokens/sec from
+    requests that attained them), not raw throughput. The port reads
+    ``itl_p99_ms`` as the chunk-budget controller's ITL budget
+    (``sched.build_chunk_controller``); the JAX build's frontend SLO
+    accountant, which reads both, is not ported. Env: ``DYN_SLO_*``, TOML:
+    ``[slo]``.
+    """
+
+    ttft_ms: float = 500.0  # p50 time-to-first-token target (north star)
+    itl_p99_ms: float = 50.0  # per-request p99 inter-token-latency target
+
+
+@dataclasses.dataclass
+class SloSchedSettings:
+    """Admission-control plane knobs (``dynamo_tpu_torch/sched``).
+
+    The master toggle is the bare ``DYN_SLO_SCHED`` flag (not part of this
+    section); these tune the plane once it is on. Env: ``DYN_SLO_SCHED_*``,
+    TOML: ``[slo_sched]``.
+    """
+
+    ttft_budget_ms: float = 500.0  # tier-0 EDF deadline budget
+    tier_stretch: float = 2.0  # deadline budget multiplier per priority tier
+    # Path to a profiler-produced WorkerProfile JSON; empty = the predictor
+    # runs on its online-corrected fallback and the router skips the
+    # attainment term unless a profile is wired in code.
+    profile: str = ""
+    attainment_weight: float = 1.0  # router cost weight for predicted attainment
+    # ITL-driven chunk-budget controller (shrinks chunk_prefill_tokens when
+    # the live decode-step tail nears the ITL budget; see SloSettings).
+    chunk_floor_tokens: int = 64
+    chunk_shrink_at: float = 0.9
+    chunk_relax_at: float = 0.5
+    chunk_cooldown_steps: int = 8
+
+
+@dataclasses.dataclass
+class TenantSettings:
+    """Default per-tenant admission quota (``dynamo_tpu_torch/sched/tenants``).
+
+    Zeros mean unlimited. Env: ``DYN_TENANT_*``, TOML: ``[tenant]``.
+    """
+
+    rate_tokens_per_s: float = 0.0  # token-bucket refill rate (prompt tokens)
+    burst_tokens: float = 0.0  # bucket capacity; 0 -> 2s of rate
+    max_inflight_tokens: int = 0  # cap on a tenant's live prompt tokens
+    # JSON object of per-tenant overrides keyed by tenant id, e.g.
+    # '{"heavy": {"rate_tokens_per_s": 1000, "max_inflight_tokens": 4096}}'.
+    quotas: str = ""
+
+
+@dataclasses.dataclass
+class CacheAwareSettings:
+    """Cache-aware serving knobs (residual-cost admission + router term).
+
+    The master toggle is the bare ``DYN_CACHE_AWARE`` flag (not part of
+    this section); these tune the plane once it is on. Env:
+    ``DYN_CACHE_AWARE_*``, TOML: ``[cache_aware]``.
+    """
+
+    weight: float = 1.0  # router cost weight for predicted residual prefill
+    # Prefill throughput assumed when converting residual tokens into
+    # seconds of predicted TTFT contribution for the router cost.
+    rate_tokens_per_s: float = 20000.0
+    # Router skips the cache term for a worker whose KV-event feed is
+    # staler than this — a stale index must not skew placement.
+    max_staleness_s: float = 10.0
+
+
+def load_slo_settings(**kw) -> SloSettings:
+    return load_config(SloSettings(), section="slo", **kw)
+
+
+def load_slo_sched_settings(**kw) -> SloSchedSettings:
+    return load_config(SloSchedSettings(), section="slo_sched", **kw)
+
+
+def load_tenant_settings(**kw) -> TenantSettings:
+    return load_config(TenantSettings(), section="tenant", **kw)
+
+
+def load_cache_aware_settings(**kw) -> CacheAwareSettings:
+    return load_config(CacheAwareSettings(), section="cache_aware", **kw)

@@ -11,7 +11,13 @@ is prefill XOR decode).
 - Admission: FIFO from the waiting queue under the prefill token budget and
   page availability; prefix-cache matches reduce the charge. Pages are
   allocated per chunk, so a prompt larger than the free pool admits
-  incrementally.
+  incrementally. With the SLO plane (``EngineConfig.slo_sched``,
+  ``sched/``) an ``AdmissionController`` reorders the queue each step by
+  deadline slack over a predicted TTFT and holds back requests over their
+  tenant's quota, and a ``ChunkBudgetController`` sets the chunk budget
+  from the decode steps' wall times; with ``cache_aware`` the controller
+  prices a request by its uncached tokens (G1 and the tiers). Off, the
+  queue is never reordered: FIFO, bitwise the plane-less scheduler.
 - Decode first: running sequences' next-token pages are reserved before any
   chunk is sized.
 - Preemption: on page exhaustion during decode the most recently arrived
@@ -55,10 +61,18 @@ is prefill XOR decode).
   step (synchronous) or from a background fetch that lands later
   (``async_onboard``).
 
-Not ported yet, and without a config field here, so setting their flag
-fails: SLO scheduling, cache-aware admission and sliding-window page
-release. Multimodal requests finish with an error. Fault points, tracing
-spans and the flight recorder are not part of this core.
+- Observability: every ``step()`` lands a STEP record in ``self.flight``
+  (``observability/flight.py``), and a step that raises a CRASH record
+  before the exception propagates; the ``sched.admit`` fault point sits at
+  each admission (``runtime/faults.py``); a landed onboarding session
+  records an ``engine_onboard_wait`` span (``tracing.py``).
+
+Not ported yet, and without a config field here, so setting it fails:
+sliding-window page release (``swa_free_pages``). Multimodal requests finish
+with an error. The JAX core's compile tracker, device-cost fields, anomaly
+sentinel, incident capture and loss accounting are not ported either
+(ROADMAP A10): its STEP records carry fields the port's leave out
+(``FLIGHT_KEYS_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -76,10 +90,13 @@ import numpy as np
 from dynamo_tpu_torch.engine.allocator import OutOfPagesError, PageAllocator
 from dynamo_tpu_torch.engine.runner import StepBatch, next_pow2, pack_masks
 from dynamo_tpu_torch.engine.sequence import SeqStatus, Sequence
+from dynamo_tpu_torch.observability.flight import CRASH, STEP, FlightRecorder
 from dynamo_tpu_torch.protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.protocols.kv import ForwardPassMetrics, KvCacheEvent
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.faults import FAULTS, DropFault
 from dynamo_tpu_torch.tokens import DEFAULT_SALT
+from dynamo_tpu_torch.tracing import record_span, trace_of
 
 logger = logging.getLogger(__name__)
 
@@ -102,13 +119,17 @@ BARRIER_REASONS = (
     "idle",  # barrier step with no recorded reason (nothing dispatched)
 )
 
+# Fields of the JAX core's STEP flight records that the port's leave out:
+# their sources are the device-cost plane (ROADMAP A10), which the port has
+# not taken over. Every other field is recorded under the JAX name.
+FLIGHT_KEYS_NOT_PORTED = frozenset({"hbm_bytes", "flops", "roofline_frac"})
+
 
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX build's EngineConfig with the same names and defaults, less
-    every field only an unported feature reads (``slo_sched``,
-    ``cache_aware``, ``swa_free_pages``): passing one fails with a
-    ``TypeError`` that names it."""
+    ``swa_free_pages``, which only the unported sliding window reads:
+    passing it fails with a ``TypeError`` that names it."""
 
     num_pages: int = 512
     page_size: int = 16
@@ -130,6 +151,11 @@ class EngineConfig:
     # chunk_prefill_tokens and the decode-first page reserve covers spec_k+1
     # slots per sequence.
     spec_k: int = 0
+    # SLO-native admission control (DYN_SLO_SCHED, sched/): EDF-over-
+    # predicted-TTFT ordering of the waiting queue, per-tenant quotas, and
+    # an ITL-driven chunk-budget controller. Off by default: FIFO intake,
+    # bit-identical to the scheduler without the plane.
+    slo_sched: bool = False
     # Overlapped execution (DYN_OVERLAP): a depth-1 pipeline that dispatches
     # step N+1 before step N's tokens reach the host. Mixed steps, penalized
     # rows and budget-final tokens chain; cancellation barriers. Output
@@ -147,6 +173,13 @@ class EngineConfig:
     # row's num_cached advances only when the session lands; a fetch
     # shortfall recomputes, as the synchronous path does.
     async_onboard: bool = False
+    # Cache-aware scheduling (DYN_CACHE_AWARE): the admission plane prices a
+    # request by its *residual* (uncached) prefill tokens — resident G1
+    # match plus the tiers' probe — so EDF slack ranks a mostly-cached long
+    # prompt ahead of a cold short one and tenant buckets charge only the
+    # tokens that will be computed. Policy only, and only with an admission
+    # controller: off is bit-identical to full-cost pricing.
+    cache_aware: bool = False
     # Constrained-decode lookahead (DYN_CONSTRAINT_LOOKAHEAD_TOKENS): the most
     # distinct successor machine states a chained json_mode row may fan out
     # to per step. Overflow or a cold mask barriers that step (reason
@@ -205,6 +238,8 @@ class EngineCore:
         *,
         on_kv_event: Callable[[KvCacheEvent], None] | None = None,
         block_manager=None,  # blocks.KvBlockManager (the G2/G3 tiers)
+        admission=None,  # sched.AdmissionController (overrides the env build)
+        chunk_controller=None,  # sched.ChunkBudgetController (same)
     ) -> None:
         if runner.num_pages != config.num_pages or runner.page_size != config.page_size:
             raise ValueError("runner and engine config disagree on cache geometry")
@@ -226,6 +261,32 @@ class EngineCore:
         self._eos = set(config.eos_token_ids)
         self.num_preemptions = 0
         self.admission_rejections = 0
+        # SLO admission-control plane (None => FIFO intake; the explicit
+        # kwargs let tests inject configured controllers without touching
+        # the environment).
+        self.admission = admission
+        self.chunk_controller = chunk_controller
+        if config.slo_sched:
+            from dynamo_tpu_torch.sched import build_admission_controller, build_chunk_controller
+
+            if self.admission is None:
+                self.admission = build_admission_controller()
+            if self.chunk_controller is None and config.chunk_prefill_tokens > 0:
+                self.chunk_controller = build_chunk_controller(config.chunk_prefill_tokens)
+        if config.cache_aware and self.admission is not None:
+            # Residual-cost admission: the EDF plane prices every waiting
+            # request by its uncached prefill tokens.
+            self.admission.cached_tokens_fn = self._cached_prefix_tokens
+        # Last _schedule_prefill's admission outcome (flight STEP record).
+        self.last_admission = {
+            "admitted": 0, "deferred": 0, "deadline_slack_ms": 0.0, "cached_frac": 0.0,
+        }
+        # Flight recorder: the last N steps' records, for postmortems.
+        self.flight = FlightRecorder()
+        # Rows that were in flight when a dispatch crashed (CRASH record),
+        # and the host gap between steps (STEP records).
+        self._aborted_inflight = 0
+        self._prev_step_end: float | None = None
         # Attention dispatch-path accounting: steps by (phase, path).
         self.attn_dispatch_counts: dict[tuple[str, str], int] = {}
         self._prompt_tokens_total = 0
@@ -413,13 +474,45 @@ class EngineCore:
     # -- stepping ----------------------------------------------------------
 
     def step(self) -> list[tuple[Sequence, EngineOutput]]:
-        """Advance the engine by one batched forward; returns per-seq deltas."""
+        """Advance the engine by one batched forward; returns per-seq deltas.
+
+        Every step that dispatched or emitted lands a STEP record in
+        ``self.flight`` (``dynamo_tpu/engine/core.py:step``, less the fields
+        of ``FLIGHT_KEYS_NOT_PORTED``, plus ``onboard_stalled``), and a step
+        that raises a CRASH record with the failing step's context before
+        the exception propagates to the service loop (which dumps the ring
+        to JSONL)."""
         with self.step_lock:
             prev_info = self.last_step_info
+            disp0 = getattr(self.runner, "dispatch_seconds_total", None)
+            cap0 = getattr(self.runner, "capture_seconds", None)
+            t0 = time.perf_counter()
+            # Host gap since the previous step returned: the window where the
+            # device has nothing newly dispatched unless overlap hides it.
+            gap_ms = (t0 - self._prev_step_end) * 1e3 if self._prev_step_end is not None else 0.0
             self._overlap_mode = None
             self._overlap_barrier_reason = None
-            out = self._step_locked()
-            fresh = self.last_step_info is not prev_info  # a dispatch composed this step
+            self._aborted_inflight = 0
+            try:
+                out = self._step_locked()
+            except Exception as exc:
+                self.flight.record(
+                    CRASH,
+                    error=type(exc).__name__,
+                    detail=str(exc)[:500],
+                    waiting=len(self.waiting),
+                    running=len(self.running),
+                    prefilling=len(self.prefilling),
+                    free_pages=self.allocator.num_free(),
+                    inflight_rows=self._aborted_inflight or (
+                        len(self._inflight.batch) if self._inflight is not None else 0),
+                    last_step_info=dict(self.last_step_info),
+                )
+                raise
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            info = self.last_step_info
+            fresh = info is not prev_info  # a dispatch composed this step
+            onboard_stalled = False
             if self._onboard_pending_step:
                 # A tier fetch was in flight across this step: did the step
                 # still dispatch work (overlap) or idle on it (stall)?
@@ -427,21 +520,79 @@ class EngineCore:
                     self.onboard_overlap_steps += 1
                 else:
                     self.onboard_stall_steps += 1
+                    onboard_stalled = True
                 self._onboard_pending_step = False
             if not fresh and not out and not self.running:
+                self._prev_step_end = time.perf_counter()
                 return out  # idle drain: nothing dispatched, nothing to record
+            overlap_mode = barrier_reason = ""
             if self.config.overlap:
-                mode = self._overlap_mode or "barrier"
-                self.overlap_step_counts[mode] = self.overlap_step_counts.get(mode, 0) + 1
-                if mode == "barrier":
-                    reason = self._overlap_barrier_reason or "idle"
-                    self.overlap_barrier_counts[reason] = self.overlap_barrier_counts.get(reason, 0) + 1
+                overlap_mode = self._overlap_mode or "barrier"
+                self.overlap_step_counts[overlap_mode] = self.overlap_step_counts.get(overlap_mode, 0) + 1
+                if overlap_mode == "barrier":
+                    barrier_reason = self._overlap_barrier_reason or "idle"
+                    self.overlap_barrier_counts[barrier_reason] = (
+                        self.overlap_barrier_counts.get(barrier_reason, 0) + 1)
+            if fresh:
+                decode_rows = int(info.get("decode_rows", 0))
+                chunk_rows = int(info.get("chunk_rows", 0))
+                chunk_tokens = int(info.get("chunk_tokens", 0))
+                spec_drafted = int(info.get("spec_drafted", 0))
+                spec_accepted = int(info.get("spec_accepted", 0))
+                kind = "mixed" if decode_rows and chunk_rows else ("prefill" if chunk_rows else "decode")
+            else:
+                decode_rows = len(self.running)
+                chunk_rows = chunk_tokens = spec_drafted = spec_accepted = 0
+                kind = "decode" if self.running else "drain"
+            dispatch_ms = (self.runner.dispatch_seconds_total - disp0) * 1e3 if disp0 is not None else 0.0
             # Consume the runner's dispatch label, so a step that dispatched
             # nothing never re-counts the previous dispatch.
             attn = getattr(self.runner, "last_attn_dispatch", None)
             if attn is not None:
                 self.runner.last_attn_dispatch = None
                 self.attn_dispatch_counts[attn] = self.attn_dispatch_counts.get(attn, 0) + 1
+            attn_phase, attn_path = attn if attn else ("", "")
+            # Feed the chunk-budget controller only steps that carried decode
+            # rows: their wall time is the ITL a running request observed,
+            # less the first captures of graph keys inside the step (a
+            # one-off cost the budget cannot move; fed in, the controller's
+            # own shrinks would reach uncaptured keys and shrink again).
+            if self.chunk_controller is not None and decode_rows:
+                capture_ms = (self.runner.capture_seconds - cap0) * 1e3 if cap0 is not None else 0.0
+                self.chunk_controller.observe(wall_ms - capture_ms)
+            self.flight.record(
+                STEP,
+                step_kind=kind,
+                decode_rows=decode_rows,
+                chunk_rows=chunk_rows,
+                chunk_tokens=chunk_tokens,
+                outputs=len(out),
+                waiting=len(self.waiting),
+                running=len(self.running),
+                prefilling=len(self.prefilling),
+                free_pages=self.allocator.num_free(),
+                preemptions=self.num_preemptions,
+                admission_rejections=self.admission_rejections,
+                mixed_steps=self.mixed_steps,
+                stall_violations=self.stall_violations,
+                spec_drafted=spec_drafted,
+                spec_accepted=spec_accepted,
+                spec_accept_rate=round(spec_accepted / spec_drafted, 4) if spec_drafted else 0.0,
+                wall_ms=round(wall_ms, 3),
+                dispatch_ms=round(dispatch_ms, 3),
+                attn_phase=attn_phase,
+                attn_path=attn_path,
+                admitted=int(self.last_admission.get("admitted", 0)),
+                deferred=int(self.last_admission.get("deferred", 0)),
+                deadline_slack_ms=self.last_admission.get("deadline_slack_ms", 0.0),
+                cached_frac=self.last_admission.get("cached_frac", 0.0),
+                gap_ms=round(gap_ms, 3),
+                overlap_mode=overlap_mode,
+                barrier_reason=barrier_reason,
+                chained_rows=int(info.get("chained_rows", 0)) if fresh else 0,
+                onboard_stalled=onboard_stalled,
+            )
+            self._prev_step_end = time.perf_counter()
             return out
 
     def _step_locked(self) -> list[tuple[Sequence, EngineOutput]]:
@@ -664,13 +815,24 @@ class EngineCore:
 
     # -- prefill phase -----------------------------------------------------
 
+    def chunk_budget_tokens(self) -> int:
+        """The live per-step prefill chunk budget: the ITL-driven
+        controller's current value when the SLO plane runs one, else the
+        static config. Never 0 when the config is nonzero (the controller
+        floors at ``chunk_floor_tokens``), so chunked-vs-legacy mode never
+        flips."""
+        if self.chunk_controller is not None:
+            return self.chunk_controller.budget()
+        return self.config.chunk_prefill_tokens
+
     def _schedule_prefill(self) -> list[tuple[Sequence, int]]:
         """This step's prefill work as ``(sequence, num_tokens)`` chunks.
 
         Continues mid-prompt sequences first (arrival order), then admits
-        from the waiting queue FIFO, all under the per-step token budget:
-        ``chunk_prefill_tokens`` while decodable sequences are running, the
-        full ``max_prefill_tokens`` otherwise. A resumed (preempted)
+        from the waiting queue FIFO (EDF under tenant quotas with the SLO
+        plane), all under the per-step token budget:
+        :meth:`chunk_budget_tokens` while decodable sequences are running,
+        the full ``max_prefill_tokens`` otherwise. A resumed (preempted)
         sequence recomputes everything generated so far; its final chunk's
         sample is the legitimate next token. With a block manager, the prefix
         match extends into the tiers and those pages are copied back (the
@@ -680,7 +842,7 @@ class EngineCore:
         if self._onboards:
             self._poll_onboards(wait=False)
         ps = self.config.page_size
-        chunk_budget = self.config.chunk_prefill_tokens
+        chunk_budget = self.chunk_budget_tokens()
         chunked = chunk_budget > 0
         # Decodable at effective state, as the synchronous engine sees them
         # by now: running sequences that do not finish inside the in-flight
@@ -737,13 +899,38 @@ class EngineCore:
             budget -= n
             chunks.append((seq, n))
 
-        # 2) Admit from the waiting queue.
+        # 2) Admit from the waiting queue. With the SLO plane attached,
+        # prepare() reorders the queue EDF (least slack first) and returns how
+        # many head entries clear their tenant quotas this step; without it
+        # the deque is untouched (FIFO).
+        admissible: int | None = None
+        quota_deferred = 0
+        finishing = 0  # rows that leave inside the step in flight (the plane's slot count)
+        if self.admission is not None and self.waiting:
+            admissible, finishing = self._prepare_admission()
+            # Quota deferrals only: entries later skipped for pages, budget
+            # or batch slots are resource-limited, not deferred.
+            quota_deferred = len(self.waiting) - admissible
+        n_admitted = 0
+        admit_cached = 0  # admission-time cached tokens (resident + tiers)
+        admit_total = 0  # total prompt tokens admitted this step
         while (
             self.waiting
             and budget > 0
-            and len(self.running) + len(self.prefilling) < self.config.max_batch_size
+            and (admissible is None or n_admitted < admissible)
+            and len(self.running) + len(self.prefilling) - finishing < self.config.max_batch_size
         ):
             seq = self.waiting[0]
+            if FAULTS.armed:
+                try:
+                    if FAULTS.fire("sched.admit") == "delay":
+                        break  # deferred; retried next step
+                except DropFault:
+                    # Leave the seq in waiting but kill its context: the next
+                    # step's _reap_cancelled emits CANCELLED, so the client
+                    # stream terminates instead of hanging outside all queues.
+                    seq.context.kill()
+                    break
             total = len(seq.tokens)  # prompt + any generated-before-preemption
             matched: list[int] = []
             onboard_n = 0  # tier blocks to onboard (payloads fetched after allocation)
@@ -799,6 +986,11 @@ class EngineCore:
                     break
             self.waiting.popleft()
             seq.admitted_time = time.monotonic()
+            n_admitted += 1
+            admit_cached += cached_len
+            admit_total += total
+            if self.admission is not None:
+                self.admission.on_admit(seq, seq.admitted_time)
             if onboard_n and not async_ob:
                 # Pages exist now: fetch the payloads, copy them in, commit
                 # them (they re-enter the prefix cache and re-announce). A
@@ -855,7 +1047,35 @@ class EngineCore:
             # spinning the step loop (bounded: a hung read never wedges us).
             self._poll_onboards(wait=True)
         self._onboard_pending_step = bool(self._onboards)
+        self.last_admission = {
+            "admitted": n_admitted,
+            "deferred": quota_deferred,
+            "deadline_slack_ms": round(self.admission.last_slack_ms, 3) if self.admission is not None else 0.0,
+            "cached_frac": round(admit_cached / admit_total, 4) if admit_total else 0.0,
+        }
         return chunks
+
+    def _prepare_admission(self) -> tuple[int, int]:
+        """``admission.prepare`` over the waiting queue at effective state:
+        returns the admissible head count and how many live rows finish
+        inside the step in flight.
+
+        With a step in flight (overlap), the synchronous engine would compose
+        this step after harvesting it: rows that reach their finish line
+        inside it would be finished, their quota charges refunded, their
+        batch slots free and out of the live count the predictor reads. So
+        those rows' charges are released here, ahead of their late stop at
+        harvest (``on_finish`` is idempotent), and they count neither as
+        running nor against the batch cap. Without a step in flight this is
+        the JAX build's call."""
+        live = self.running + self.prefilling
+        if self._inflight_adv:
+            for s in live:
+                if self._eff_remaining(s) < 1:
+                    self.admission.on_finish(s)
+            live = [s for s in live if self._eff_remaining(s) >= 1]
+        finishing = len(self.running) + len(self.prefilling) - len(live)
+        return self.admission.prepare(self.waiting, running=len(live), slots=self.config.max_batch_size), finishing
 
     def _note_head_stall(self, seq: Sequence, num_new: int) -> None:
         self._head_stall_steps += 1
@@ -925,6 +1145,10 @@ class EngineCore:
         self._onboard_waits.append(wait_s)
         self.onboard_wait_ms_sum += wait_s * 1e3
         self.onboard_wait_count += 1
+        # The request's onboard segment: the fetch ran in the background, so
+        # only the session's measured wait is on its critical path.
+        record_span("engine_onboard_wait", round(wait_s * 1e3, 3), trace=trace_of(seq.context),
+                    request_id=seq.request.request_id, pages=len(sess.pages))
         if seq.status is not SeqStatus.RUNNING or seq not in self.prefilling:
             seq.onboard_pending = 0  # finished or preempted meanwhile
             return
@@ -952,6 +1176,19 @@ class EngineCore:
         out, self._onboard_waits = self._onboard_waits, []
         return out
 
+    def _cached_prefix_tokens(self, seq: Sequence) -> int:
+        """Admission-time estimate of this prompt's reusable KV tokens: the
+        resident G1 prefix (a non-mutating peek: pricing touches no refcount
+        nor LRU order) extended by the tiers' membership probe (the port's
+        tiers are local, so the JAX build's ``local_only`` is implied).
+        Capped at len-1: the final token always computes."""
+        if not self.config.enable_prefix_caching:
+            return 0
+        hashes = seq.block_seq.block_hashes
+        m = self.allocator.peek_prefix(hashes)
+        t = self.block_manager.probe_prefix(hashes, m) if self.block_manager is not None else 0
+        return max(0, min((m + t) * self.config.page_size, len(seq.tokens) - 1))
+
     # -- speculative decoding ----------------------------------------------
 
     def _spec_active(self) -> bool:
@@ -973,9 +1210,9 @@ class EngineCore:
         per accepted token)."""
         k = self.config.spec_k
         budget = None
-        if self.config.chunk_prefill_tokens > 0:
-            budget = max(0, min(self.config.chunk_prefill_tokens, self.config.max_prefill_tokens)
-                         - sum(n for _, n in chunks))
+        chunk_budget = self.chunk_budget_tokens()
+        if chunk_budget > 0:
+            budget = max(0, min(chunk_budget, self.config.max_prefill_tokens) - sum(n for _, n in chunks))
         drafts: list[list[int]] = []
         for s in decode_rows:
             # remaining - 1: the verify step emits at most len(draft) + 1
@@ -1254,6 +1491,7 @@ class EngineCore:
         clean pipeline. ``_finish`` releases each sequence's pages once."""
         failed: dict[int, Sequence] = {id(s): s for s in batch}
         if self._inflight is not None:
+            self._aborted_inflight = len(self._inflight.batch)
             for s in self._inflight.batch:
                 failed.setdefault(id(s), s)
             self._inflight = None
@@ -1651,10 +1889,15 @@ class EngineCore:
         reason = seq.check_stop(self._eos, self.config.max_seq_len)
         if reason is not None and not seq.is_finished:
             self._finish(seq, reason)
+        # First delta for this sequence: attach the admission wait (the
+        # frontend observes it once) and close the predictor's loop with the
+        # actual TTFT.
         wait_ms = None
         if seq.admitted_time is not None and not seq.admission_reported:
             seq.admission_reported = True
             wait_ms = max(0.0, (seq.admitted_time - seq.arrival_time) * 1e3)
+            if self.admission is not None:
+                self.admission.on_first_token(seq, time.monotonic())
         return seq, EngineOutput(
             token_ids=[token],
             finish_reason=seq.finish_reason,
@@ -1719,6 +1962,8 @@ class EngineCore:
         seq.status = SeqStatus.FINISHED
         seq.finish_reason = reason
         self._cancel_onboards(seq)
+        if self.admission is not None:
+            self.admission.on_finish(seq)
         if seq.pages:
             self.allocator.release([p for p in seq.pages if p != 0])
             seq.pages = []

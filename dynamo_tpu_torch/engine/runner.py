@@ -64,6 +64,7 @@ Not ported yet: ``embed``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 from typing import Callable
@@ -330,6 +331,10 @@ class TorchModelRunner:
         # or MLA model runs in a kernel there) or "plain" on the CPU.
         # EngineCore consumes it into its dispatch-path counters.
         self.last_attn_dispatch: tuple[str, str] | None = None
+        # Host seconds spent in dispatches (packing, the input copy, a graph
+        # replay or the eager body's launches, a first capture included):
+        # EngineCore reads the difference over a step as its dispatch_ms.
+        self.dispatch_seconds_total = 0.0
         self._attn_path = "kernel" if self.device.type == "cuda" else "plain"
         # CUDA graphs: always on the card unless the caller asks for the
         # eager body; never on the CPU.
@@ -746,6 +751,7 @@ class TorchModelRunner:
         """Pack, copy and run one dispatch: ``kind`` "step" (one token a
         row), "spec" (a verify of ``width`` columns) or "burst" (``width``
         fused decode steps)."""
+        t0 = time.perf_counter()
         b_real = batch.batch_size
         if b_real > self.max_batch_size:
             raise ValueError(f"a step of {b_real} rows exceeds max_batch_size {self.max_batch_size}")
@@ -801,6 +807,7 @@ class TorchModelRunner:
             done = torch.cuda.Event()
             done.record()
             slot.handle = handle_cls(out, done, b_real, b, lp_k, width)
+        self.dispatch_seconds_total += time.perf_counter() - t0
         return slot.handle
 
     def _take_slot(self, nbytes: int, n_out: int) -> _Slot:
@@ -871,10 +878,22 @@ class TorchModelRunner:
         main.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
         # thread_local: another worker's thread may run its own steps
-        # meanwhile, but not a capture of its own (_CAPTURE_LOCK).
-        with _CAPTURE_LOCK, build.capture_launches() as tally, \
-                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = self._body(buf, key, self._chain_buf)
+        # meanwhile, but not a capture of its own (_CAPTURE_LOCK). The cyclic
+        # collector is held off while capturing: a collection the capture's
+        # own allocations set off would free a released runner's graphs on
+        # this thread, which a capture forbids (it invalidates the capture).
+        # Its state is read and restored under the lock, so a capture that
+        # waited on another one never reads that one's disabled state.
+        with _CAPTURE_LOCK:
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with build.capture_launches() as tally, \
+                        torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                    outputs = self._body(buf, key, self._chain_buf)
+            finally:
+                if collecting:
+                    gc.enable()
         captured = self._graphs[key] = _Graph(graph, outputs, tally)
         self.capture_seconds += time.perf_counter() - t0
         return captured

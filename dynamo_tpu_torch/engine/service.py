@@ -10,19 +10,33 @@ for a step's tokens (an event after their copy to host) before handing
 them back, and with ``EngineConfig.overlap`` the next step is already on
 the stream by then. Committed pages are written through to the KV tiers
 after each step's outputs are routed.
+
+Each request leaves the JAX service's spans in the span ring
+(``tracing.SPANS``, under the request's trace): ``engine_queue_wait``
+(intake to the engine loop), ``engine_admission_wait`` (arrival to
+admission, as the core measured it), ``engine_first_token`` and
+``engine_request`` (the whole stream). A failed step (the ``engine.step``
+fault point fires before each one) records a CRASH flight record, dumps the
+core's flight ring to JSONL (``DYN_FLIGHT_DUMP_DIR``), fails every
+in-flight stream with an error item and drops all work; the loop then goes
+on serving new requests.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Any, AsyncIterator
 
 from dynamo_tpu_torch.engine.core import EngineCore
 from dynamo_tpu_torch.engine.sequence import Sequence
+from dynamo_tpu_torch.observability.flight import CRASH
 from dynamo_tpu_torch.protocols.common import EngineOutput, FinishReason, PreprocessedRequest
 from dynamo_tpu_torch.protocols.kv import ForwardPassMetrics
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
+from dynamo_tpu_torch.runtime.faults import FAULTS
+from dynamo_tpu_torch.tracing import Span, record_span, trace_of
 
 logger = logging.getLogger(__name__)
 
@@ -74,13 +88,17 @@ class TorchEngineService(AsyncEngine[Any, dict]):
 
     def _drain_intake_failed(self) -> None:
         """Fail requests queued but never admitted by the (now dead) loop."""
+        drained = 0
         while True:
             try:
-                _req, _ctx, out_q = self._intake.get_nowait()
+                _req, _ctx, out_q, _t_enq = self._intake.get_nowait()
             except asyncio.QueueEmpty:
                 break
             out_q.put_nowait(EngineOutput(token_ids=[], finish_reason=FinishReason.ERROR))
             out_q.put_nowait(_SENTINEL)
+            drained += 1
+        if drained:
+            self.core.flight.record(CRASH, where="intake_drain", drained=drained)
 
     # -- engine loop -------------------------------------------------------
 
@@ -90,9 +108,13 @@ class TorchEngineService(AsyncEngine[Any, dict]):
             admitted = False
             while True:
                 try:
-                    request, context, out_q = self._intake.get_nowait()
+                    request, context, out_q, t_enq = self._intake.get_nowait()
                 except asyncio.QueueEmpty:
                     break
+                # Intake to the engine loop: the request's wait for the loop
+                # (the scheduler queue's wait on the timeline).
+                record_span("engine_queue_wait", (time.perf_counter() - t_enq) * 1e3, trace=trace_of(context),
+                            request_id=context.id)
                 try:
                     seq = self.core.add_request(request, context)
                 except Exception:
@@ -117,9 +139,18 @@ class TorchEngineService(AsyncEngine[Any, dict]):
                 continue
 
             try:
+                if FAULTS.armed:
+                    FAULTS.fire("engine.step")
                 outputs = await loop.run_in_executor(None, self.core.step)
-            except Exception:
+            except Exception as exc:
                 logger.exception("engine step failed; failing all in-flight streams")
+                try:
+                    self.core.flight.record(CRASH, where="engine_loop", error=type(exc).__name__,
+                                            detail=str(exc)[:500], streams=len(self._streams))
+                    path = self.core.flight.dump_jsonl(reason="engine_step_failure")
+                    logger.error("flight recorder dumped to %s", path)
+                except Exception:
+                    logger.exception("flight recorder dump failed")
                 self._notify_streams_failed()
                 # Engine state may be inconsistent after a failed step: drop
                 # all work, releasing every sequence's pages.
@@ -161,21 +192,43 @@ class TorchEngineService(AsyncEngine[Any, dict]):
             raise NotImplementedError("embedding requests are not ported to dynamo_tpu_torch yet")
         await self.start()
         out_q: asyncio.Queue = asyncio.Queue()
-        await self._intake.put((request, context, out_q))
+        await self._intake.put((request, context, out_q, time.perf_counter()))
         self._wake.set()
         if self._closed:
             # close() may have run between the check above and the put.
             out_q.put_nowait(EngineOutput(token_ids=[], finish_reason=FinishReason.ERROR))
             out_q.put_nowait(_SENTINEL)
         finished = False
+        span = Span("engine_request", trace=trace_of(context), request_id=request.request_id,
+                    prompt_tokens=len(request.token_ids))
+        span.__enter__()
+        tokens_out = 0
+        saw_finish = False
         try:
             while True:
                 item = await out_q.get()
                 if item is _SENTINEL:
                     finished = True
                     return
+                if item.admission_wait_ms is not None:
+                    # Arrival to scheduler admission, measured by the core
+                    # and attached to the first delta.
+                    record_span("engine_admission_wait", item.admission_wait_ms, trace=span.context,
+                                request_id=request.request_id)
+                if tokens_out == 0 and item.token_ids:
+                    # TTFT at the engine boundary: submit to the first token
+                    # out of the step loop. A child of engine_request.
+                    record_span("engine_first_token", (time.perf_counter() - span.t0) * 1e3, trace=span.context,
+                                request_id=request.request_id)
+                tokens_out += len(item.token_ids)
+                saw_finish = saw_finish or item.finish_reason is not None
                 yield item.to_dict()
         finally:
+            span.fields["output_tokens"] = tokens_out
+            # A consumer may stop at the finish item without draining the
+            # sentinel: that is still a completed request for the span.
+            span.fields["finished"] = finished or saw_finish
+            span.__exit__(None, None, None)
             if not finished:
                 # Consumer walked away: stop the sequence so it doesn't
                 # decode to max_tokens.

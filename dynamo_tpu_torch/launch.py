@@ -33,7 +33,13 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
   temporary directory, ``DYN_ASYNC_ONBOARD=1`` fetching their pages off the
   step loop; ``DYN_CONSTRAINT_LOOKAHEAD_TOKENS`` caps the constrained
   lookahead of ``response_format: json_object`` requests, whose masks a
-  daemon thread warms at worker start unless ``DYNAMO_WARM_CONSTRAINTS=0``).
+  daemon thread warms at worker start unless ``DYNAMO_WARM_CONSTRAINTS=0``;
+  ``DYN_SLO_SCHED=1`` orders each worker's intake by deadline slack under
+  per-tenant quotas (``DYN_SLO_SCHED_*``, ``DYN_TENANT_*``) and arms the KV
+  router's attainment term, ``DYN_CACHE_AWARE=1`` prices admission and
+  routing by uncached prefill tokens (``DYN_CACHE_AWARE_*``) and onboards
+  tier pages in the background; ``DYN_FLIGHT_DUMP_DIR`` is where a worker
+  whose step fails dumps its flight recorder).
 
 On the card every engine step replays a CUDA graph (``TorchModelRunner``).
 
@@ -42,8 +48,8 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet: the multi-process roles (``--role``, the TCP store and
 transport), disaggregated prefill workers, the ``text`` and ``batch:``
 inputs, vision checkpoints, the worker telemetry plane, and
-the JAX build's other engine options (``--g4-blocks``, ``DYN_SLO_SCHED``,
-``DYN_CACHE_AWARE``, ...). Each is refused by name.
+the JAX build's other engine options (``--g4-blocks``, ...). Each is
+refused by name.
 """
 
 from __future__ import annotations
@@ -75,7 +81,6 @@ from dynamo_tpu_torch.models.quant import init_params_quantized, quantize_params
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventBroadcaster
 from dynamo_tpu_torch.router.metrics import WorkerMetricsPublisher
-from dynamo_tpu_torch.router.router import UNPORTED_SCHED_FLAGS
 from dynamo_tpu_torch.runtime.component import DistributedRuntime
 from dynamo_tpu_torch.tokenizer import BaseTokenizer, ByteTokenizer, load_tokenizer
 
@@ -116,22 +121,25 @@ def _engine_env() -> dict[str, Any]:
     the latter), ``spec_k`` from DYN_SPEC_K / DYN_WORKER_SPEC_K
     (``--spec-k``), ``overlap`` (:func:`_overlap`), ``overlap_spec``,
     on unless DYN_OVERLAP_SPEC or DYN_WORKER_OVERLAP_SPEC is false,
-    ``async_onboard`` from DYN_ASYNC_ONBOARD and
-    ``constraint_lookahead_tokens`` from DYN_CONSTRAINT_LOOKAHEAD_TOKENS
-    (default 32). DYN_SLO_SCHED and DYN_CACHE_AWARE, whose SLO scheduler is
-    not ported, are refused by name."""
-    armed = [flag for flag in UNPORTED_SCHED_FLAGS if env_flag(os.environ, flag)]
-    if armed:
-        raise NotImplementedError(f"{', '.join(armed)}: the SLO scheduler is not ported to dynamo_tpu_torch yet")
-    return {
+    ``async_onboard`` from DYN_ASYNC_ONBOARD or DYN_CACHE_AWARE (residual
+    pricing assumes tier hits are cheap, which they are only in the
+    background), ``constraint_lookahead_tokens`` from
+    DYN_CONSTRAINT_LOOKAHEAD_TOKENS (default 32), and ``slo_sched`` /
+    ``cache_aware``, present only when DYN_SLO_SCHED / DYN_CACHE_AWARE is
+    set (both default off)."""
+    fields = {
         "decode_steps": int(os.environ.get("DYNAMO_DECODE_STEPS") or os.environ.get("DYN_WORKER_DECODE_STEPS", "1")),
         "spec_k": int(os.environ.get("DYN_SPEC_K") or os.environ.get("DYN_WORKER_SPEC_K", "0")),
         "overlap": _overlap(),
         "overlap_spec": (env_flag(os.environ, "DYN_OVERLAP_SPEC", default=True)
                          and env_flag(os.environ, "DYN_WORKER_OVERLAP_SPEC", default=True)),
-        "async_onboard": env_flag(os.environ, "DYN_ASYNC_ONBOARD"),
+        "async_onboard": env_flag(os.environ, "DYN_ASYNC_ONBOARD") or env_flag(os.environ, "DYN_CACHE_AWARE"),
         "constraint_lookahead_tokens": int(os.environ.get("DYN_CONSTRAINT_LOOKAHEAD_TOKENS", "32")),
     }
+    for field, flag in (("slo_sched", "DYN_SLO_SCHED"), ("cache_aware", "DYN_CACHE_AWARE")):
+        if env_flag(os.environ, flag):
+            fields[field] = True
+    return fields
 
 
 def resolve_model(model: str) -> tuple[ModelConfig, pathlib.Path | None]:
@@ -210,8 +218,9 @@ async def build_engine_service(
     ``engine_kw`` overrides :class:`EngineConfig` fields; the defaults are
     the JAX build's: for a preset byte-tokenizer EOS, 16-token pages and the
     context capped at 4096, for a directory its card's context length, EOS
-    ids and page size; ``decode_steps``, ``spec_k``, ``overlap`` and
-    ``overlap_spec`` from the environment (:func:`_engine_env`).
+    ids and page size; ``decode_steps``, ``spec_k``, ``overlap``,
+    ``overlap_spec``, ``slo_sched``, ``cache_aware``, ``async_onboard`` and
+    ``constraint_lookahead_tokens`` from the environment (:func:`_engine_env`).
     ``cache_dtype`` None takes :func:`_kv_cache_dtype` (the environment;
     unset keeps the model's dtype). ``graphs`` is the runner's (None: CUDA
     graphs on the card). ``block_manager_config`` puts the G2/G3 KV tiers
@@ -479,7 +488,13 @@ def build_parser() -> argparse.ArgumentParser:
     """The JAX launcher's options that the port takes, with its names and
     defaults (``--platform`` picks the port's device instead of a JAX
     platform)."""
-    parser = argparse.ArgumentParser(description="dynamo-tpu launcher (PyTorch/CUDA port)", allow_abbrev=False)
+    parser = argparse.ArgumentParser(
+        description="dynamo-tpu launcher (PyTorch/CUDA port)", allow_abbrev=False,
+        epilog="environment: DYN_SLO_SCHED=1 admits each worker's requests by deadline slack under per-tenant "
+               "quotas (DYN_SLO_SCHED_*, DYN_TENANT_QUOTAS) and arms the KV router's attainment term; "
+               "DYN_CACHE_AWARE=1 prices admission and routing by uncached prefill tokens "
+               "(DYN_CACHE_AWARE_*) and onboards tier pages in the background; DYN_FLIGHT_DUMP_DIR holds "
+               "the flight recorder dump of a worker whose step failed; DYN_FAULTS arms fault points.")
     parser.add_argument("--model", default="test-tiny",
                         help=f"model preset ({', '.join(PRESETS)}), an HF checkpoint directory or a .gguf file")
     parser.add_argument("--host", default="127.0.0.1")

@@ -17,10 +17,8 @@ Parity: reference `kv_router.rs:104-199,220` (KvRouter + KvPushRouter).
 from __future__ import annotations
 
 import logging
-import os
 from typing import Any, AsyncIterator
 
-from dynamo_tpu_torch.config import env_flag
 from dynamo_tpu_torch.router.events import KV_EVENTS_ENDPOINT, KvEventSubscriber
 from dynamo_tpu_torch.router.indexer import KvIndexer
 from dynamo_tpu_torch.router.metrics import KvMetricsAggregator
@@ -32,11 +30,6 @@ from dynamo_tpu_torch.tokens import DEFAULT_SALT, compute_block_hashes, mm_salt_
 from dynamo_tpu_torch.tracing import Span, trace_of
 
 logger = logging.getLogger(__name__)
-
-#: The JAX build's scheduler hooks (``dynamo_tpu/sched``) that the port has
-#: not taken over: set, they would change placement, so they are refused.
-UNPORTED_SCHED_FLAGS = ("DYN_SLO_SCHED", "DYN_CACHE_AWARE")
-
 
 class KvRouter:
     """Scheduling brain: returns the best worker for a token sequence."""
@@ -65,8 +58,9 @@ class KvRouter:
         hashes = compute_block_hashes(token_ids, self.block_size, salt=base ^ salt_fold)
         overlaps = self.indexer.find_matches(hashes)
         metrics = self.aggregator.snapshot() if self.aggregator else {}
+        stale = self.aggregator.staleness_seconds() if self.aggregator else None
         num_blocks = max(len(hashes), 1)
-        wid = self.scheduler.schedule(num_blocks, overlaps, metrics, worker_ids)
+        wid = self.scheduler.schedule(num_blocks, overlaps, metrics, worker_ids, staleness=stale)
         return wid, overlaps.scores.get(wid, 0)
 
 
@@ -106,20 +100,19 @@ async def build_kv_router(
     endpoint: str = "generate",
     block_size: int,
 ) -> tuple[KvPushRouter, KvEventSubscriber, KvMetricsAggregator]:
-    """Assemble the full KV routing stack against a worker component.
+    """Assemble the full KV routing stack against a worker component. The
+    scheduler takes the SLO attainment term (a no-op unless ``DYN_SLO_SCHED``
+    is on) and the cache-aware residual term (a no-op unless
+    ``DYN_CACHE_AWARE`` is on) from the environment."""
+    from dynamo_tpu_torch.sched import configure_attainment, configure_cache_aware
 
-    Raises if ``DYN_SLO_SCHED`` or ``DYN_CACHE_AWARE`` is set: the JAX build
-    would add its SLO cost terms, which are not ported."""
-    armed = [flag for flag in UNPORTED_SCHED_FLAGS if env_flag(os.environ, flag)]
-    if armed:
-        raise NotImplementedError(
-            f"{', '.join(armed)}: the SLO scheduler's router cost terms are not ported to "
-            "dynamo_tpu_torch yet"
-        )
     indexer = KvIndexer()
     events_ep = runtime.namespace(namespace).component(component).endpoint(KV_EVENTS_ENDPOINT)
     subscriber = await KvEventSubscriber(events_ep, indexer).start()
     aggregator = await KvMetricsAggregator(runtime, namespace, component).start()
-    router = KvRouter(indexer, KvScheduler(SchedulerConfig()), aggregator, block_size=block_size)
+    scheduler_config = SchedulerConfig()
+    configure_attainment(scheduler_config)
+    configure_cache_aware(scheduler_config, block_tokens=block_size)
+    router = KvRouter(indexer, KvScheduler(scheduler_config), aggregator, block_size=block_size)
     client = runtime.namespace(namespace).component(component).endpoint(endpoint).client(router_mode="direct")
     return KvPushRouter(client, router), subscriber, aggregator

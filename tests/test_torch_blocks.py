@@ -342,11 +342,15 @@ def test_launcher_tier_flags_and_refusals(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         launch.main(["--g4-blocks", "8", "--platform", "cpu"])
     assert "not supported by dynamo_tpu_torch yet: --g4-blocks 8" in capsys.readouterr().err
-    for flag in ("DYN_SLO_SCHED", "DYN_CACHE_AWARE"):
+    # The SLO plane's flags, once refused here, reach the engine config; the
+    # cache-aware one also turns on background onboarding, as in the JAX build.
+    monkeypatch.delenv("DYN_ASYNC_ONBOARD")
+    for flag, fields in (("DYN_SLO_SCHED", dict(slo_sched=True, cache_aware=False, async_onboard=False)),
+                         ("DYN_CACHE_AWARE", dict(slo_sched=False, cache_aware=True, async_onboard=True))):
         with monkeypatch.context() as m:
             m.setenv(flag, "1")
-            with pytest.raises(NotImplementedError, match=flag):
-                launch._engine_env()
+            env = launch._engine_env()
+            assert {k: env.get(k, False) for k in fields} == fields, flag
 
 
 def test_run_local_builds_a_tier_manager_per_worker(monkeypatch, tmp_path):

@@ -2,6 +2,7 @@
 of dynamo_tpu nor safetensors (it reads the format by hand), and its entry
 points never fall back to the CPU quietly."""
 
+import ast
 import asyncio
 import pathlib
 import subprocess
@@ -128,3 +129,42 @@ def test_constraint_and_tier_modules_are_host_code():
                          timeout=120, cwd=PKG.parent)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+_LAZY = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(m for m in sys.modules if m.startswith("dynamo_tpu_torch.")))
+"""
+
+
+def test_slo_plane_and_flight_modules_are_host_code_imported_lazily():
+    """The SLO plane, the planner's WorkerProfile and the flight recorder are
+    among the modules the import guard walks and import neither JAX,
+    anything of dynamo_tpu nor torch. They load where the JAX package loads
+    its own: the engine core takes the flight recorder at import and the
+    plane only when ``slo_sched`` builds it, the router its cost terms
+    inside ``build_kv_router``, the plane its settings and the planner
+    inside the calls that read them."""
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    mods = ["sched/__init__", "sched/admission", "sched/chunk_control", "sched/predictor", "sched/tenants",
+            "planner/__init__", "planner/core", "observability/__init__", "observability/flight"]
+    assert {m + ".py" for m in mods} <= files
+    names = ["dynamo_tpu_torch." + m.replace("/", ".").removesuffix(".__init__") for m in mods]
+    out = subprocess.run([sys.executable, "-c", _IMPORT_HOST_ONLY, *names], capture_output=True, text=True,
+                         timeout=120, cwd=PKG.parent)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+    def loaded(name):
+        run = subprocess.run([sys.executable, "-c", _LAZY, name], capture_output=True, text=True, timeout=120,
+                             cwd=PKG.parent)
+        assert run.returncode == 0, run.stderr
+        return set(ast.literal_eval(run.stdout))
+
+    core = loaded("dynamo_tpu_torch.engine.core")
+    assert "dynamo_tpu_torch.observability.flight" in core and not any(
+        m.startswith(("dynamo_tpu_torch.sched", "dynamo_tpu_torch.planner")) for m in core)
+    assert not any(m.startswith("dynamo_tpu_torch.sched") for m in loaded("dynamo_tpu_torch.router.router"))
+    sched = loaded("dynamo_tpu_torch.sched")
+    assert "dynamo_tpu_torch.config" not in sched and "dynamo_tpu_torch.planner" not in sched

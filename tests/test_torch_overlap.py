@@ -445,6 +445,60 @@ def test_launches_recorded_by_a_capture_count_at_each_replay():
     pd.launches = before
 
 
+def test_concurrent_captures_hold_the_collector_off(monkeypatch):
+    """Two runners capture on one card from two threads: the second waits
+    on the capture lock while the first captures, and each captures with
+    the cyclic collector off; the collector is on again after both."""
+    import contextlib
+    import gc
+    import threading
+    import time
+    import types
+
+    seen = []
+    first_inside, release = threading.Event(), threading.Event()
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, capture_error_mode=None):
+        seen.append((threading.current_thread().name, gc.isenabled()))
+        if threading.current_thread().name == "first":
+            first_inside.set()
+            assert release.wait(5)
+        yield
+        seen.append((threading.current_thread().name, gc.isenabled()))
+
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+
+    def capture():
+        runner = types.SimpleNamespace(device="cpu", _side=stream, _body=lambda buf, key, chain: (None, {}),
+                                       _warm_chain=None, _chain_buf=None, _pool=None, _graphs={},
+                                       capture_seconds=0.0)
+        TorchModelRunner._capture(runner, ("decode",), None)
+
+    was_enabled = gc.isenabled()
+    gc.enable()
+    try:
+        first = threading.Thread(target=capture, name="first")
+        second = threading.Thread(target=capture, name="second")
+        first.start()
+        assert first_inside.wait(5)
+        second.start()
+        time.sleep(0.05)  # the second thread reaches the lock
+        release.set()
+        first.join(5)
+        second.join(5)
+        assert [name for name, _ in seen] == ["first", "first", "second", "second"]
+        assert not any(enabled for _, enabled in seen), seen
+        assert gc.isenabled()
+    finally:
+        if not was_enabled:
+            gc.disable()
+
+
 def test_step_async_handles_survive_slot_reuse():
     """Three dispatches before any harvest: the pipeline's two pinned slots
     are reused, and each handle still returns its own step's tokens (the
