@@ -233,9 +233,31 @@ failure exits non-zero:
               prefix goes to the worker holding it (decisions and costs
               printed).
 
+13. moe     — routed MoE (``moe_phase``): ``grouped_matmul`` against its
+              plain version (a loop of torch.matmul over the experts) at
+              olmoe-1b-7b's, deepseek-v2-lite's and qwen3-30b-a3b's expert
+              products, both directions, 8 and 512 tokens, uniform, skewed
+              and one-expert routings, per row, two launches bitwise
+              ("kernels_moe"); timed at olmoe's w_gate and w_down with 8, 64,
+              512 and 2048 tokens beside the touched experts' bound, the plain
+              version, ``torch._grouped_mm`` and the host µs a call
+              ("kernel_timing_moe"); paged_decode and paged_prefill at
+              olmoe's 16/16 heads (a 16-row decode tile carries one query
+              row). olmoe-1b-7b at full width: a forward check against the
+              plain grouped product and reference attention, a graph check,
+              the mix eager + sync then graphs + overlap on bf16 and fp8
+              caches (greedy tokens equal, MoE steps captured,
+              grouped_matmul launched three times a MoE layer and forward,
+              the device's busy share over one more profiled pass, peak
+              GB); deepseek-v2-lite (MLA, shared experts, a dense first
+              layer) and qwen3-30b-a3b (61 GB of bf16 weights) served on the
+              main path with their weight and peak GB; deepseek-r1-distill-8b,
+              qwen2.5-7b and qwen3-8b a forward check and a serve each.
+
 Then the kernels line (quant_matmul_int8 and quant_matmul_int4 timed at
 llama-3-8b's w_gate at M = 8, their launches summed over the quantized
-main-path serves), the card's name and power limit, and the last line
+main-path serves; grouped_matmul timed at olmoe's w_gate with 8 tokens, its
+launches summed over olmoe's two main-path serves), the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``dynamo_tpu``.
 """
 
@@ -265,8 +287,13 @@ FP8 = torch.float8_e4m3fn  # the fp8 KV cache (launch --kv-cache-dtype fp8)
 MODEL = "llama-3.2-1b"
 MLA_MODEL = "mla-8b-proxy"
 QUANT_MODEL, BIG_MODEL = "llama-3-8b", "llama-3-70b"  # quantized serves (BIG_MODEL at int4 on one card)
+MOE_MODEL, MOE_MLA_MODEL, MOE_BIG_MODEL = "olmoe-1b-7b", "deepseek-v2-lite", "qwen3-30b-a3b"
+DENSE_PRESETS = ("deepseek-r1-distill-8b", "qwen2.5-7b", "qwen3-8b")
 GQA_KERNELS = ("paged_decode", "paged_prefill")
-SERVE_KERNELS = {MODEL: GQA_KERNELS, MLA_MODEL: ("paged_mla",), QUANT_MODEL: GQA_KERNELS, BIG_MODEL: GQA_KERNELS}
+SERVE_KERNELS = {MODEL: GQA_KERNELS, MLA_MODEL: ("paged_mla",), QUANT_MODEL: GQA_KERNELS, BIG_MODEL: GQA_KERNELS,
+                 MOE_MODEL: GQA_KERNELS + ("grouped_matmul",), MOE_MLA_MODEL: ("paged_mla", "grouped_matmul"),
+                 MOE_BIG_MODEL: GQA_KERNELS + ("grouped_matmul",), **{m: GQA_KERNELS for m in DENSE_PRESETS}}
+FP8_FORMS = ("paged_decode", "paged_prefill", "paged_mla")  # kernels with an fp8-cache form (launches_fp8)
 # MLA geometries: heads, latent (kv_lora_rank), rope lanes, rope stream width, nope dim.
 MLA_GEOMS = {"mla-8b-proxy": (32, 512, 64, 128, 128), "test-mla-kernel": (4, 128, 64, 128, 32)}
 # Per row: max |kernel - plain| <= REL_TOL * max |plain| over the row's real
@@ -1374,8 +1401,9 @@ def share_soak(dev, rng, n: int = SOAK_LAUNCHES) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's attention through the kernels' plain PyTorch
-    versions on the card, for as long as the context lasts."""
+    """Route the model's attention and MoE expert products through the
+    kernels' plain PyTorch versions on the card, for as long as the context
+    lasts."""
     from dynamo_tpu_torch.models import mla
     from dynamo_tpu_torch.ops import paged_decode as pd
     from dynamo_tpu_torch.ops import paged_mla as pm
@@ -1386,9 +1414,25 @@ def plain_kernels():
     pp.paged_prefill_attention = pp.paged_prefill_plain
     mla.paged_mla = lambda *args, walk=None, **kw: pm.paged_mla_plain(*args, **kw)
     try:
-        yield
+        with plain_experts():
+            yield
     finally:
         pd.paged_decode_attention, pp.paged_prefill_attention, mla.paged_mla = saved
+
+
+@contextlib.contextmanager
+def plain_experts():
+    """Route every MoE expert product through ``grouped_matmul``'s plain
+    PyTorch version on the card, for as long as the context lasts."""
+    from dynamo_tpu_torch.ops import grouped_matmul as gmm
+    from dynamo_tpu_torch.parallel import moe
+
+    saved = moe.grouped_matmul
+    moe.grouped_matmul = gmm.grouped_matmul_plain
+    try:
+        yield
+    finally:
+        moe.grouped_matmul = saved
 
 
 def weights_of(params: dict) -> str:
@@ -1421,7 +1465,8 @@ def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, param
     MLA gather reference rounds p to fp8 as JAX's reference does,
     models/mla.py:237, not to the kernels' bf16). With ``quant`` (the
     format of ``params``' quantized leaves) the plain side also runs
-    quant_matmul's plain version."""
+    quant_matmul's plain version; a MoE model's plain side runs
+    grouped_matmul's plain version (``plain_experts``)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import PRESETS
 
@@ -1452,7 +1497,8 @@ def forward_check(dev, model: str, cache_dtype: torch.dtype | None = None, param
         for impl in (None, baseline):
             kc, vc = kc0.clone(), vc0.clone()
             with plain_kernels() if impl == "plain" else contextlib.nullcontext(), \
-                    plain_quant() if impl is not None and quant else contextlib.nullcontext():
+                    plain_quant() if impl is not None and quant else contextlib.nullcontext(), \
+                    plain_experts() if impl == "reference" else contextlib.nullcontext():
                 attn_impl = "reference" if impl == "reference" else None
                 pre, _, _ = llama.forward(params, cfg, tokens, pos, kc, vc, tables, slots, last, attn_impl=attn_impl)
                 dec, _, _ = llama.forward(params, cfg, dec_tok, dec_pos, kc, vc, tables, dec_slots,
@@ -1709,7 +1755,7 @@ def quant_launches_per_forward(model: str, params: dict) -> int:
 
 
 async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict | None = None, *,
-                eager: bool = False, quant: str = "") -> tuple[dict, list[list[int]]]:
+                eager: bool = False, quant: str = "", profile: bool = False) -> tuple[dict, list[list[int]]]:
     """Serve the mix on ``model`` with ``cache_dtype`` caches: the main path
     (CUDA graphs, overlapped engine), or with ``eager`` the eager runner
     behind the synchronous engine. One warm-up request and one pass of a
@@ -1722,11 +1768,18 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
     ``quantize=quant``) the record holds ``quant_matmul_<quant>``'s
     launches too, which must equal the launches a forward makes times the
     forwards run: every engine step, and the warm-up of every graph key
-    captured in the window."""
+    captured in the window. A MoE model's ``grouped_matmul`` launches must
+    likewise equal three a MoE layer times the forwards run. ``profile``
+    serves a mix of fresh prompts of the same lengths after the timed pass
+    under ``torch.profiler`` and reports the device's busy share there."""
+    from dynamo_tpu_torch.models.config import PRESETS
+
     fp8 = cache_dtype == FP8
-    counter = "launches_fp8" if fp8 else "launches"
-    kernels = {name + ("_fp8" if fp8 else ""): (importlib.import_module(f"dynamo_tpu_torch.ops.{name}"), counter)
-               for name in SERVE_KERNELS[model]}
+    kernels = {}
+    for name in SERVE_KERNELS[model]:
+        f8 = fp8 and name in FP8_FORMS
+        kernels[name + ("_fp8" if f8 else "")] = (importlib.import_module(f"dynamo_tpu_torch.ops.{name}"),
+                                                  "launches_fp8" if f8 else "launches")
     if quant:
         kernels[f"quant_matmul_{quant}"] = (importlib.import_module("dynamo_tpu_torch.ops.quant_matmul"),
                                             f"launches_{quant}")
@@ -1765,12 +1818,26 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
         cache = str(core.runner.k_cache.dtype).removeprefix("torch.")
         dispatch = {f"{p}/{k}": n - dispatch0.get((p, k), 0) for (p, k), n in core.attn_dispatch_counts.items()}
         mixed = core.mixed_steps - mixed0
+        # Every counter above is read: the profiled pass counts in none.
+        busy = None
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t1 = time.perf_counter()
+                # Fresh prompts of the same lengths: the timed ones would hit the prefix cache.
+                profiled = await send_all(pipeline, serve_bodies(np.random.default_rng(5), model))
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t1
+            kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = {"device_busy_share": busy_us(kern) / 1e6 / prof_wall, "wall_s": prof_wall,
+                    "output_tokens_per_s": sum(len(r["tokens"]) for r in profiled) / prof_wall,
+                    "cuda_kernels": len(kern)}
     finally:
         await service.close()
     for r in results:
         if len(r["tokens"]) != 32 or r["finish"] is None or r["finish"].value != "length":
             raise AssertionError(f"request of {r['n_prompt']} tokens ended with {len(r['tokens'])} tokens ({r['finish']})")
-        if not all(0 <= tok < 128256 for tok in r["tokens"]):
+        if not all(0 <= tok < PRESETS[model].vocab_size for tok in r["tokens"]):
             raise AssertionError("token id outside the vocabulary")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -1783,6 +1850,9 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
     if quant and launches[f"quant_matmul_{quant}"] != per_forward * forwards:
         raise AssertionError(f"quant_matmul_{quant} launched {launches[f'quant_matmul_{quant}']} times, not "
                              f"{per_forward} a forward x {forwards} forwards")
+    if "grouped_matmul" in launches and launches["grouped_matmul"] != moe_launches_per_forward(model) * forwards:
+        raise AssertionError(f"grouped_matmul launched {launches['grouped_matmul']} times, not "
+                             f"{moe_launches_per_forward(model)} a forward x {forwards} forwards")
     overlap = {"steps": _counts_since(overlap1["steps"], overlap0["steps"]),
                "barriers": _counts_since(overlap1["barriers"], overlap0["barriers"])}
     if not eager and overlap["steps"].get("overlapped", 0) <= 0:
@@ -1804,6 +1874,8 @@ async def serve(model: str, cache_dtype: torch.dtype | None = None, params: dict
               "graphs": {"keys": graphs1["keys"], "keys_captured_in_window": graphs1["keys"] - graphs0["keys"],
                          "capture_s": graphs1["capture_s"], "pool_bytes": graphs1["pool_bytes"]},
               "seeded_request": {**{k: body[k] for k in ("temperature", "top_p", "seed")}, **draws}}
+    if busy is not None:
+        record["profiled_pass"] = busy
     emit(record)
     return record, [r["tokens"] for r in results]
 
@@ -4056,6 +4128,251 @@ def gguf_phase(dev) -> dict:
     return record
 
 
+# -- phase 13: moe ------------------------------------------------------------------
+
+# Grouped-kernel geometries: experts, top-k, hidden, expert width; each MoE
+# layer runs w_gate and w_up (K hidden, N width) and w_down (the reverse).
+MOE_GEOMS = {"olmoe-1b-7b": (64, 8, 2048, 1024), "deepseek-v2-lite": (64, 6, 2048, 1408),
+             "qwen3-30b-a3b": (128, 8, 2048, 768)}
+MOE_CHECK_TOKENS = (8, 512)  # a decode batch, a prefill chunk; rows = tokens * top-k
+MOE_ROUTINGS = ("uniform", "skewed", "one_expert")
+MOE_TIMED_TOKENS = (8, 64, 512, 2048)
+
+
+def moe_expert_ids(rng: np.random.Generator, routing: str, tokens: int, e: int, k: int) -> np.ndarray:
+    """The sorted expert id of each of tokens * k rows. ``uniform``: each
+    token's k distinct experts drawn uniformly (the router's shape);
+    ``skewed``: half the rows on expert 3, the rest on every 8th expert, the
+    others empty; ``one_expert``: every row on the last expert."""
+    m = tokens * k
+    if routing == "uniform":
+        ids = np.argsort(rng.random((tokens, e)), axis=1)[:, :k].reshape(-1)
+    elif routing == "skewed":
+        ids = np.concatenate([np.full(m // 2, 3), rng.integers(0, e // 8, m - m // 2) * 8])
+    else:
+        ids = np.full(m, e - 1)
+    return np.sort(ids)
+
+
+def moe_case(dev, gen, rng, routing: str, tokens: int, e: int, k: int, kk: int, n: int):
+    """x bf16[tokens * k, kk] ~ N(0, 1), w bf16[e, kk, n] at the fan-in scale,
+    the group offsets of ``routing`` and the experts that have rows."""
+    ids = moe_expert_ids(rng, routing, tokens, e, k)
+    offsets = torch.from_numpy(np.searchsorted(ids, np.arange(e + 1)).astype(np.int32)).to(dev)
+    x = torch.randn(tokens * k, kk, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(e, kk, n, generator=gen, device=dev) * kk**-0.5).to(torch.bfloat16)
+    return x, w, offsets, int(len(np.unique(ids)))
+
+
+def moe_kernel_checks(dev) -> dict:
+    """``grouped_matmul`` against its plain version (a loop of torch.matmul
+    over the experts) at each MOE_GEOMS geometry, both products (hidden ->
+    width, width -> hidden), MOE_CHECK_TOKENS tokens and every MOE_ROUTINGS
+    routing, per row (``compare_rows``: bf16 outputs one or two ulps apart,
+    the two sides summing K in different orders); two launches bitwise
+    equal. Returns the max abs error by geometry."""
+    from dynamo_tpu_torch.ops import grouped_matmul as gmm
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.default_rng(21)
+    errs, checks = {}, 0
+    for model, (e, k, d, f) in MOE_GEOMS.items():
+        for kk, n in ((d, f), (f, d)):
+            for tokens in MOE_CHECK_TOKENS:
+                for routing in MOE_ROUTINGS:
+                    x, w, offsets, _ = moe_case(dev, gen, rng, routing, tokens, e, k, kk, n)
+                    got, again = gmm.grouped_matmul(x, w, offsets), gmm.grouped_matmul(x, w, offsets)
+                    want = gmm.grouped_matmul_plain(x, w, offsets)
+                    name = f"grouped_matmul {model} {kk}x{n} tokens={tokens} {routing}"
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name}: two launches differ")
+                    errs[model] = max(errs.get(model, 0.0), compare_rows(name, got, want))
+                    checks += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_moe", "checks": checks, "geometries": MOE_GEOMS, "tokens": list(MOE_CHECK_TOKENS),
+          "routings": list(MOE_ROUTINGS), "max_abs_err": errs,
+          "tolerance": f"{REL_TOL[torch.bfloat16]} * max|plain| per row", "seconds": time.perf_counter() - t0})
+    return errs
+
+
+def moe_launches_per_forward(model: str) -> int:
+    """grouped_matmul launches one forward of ``model`` makes: three a MoE layer."""
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    cfg = PRESETS[model]
+    return 3 * (cfg.num_layers - cfg.first_k_dense)
+
+
+def _grouped_mm_yardstick(x, w, offsets, want):
+    """``torch._grouped_mm`` on the same product, where this torch has it (a
+    library call, timed beside the kernel and never used by the port): the
+    callable, the layout of ``w`` it took, and its max abs error against the
+    plain version; or None and why not."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "absent: torch has no _grouped_mm", None
+    ends = offsets[1:].contiguous()
+    tried = []
+    for layout, wl in (("[E, K, N] row-major", w), ("[E, K, N] column-major", w.transpose(1, 2).contiguous().transpose(1, 2))):
+        try:
+            out = fn(x, wl, offs=ends)
+            torch.cuda.synchronize()
+            return (lambda: fn(x, wl, offs=ends)), layout, float((out.float() - want.float()).abs().max())
+        except Exception as exc:  # noqa: BLE001 - reported, not hidden
+            tried.append(f"{layout}: {type(exc).__name__}: {str(exc)[:160]}")
+    return None, "refused: " + " | ".join(tried), None
+
+
+def eager_ms(fn, calls: int = 5) -> float:
+    """Wall ms of one eager call between CUDA events, after a warm-up call:
+    for a function a CUDA graph cannot hold (the plain grouped product reads
+    its offsets on the host), so its host work is in the number."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def moe_timing(dev) -> list[dict]:
+    """Device ms of ``grouped_matmul`` at olmoe-1b-7b's w_gate (2048 -> 1024)
+    and w_down (1024 -> 2048) products with MOE_TIMED_TOKENS tokens, each
+    token's 8 of 64 experts drawn uniformly: the kernel (graph replay,
+    median of 7), its bound (the touched experts' weights, x and the output
+    once over HBM's rate, or 2*M*K*N over the bf16 peak; the larger), the
+    plain version, ``torch._grouped_mm`` where this torch has it, the
+    wrapper's host µs a call and the device µs of each CUDA kernel a call
+    launches. The experts' weights (268 MB) exceed the L2. The plain
+    version reads its offsets on the host, so it is timed eagerly
+    (``eager_ms``), its host work included."""
+    from dynamo_tpu_torch.ops import grouped_matmul as gmm
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(22)
+    e, k, d, f = MOE_GEOMS["olmoe-1b-7b"]
+    entries = []
+    for name, kk, n in (("w_gate", d, f), ("w_down", f, d)):
+        for tokens in MOE_TIMED_TOKENS:
+            x, w, offsets, touched = moe_case(dev, gen, rng, "uniform", tokens, e, k, kk, n)
+            m = x.shape[0]
+            got, want = gmm.grouped_matmul(x, w, offsets), gmm.grouped_matmul_plain(x, w, offsets)
+            err = compare_rows(f"timed grouped_matmul {name} tokens={tokens}", got, want)
+            lib, layout, lib_err = _grouped_mm_yardstick(x, w, offsets, want)
+            ms = time_ms(lambda: gmm.grouped_matmul(x, w, offsets), iters=20)
+            nbytes = touched * kk * n * 2 + m * kk * 2 + m * n * 2 + (e + 1) * 4
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * kk * n / BF16_FLOPS
+            bound = max(t_bytes, t_ops) * 1e3
+            entries.append({
+                "shape": f"olmoe-1b-7b {name}", "k": kk, "n": n, "tokens": tokens, "m": m, "experts": e,
+                "experts_touched": touched, "ms": ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "of_bound": bound / ms,
+                "plain_ms": eager_ms(lambda: gmm.grouped_matmul_plain(x, w, offsets)),
+                "library_ms": time_ms(lib, iters=20) if lib is not None else None, "library": layout,
+                "library_max_abs_err": lib_err, "max_abs_err": err,
+                "host_us": host_us(lambda: gmm.grouped_matmul(x, w, offsets)),
+                "device_us_by_kernel": device_us_by_kernel(lambda: gmm.grouped_matmul(x, w, offsets))})
+            del x, w
+    emit({"phase": "kernel_timing_moe", "entries": entries,
+          "launches_per_forward": {m: moe_launches_per_forward(m) for m in MOE_GEOMS}})
+    return entries
+
+
+def _weight_gb(params: dict) -> float:
+    return sum(t.numel() * t.element_size() for _, t in _leaves(params)) / 1e9
+
+
+def _peak_serve(model: str, params: dict, cache_dtype=None, **kw) -> dict:
+    """One serve of the mix (``serve``) with the peak allocated memory over
+    it, from a reset of the peak statistics just before."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record, _ = asyncio.run(serve(model, cache_dtype, params, **kw))
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def moe_phase(dev) -> dict:
+    """Routed MoE on the card (phase 13): the grouped kernel's checks and
+    timing; olmoe-1b-7b at full width (a forward check against the plain
+    grouped product and reference attention, a graph check, the mix eager +
+    sync then graphs + overlap on bf16 and fp8 caches, greedy tokens equal,
+    grouped_matmul launched three times a layer and forward, the device's
+    busy share, peak memory, paged_decode at its 16/16 heads, a 16-row tile
+    carrying one query row at T_q 1); deepseek-v2-lite (MLA, 2 shared
+    experts, one dense layer) served on the main path; qwen3-30b-a3b at bf16
+    served with its weight and peak GB; the three dense presets a forward
+    check and a serve each. Returns what the kernels line needs."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import PRESETS
+
+    t0 = time.perf_counter()
+    errs = moe_kernel_checks(dev)
+    timed = moe_timing(dev)
+    decode = _gqa_timings(dev, torch.Generator(device=dev).manual_seed(23), 16, 16, 128)
+    emit({"phase": "kernel_timing_moe_attention", "model": MOE_MODEL,
+          "paged_decode_rows_per_16_row_tile": 1 * (PRESETS[MOE_MODEL].num_heads // PRESETS[MOE_MODEL].num_kv_heads),
+          "paged_decode_tile_occupancy": 1 / 16, **{k: {f: v[f] for f in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                                          "library_ms", "shape")}
+                                                    for k, v in decode.items()}})
+    launches, records = 0, {}
+
+    params = llama.init_params(PRESETS[MOE_MODEL], 0, device=dev)
+    weight_gb = _weight_gb(params)
+    forward_check(dev, MOE_MODEL, params=params)
+    graph_check(dev, MOE_MODEL, params)
+    for cache_dtype in (None, FP8):
+        eager, eager_tokens = asyncio.run(serve(MOE_MODEL, cache_dtype, params, eager=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        main, tokens = asyncio.run(serve(MOE_MODEL, cache_dtype, params, profile=cache_dtype is None))
+        main["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        greedy = [i for i, b in enumerate(serve_bodies(np.random.default_rng(3), MOE_MODEL)) if b["temperature"] == 0]
+        differ = [SERVE_LENGTHS[i] for i in greedy if tokens[i] != eager_tokens[i]]
+        emit({"phase": "serve_modes", "model": MOE_MODEL, "cache": main["cache"], "weights": "bf16",
+              "tokens_equal": not differ, "greedy_requests_differing_by_prompt_tokens": differ,
+              "output_tokens_per_s": {"eager_sync": eager["output_tokens_per_s"],
+                                      "graphs_overlap": main["output_tokens_per_s"]},
+              "speedup": main["output_tokens_per_s"] / eager["output_tokens_per_s"], "weight_gb": weight_gb,
+              "peak_gb": main["peak_gb"]})
+        if differ:
+            raise AssertionError(f"{MOE_MODEL}: greedy tokens of the main path differ from eager + sync "
+                                 f"(requests of {differ} prompt tokens)")
+        if main["graphs"]["keys"] <= 0:
+            raise AssertionError(f"{MOE_MODEL}: no MoE step was captured")
+        launches += main["kernel_launches"]["grouped_matmul"]
+        records[main["cache"]] = main
+    del params
+
+    for model in (MOE_MLA_MODEL, MOE_BIG_MODEL, *DENSE_PRESETS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = llama.init_params(PRESETS[model], 0, device=dev)
+        weight_gb = _weight_gb(params)
+        if model in DENSE_PRESETS:
+            forward_check(dev, model, params=params)
+        record = _peak_serve(model, params)
+        emit({"phase": "moe_serve" if PRESETS[model].is_moe else "dense_preset_serve", "model": model,
+              "weight_gb": weight_gb, "peak_gb": record["peak_gb"],
+              "output_tokens_per_s": record["output_tokens_per_s"], "ttft_s": record["ttft_s"],
+              "kernel_launches": record["kernel_launches"], "graph_keys": record["graphs"]["keys"]})
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0, "grouped_matmul_main_path_launches": launches})
+    return {"errs": errs, "timed": timed, "launches": launches}
+
+
 def ptxas_functions(log: str) -> dict:
     """nvcc's -Xptxas -v report, per compiled entry function: {mangled name:
     {"registers": n, "spill_stores": bytes}}."""
@@ -4180,6 +4497,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant_launches = quant_serve_phase(dev)
     gguf_phase(dev)
+    moe = moe_phase(dev)
 
     replaces = {
         "paged_decode": "dynamo_tpu/ops/pallas_paged.py:230",
@@ -4209,6 +4527,14 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+    tm = moe["timed"][0]  # olmoe-1b-7b w_gate with 8 tokens, a decode step's product
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda", "source": "dynamo_tpu_torch/csrc/grouped_matmul.cu",
+        "replaces": "dynamo_tpu/parallel/moe.py:232", "launches": moe["launches"],
+        "max_abs_err": max([e["max_abs_err"] for e in moe["timed"]] + list(moe["errs"].values())),
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": tm["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)

@@ -78,6 +78,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_cache_widths
 from dynamo_tpu_torch.ops import build
 from dynamo_tpu_torch.ops.attention import CACHE_DTYPES, NEG_INF, attention_phase, noncontiguous_rows
+from dynamo_tpu_torch.ops.grouped_matmul import grouped_matmul_supported
 from dynamo_tpu_torch.ops.paged_decode import decode_kernel_supported
 from dynamo_tpu_torch.ops.paged_mla import paged_mla_supported
 from dynamo_tpu_torch.ops.paged_prefill import prefill_kernel_supported
@@ -347,6 +348,7 @@ class TorchModelRunner:
         if self.device.type == "cuda":
             self._check_kernels_take(cfg, dt, page_size)
             self._check_quantized_take(cfg, params)
+            self._check_experts_take(cfg)
         self.params = _to_device(params, self.device)
         self.k_cache, self.v_cache = llama.init_kv_cache(
             cfg, num_pages, page_size, dtype=dt, device=self.device
@@ -416,6 +418,19 @@ class TorchModelRunner:
                 f"the paged-attention kernels do not take heads={cfg.num_heads}/{cfg.num_kv_heads}, "
                 f"head_dim={cfg.head_dim}, cache {cache_dtype}"
             )
+
+    @staticmethod
+    def _check_experts_take(cfg: ModelConfig) -> None:
+        """On the card a MoE model's expert products run in the grouped
+        kernel (``w_gate``/``w_up``: hidden -> expert width, ``w_down``: the
+        reverse); refuse a geometry or dtype it does not take before
+        allocating anything."""
+        if not cfg.is_moe:
+            return
+        d, f, e, dt = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts, llama.param_dtype(cfg)
+        if not (grouped_matmul_supported(d, f, e, dt) and grouped_matmul_supported(f, d, e, dt)):
+            raise NotImplementedError(
+                f"the grouped_matmul kernel does not take {e} experts of {d} x {f} ({dt})")
 
     @staticmethod
     def _check_quantized_take(cfg: ModelConfig, params: llama.Params) -> None:

@@ -19,8 +19,9 @@ the discovery runtime, and serve the OpenAI HTTP frontend in front of it
 - :func:`run_local` — N workers and the frontend in one process over the
   in-memory runtime, round-robin, random or KV-routed.
 - CLI: ``python -m dynamo_tpu_torch.launch --model llama-3.2-1b --workers 2
-  --router-mode kv --http-port 8080`` (``--model`` also takes a checkpoint
-  directory or a ``.gguf`` file; ``--platform cpu`` runs on the CPU;
+  --router-mode kv --http-port 8080`` (``--model`` also takes a routed-MoE
+  preset such as ``olmoe-1b-7b``, whose experts run in the grouped kernel of
+  ``ops/grouped_matmul.py``, a checkpoint directory or a ``.gguf`` file; ``--platform cpu`` runs on the CPU;
   ``--quantize int8|int4`` serves weight-only quantized weights through the
   quant_matmul kernel; ``--kv-cache-dtype fp8``,
   or ``DYN_KV_CACHE_DTYPE=fp8``, stores the KV cache as fp8 e4m3, served by
@@ -494,7 +495,9 @@ def build_parser() -> argparse.ArgumentParser:
                "quotas (DYN_SLO_SCHED_*, DYN_TENANT_QUOTAS) and arms the KV router's attainment term; "
                "DYN_CACHE_AWARE=1 prices admission and routing by uncached prefill tokens "
                "(DYN_CACHE_AWARE_*) and onboards tier pages in the background; DYN_FLIGHT_DUMP_DIR holds "
-               "the flight recorder dump of a worker whose step failed; DYN_FAULTS arms fault points.")
+               "the flight recorder dump of a worker whose step failed; DYN_FAULTS arms fault points. "
+               "MoE presets (olmoe-1b-7b, qwen3-30b-a3b, deepseek-v2-lite, ...) and MoE checkpoints run their "
+               "experts in the grouped kernel; DYNAMO_MOE_DISPATCH=dense runs decode-sized MoE batches densely.")
     parser.add_argument("--model", default="test-tiny",
                         help=f"model preset ({', '.join(PRESETS)}), an HF checkpoint directory or a .gguf file")
     parser.add_argument("--host", default="127.0.0.1")
@@ -509,7 +512,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--quantize", default="", choices=["", "int8", "int4"],
         help="weight-only quantization for serving (int4: packed nibbles, "
-        "group scales of DYN_QUANT_GROUP_SIZE, default 128)",
+        "group scales of DYN_QUANT_GROUP_SIZE, default 128); refused for MoE models",
     )
     parser.add_argument("--platform", default=None, choices=["cuda", "cpu"],
                         help="device to serve on (default: the card)")

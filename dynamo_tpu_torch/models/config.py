@@ -2,9 +2,12 @@
 
 A copy of ``dynamo_tpu/models/config.py:ModelConfig`` (same fields, so a
 config converts either way with ``dataclasses.asdict``) restricted to the
-presets the port runs: the CPU test models (dense GQA and MLA) and the
-widths served on the card (two Llama-3 models and the dense-trunk MLA proxy).
-``ModelConfig.from_hf`` reads an HF ``config.json`` as the JAX build does.
+presets the port runs: the CPU test models (dense GQA, MLA and the two tiny
+MoE models), the dense widths served on the card (the Llama-3 models,
+DeepSeek-R1-Distill-8B, Qwen2.5-7B, Qwen3-8B and the dense-trunk MLA proxy)
+and the routed-MoE ones (OLMoE, Qwen3-MoE, Mixtral, Qwen1.5-MoE,
+DeepSeek-V2-Lite and the DeepSeek-V3 shape). ``ModelConfig.from_hf`` reads
+an HF ``config.json`` as the JAX build does.
 """
 
 from __future__ import annotations
@@ -96,9 +99,9 @@ class ModelConfig:
         """Build from an HF ``config.json`` dict or path (Llama/Qwen-style
         keys): the JAX build's ``ModelConfig.from_hf`` field for field, for
         the configs the port serves (dense Llama-family GQA, Qwen2 with QKV
-        biases, the DeepSeek MLA dense trunk). A config with MoE layers, a
-        sliding window or a vision tower raises ``NotImplementedError``
-        naming the field (ROADMAP A6)."""
+        biases, Gemma-1, Qwen3, OLMoE, the routed-MoE families and DeepSeek's
+        MLA). A config with a sliding window or a vision tower raises
+        ``NotImplementedError`` naming the field (ROADMAP A6)."""
         if not isinstance(config, dict):
             config = json.loads(pathlib.Path(config).read_text())
         if "vision_config" in config:
@@ -106,11 +109,10 @@ class ModelConfig:
                 "config field 'vision_config': multimodal checkpoints are not ported to "
                 "dynamo_tpu_torch yet (ROADMAP A6)")
         cfg = cls._from_hf_fields(config, name=name)
-        for field, value in (("num_experts", cfg.num_experts), ("sliding_window", cfg.sliding_window)):
-            if value:
-                raise NotImplementedError(
-                    f"config field {field!r} = {value}: MoE layers and sliding-window attention are "
-                    "not ported to dynamo_tpu_torch yet (ROADMAP A6)")
+        if cfg.sliding_window:
+            raise NotImplementedError(
+                f"config field 'sliding_window' = {cfg.sliding_window}: sliding-window attention is not "
+                "ported to dynamo_tpu_torch yet (ROADMAP A6)")
         return cfg
 
     @classmethod
@@ -251,6 +253,118 @@ PRESETS: dict[str, ModelConfig] = {
         name="llama-3-70b", vocab_size=128256, hidden_size=8192, num_layers=80,
         num_heads=64, num_kv_heads=8, head_dim=128, intermediate_size=28672,
         rope_theta=500000.0, max_position=8192,
+    ),
+    # DeepSeek-R1-Distill-Llama-8B: Llama-3.1-8B architecture; distilled
+    # weights load via the standard Llama map.
+    "deepseek-r1-distill-8b": ModelConfig(
+        name="deepseek-r1-distill-8b", vocab_size=128256, hidden_size=4096,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        intermediate_size=14336, rope_theta=500000.0, max_position=131072,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    ),
+    # Qwen2.5-7B: Qwen2 family (q/k/v biases, untied head, 1M-theta rope).
+    "qwen2.5-7b": ModelConfig(
+        name="qwen2.5-7b", vocab_size=152064, hidden_size=3584, num_layers=28,
+        num_heads=28, num_kv_heads=4, head_dim=128, intermediate_size=18944,
+        rope_theta=1000000.0, max_position=32768, rms_eps=1e-6,
+        attention_bias=True,
+    ),
+    # Qwen3-8B: per-head Q/K RMS norm, untied head, no attention bias.
+    "qwen3-8b": ModelConfig(
+        name="qwen3-8b", vocab_size=151936, hidden_size=4096, num_layers=36,
+        num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=12288,
+        rope_theta=1000000.0, max_position=40960, rms_eps=1e-6,
+        qk_norm="head",
+    ),
+    # MoE test model: 4 experts, top-2.
+    "test-tiny-moe": ModelConfig(
+        name="test-tiny-moe", vocab_size=256, hidden_size=64, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=16, intermediate_size=128,
+        rope_theta=10000.0, max_position=512, tie_embeddings=True, dtype="float32",
+        num_experts=4, num_experts_per_token=2, moe_intermediate_size=64,
+    ),
+    # Tiny V3-true-shape test model: MLA + sigmoid/noaux_tc routing +
+    # group-limited top-k + a leading dense layer.
+    "test-tiny-v3": ModelConfig(
+        name="test-tiny-v3", vocab_size=256, hidden_size=64, num_layers=3,
+        num_heads=4, num_kv_heads=4, head_dim=16, intermediate_size=128,
+        rope_theta=10000.0, max_position=512, tie_embeddings=True, dtype="float32",
+        num_experts=4, num_experts_per_token=2, moe_intermediate_size=32,
+        shared_expert_size=32,
+        attn_type="mla", q_lora_rank=32, kv_lora_rank=24,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        rope_interleave=True, moe_scoring="sigmoid", moe_router_bias=True,
+        moe_norm_topk=True, moe_routed_scaling=2.5, moe_n_group=2,
+        moe_topk_group=1, first_k_dense=1,
+    ),
+    # OLMoE-1B-7B: the 6.9B-total / 1.3B-active checkpoint shape: 64
+    # experts / top-8, no shared expert, softmax routing with top-k renorm,
+    # flat Q/K norm, MHA at head_dim 128 (13.8 GB of bf16 weights).
+    "olmoe-1b-7b": ModelConfig(
+        name="olmoe-1b-7b", vocab_size=50304, hidden_size=2048,
+        num_layers=16, num_heads=16, num_kv_heads=16, head_dim=128,
+        intermediate_size=1024, rope_theta=10000.0, max_position=4096,
+        num_experts=64, num_experts_per_token=8, moe_intermediate_size=1024,
+        moe_scoring="softmax", moe_norm_topk=True, qk_norm="flat",
+    ),
+    # Qwen3-30B-A3B: 128 experts / top-8 MoE with per-head qk-norm (61 GB of
+    # bf16 weights).
+    "qwen3-30b-a3b": ModelConfig(
+        name="qwen3-30b-a3b", vocab_size=151936, hidden_size=2048, num_layers=48,
+        num_heads=32, num_kv_heads=4, head_dim=128, intermediate_size=6144,
+        rope_theta=1000000.0, max_position=40960, rms_eps=1e-6,
+        num_experts=128, num_experts_per_token=8, moe_intermediate_size=768,
+        moe_scoring="softmax", moe_norm_topk=True, qk_norm="head",
+    ),
+    # Mixtral-8x7B: 8 routed experts / top-2, no shared expert.
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b", vocab_size=32000, hidden_size=4096, num_layers=32,
+        num_heads=32, num_kv_heads=8, head_dim=128, intermediate_size=14336,
+        rope_theta=1000000.0, max_position=32768,
+        num_experts=8, num_experts_per_token=2, moe_intermediate_size=14336,
+    ),
+    # Qwen1.5-MoE-A2.7B-class: 14.3B total / 2.7B active: 60 experts /
+    # top-4 + a sigmoid-gated shared expert (Qwen2-MoE semantics).
+    "qwen1.5-moe-a2.7b": ModelConfig(
+        name="qwen1.5-moe-a2.7b", vocab_size=151936, hidden_size=2048,
+        num_layers=24, num_heads=16, num_kv_heads=16, head_dim=128,
+        intermediate_size=5632, rope_theta=1000000.0, max_position=8192,
+        num_experts=60, num_experts_per_token=4, moe_intermediate_size=1408,
+        shared_expert_size=5632, shared_expert_gated=True,
+        moe_scoring="softmax", moe_norm_topk=False, attention_bias=True,
+    ),
+    # DeepSeek-V2-Lite: the 15.7B MoE+MLA checkpoint shape: 64 routed
+    # experts / top-6 + 2 shared experts, MLA without q-LoRA, one leading
+    # dense layer.
+    "deepseek-v2-lite": ModelConfig(
+        name="deepseek-v2-lite", vocab_size=102400, hidden_size=2048,
+        num_layers=27, num_heads=16, num_kv_heads=16, head_dim=128,
+        intermediate_size=10944, rope_theta=10000.0, max_position=163840,
+        num_experts=64, num_experts_per_token=6, moe_intermediate_size=1408,
+        shared_expert_size=2816,  # n_shared_experts=2
+        attn_type="mla", q_lora_rank=0, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        rope_interleave=True, moe_scoring="softmax", moe_norm_topk=False,
+        moe_routed_scaling=1.0, first_k_dense=1,
+    ),
+    # DeepSeek-V3's shape: 256 routed experts / top-8 with MLA (latent KV
+    # cache, absorbed up-projections, models/mla.py); its weights need
+    # expert parallelism (ROADMAP A8), no single card holds them.
+    "deepseek-v3-ep": ModelConfig(
+        name="deepseek-v3-ep", vocab_size=129280, hidden_size=7168,
+        num_layers=61, num_heads=128, num_kv_heads=128, head_dim=64,
+        intermediate_size=18432, rope_theta=10000.0, max_position=163840,
+        num_experts=256, num_experts_per_token=8, moe_intermediate_size=2048,
+        shared_expert_size=2048,  # n_shared_experts=1
+        attn_type="mla", q_lora_rank=1536, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        rope_interleave=True,  # real V3 checkpoints ship interleaved rope dims
+        # V3 router: sigmoid scores + aux-free correction bias, 8 groups
+        # with the best 4 eligible, renormalized weights scaled 2.5x.
+        moe_scoring="sigmoid", moe_router_bias=True, moe_norm_topk=True,
+        moe_routed_scaling=2.5, moe_n_group=8, moe_topk_group=4,
+        first_k_dense=3,
     ),
     # MLA throughput proxy at 8B-class scale: DeepSeek-V3's per-layer MLA
     # geometry (kv_lora 512 + rope 64 latent cache, absorbed projections)

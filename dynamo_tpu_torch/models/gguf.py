@@ -20,7 +20,7 @@ numpy through a ``uint16`` view.
 
 A writer (:func:`write_gguf`, :func:`save_params_gguf`) round-trips params
 to GGUF with optional Q8_0/Q4_0/Q4_K quantization, encoded on the tensors'
-device. MoE expert tensors wait for MoE (ROADMAP A6).
+device. MoE expert tensors are refused by name (ROADMAP B6).
 """
 
 from __future__ import annotations
@@ -756,7 +756,8 @@ def load_gguf_params(
     from dynamo_tpu_torch.models.quant import pack_int4
 
     if cfg.is_moe:
-        raise NotImplementedError("MoE GGUF checkpoints are not ported to dynamo_tpu_torch yet (ROADMAP A6)")
+        raise NotImplementedError("MoE GGUF checkpoints (expert tensors) are not ported to dynamo_tpu_torch yet "
+                                  "(ROADMAP B6, quantized expert forms)")
     dev = resolve_device(device)
     reader = source if isinstance(source, GGUFReader) else shared_reader(source)
     dt = dtype or param_dtype(cfg)
@@ -871,7 +872,8 @@ def save_params_gguf(
 
     walk(params)
     if cfg.is_moe:
-        raise NotImplementedError("MoE GGUF export is not ported to dynamo_tpu_torch yet (ROADMAP A6)")
+        raise NotImplementedError("MoE GGUF export (expert tensors) is not ported to dynamo_tpu_torch yet "
+                                  "(ROADMAP B6, quantized expert forms)")
     arch = "llama"
     md: dict[str, Any] = {
         "general.architecture": arch,

@@ -10,11 +10,22 @@ in ``k_cache``, lane-padded rope keys in ``v_cache``, ``models/mla.py``); the
 forward addresses it flat (``[L * pages, ps, W]``) with per-layer page
 offsets and updates it **in place** before attention.
 
-MoE, ring attention, multimodal inputs and sliding window raise
+Routed-MoE models (``cfg.num_experts > 0``) carry the router and the stacked
+expert leaves (``w_gate/w_up [L, E, D, F]``, ``w_down [L, E, F, D]``, an
+optional f32 ``router_bias`` and shared expert); their MLP is
+``parallel/moe.py``'s dropless dispatch, whose expert products run in the
+grouped kernel (``ops/grouped_matmul.py``) on the card. DeepSeek's
+``first_k_dense`` leading dense layers sit in a ``dense_layers`` subtree that
+the forward runs first, the layer counter (the cache offsets) carried
+straight through, as the JAX build's two scans do.
+
+Ring attention, multimodal inputs and sliding window raise
 ``NotImplementedError`` in this port.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +39,7 @@ from dynamo_tpu_torch.ops.attention import paged_attention, paged_attention_refe
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.paged_mla import walk_facts
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_attention_factor, rope_frequencies
+from dynamo_tpu_torch.parallel.moe import moe_mlp_dropless, route_tokens
 
 Params = dict
 
@@ -40,8 +52,6 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the architecture features the port does not take yet."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported to dynamo_tpu_torch yet")
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"attention type {cfg.attn_type!r} is not ported")
     if cfg.sliding_window > 0:
@@ -50,62 +60,120 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("multimodal inputs are not ported yet")
 
 
-def build_params(cfg: ModelConfig, weight, const) -> Params:
+def build_params(cfg: ModelConfig, weight, const, const_f32=None) -> Params:
     """The parameter tree of ``cfg`` in the JAX build's layout and shapes:
     ``weight(name, shape, fan_in)`` makes each weight leaf (its values, or a
     quantized leaf, ``models/quant.py``), ``const(shape, value)`` each norm
-    (1) and bias (0); leaves are made in a fixed order."""
+    (1) and bias (0), ``const_f32`` (default ``const``) the f32 router bias;
+    leaves are made in a fixed order. A model with ``first_k_dense`` leading
+    dense layers gets them as a ``dense_layers`` subtree, the rest (MoE) as
+    ``layers`` (``dynamo_tpu/models/llama.py:122-129``)."""
     check_supported(cfg)
-    d, q, kv, f, nl = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size, cfg.num_layers
-    layers = {
-        "attn_norm": const((nl, d), 1.0),
-        "mlp_norm": const((nl, d), 1.0),
-    }
-    if cfg.qk_norm:
-        qn = cfg.head_dim if cfg.qk_norm == "head" else q
-        kn = cfg.head_dim if cfg.qk_norm == "head" else kv
-        layers["q_norm"] = const((nl, qn), 1.0)
-        layers["k_norm"] = const((nl, kn), 1.0)
-    if cfg.attn_type == "mla":
-        layers.update(init_mla_params(cfg, weight, const, nl))
-    else:
-        layers.update({
-            "wq": weight("wq", (nl, d, q), d),
-            "wk": weight("wk", (nl, d, kv), d),
-            "wv": weight("wv", (nl, d, kv), d),
-            "wo": weight("wo", (nl, q, d), q),
-        })
-    layers.update({
-        "w_gate": weight("w_gate", (nl, d, f), d),
-        "w_up": weight("w_up", (nl, d, f), d),
-        "w_down": weight("w_down", (nl, f, d), f),
-    })
-    if cfg.attention_bias:
-        layers.update({"bq": const((nl, q), 0.0), "bk": const((nl, kv), 0.0), "bv": const((nl, kv), 0.0)})
+    d, q, kv, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+
+    def layer_stack(nl: int, moe: bool) -> dict:
+        layers = {
+            "attn_norm": const((nl, d), 1.0),
+            "mlp_norm": const((nl, d), 1.0),
+        }
+        if cfg.qk_norm:
+            qn = cfg.head_dim if cfg.qk_norm == "head" else q
+            kn = cfg.head_dim if cfg.qk_norm == "head" else kv
+            layers["q_norm"] = const((nl, qn), 1.0)
+            layers["k_norm"] = const((nl, kn), 1.0)
+        if cfg.attn_type == "mla":
+            layers.update(init_mla_params(cfg, weight, const, nl))
+        else:
+            layers.update({
+                "wq": weight("wq", (nl, d, q), d),
+                "wk": weight("wk", (nl, d, kv), d),
+                "wv": weight("wv", (nl, d, kv), d),
+                "wo": weight("wo", (nl, q, d), q),
+            })
+        if moe:
+            e, mf = cfg.num_experts, cfg.moe_intermediate_size
+            layers.update({
+                "router": weight("router", (nl, d, e), d),
+                "w_gate": weight("w_gate", (nl, e, d, mf), d),
+                "w_up": weight("w_up", (nl, e, d, mf), d),
+                "w_down": weight("w_down", (nl, e, mf, d), mf),
+            })
+            if cfg.moe_router_bias:
+                layers["router_bias"] = (const_f32 or const)((nl, e), 0.0)
+            if cfg.shared_expert_size:
+                fs = cfg.shared_expert_size
+                layers.update({
+                    "w_shared_gate": weight("w_shared_gate", (nl, d, fs), d),
+                    "w_shared_up": weight("w_shared_up", (nl, d, fs), d),
+                    "w_shared_down": weight("w_shared_down", (nl, fs, d), fs),
+                })
+                if cfg.shared_expert_gated:
+                    layers["shared_gate"] = weight("shared_gate", (nl, d, 1), d)
+        else:
+            layers.update({
+                "w_gate": weight("w_gate", (nl, d, f), d),
+                "w_up": weight("w_up", (nl, d, f), d),
+                "w_down": weight("w_down", (nl, f, d), f),
+            })
+        if cfg.attention_bias:
+            layers.update({"bq": const((nl, q), 0.0), "bk": const((nl, kv), 0.0), "bv": const((nl, kv), 0.0)})
+        return layers
+
+    k_dense = cfg.first_k_dense if cfg.is_moe else 0
+    layers = layer_stack(cfg.num_layers - k_dense, cfg.is_moe)
+    dense_layers = layer_stack(k_dense, False) if k_dense else None
     params: Params = {
         "embed": weight("embed", (cfg.vocab_size, d), d),
         "norm_f": const((d,), 1.0),
         "layers": layers,
     }
+    if dense_layers is not None:
+        params["dense_layers"] = dense_layers
     if not cfg.tie_embeddings:
         params["lm_head"] = weight("lm_head", (d, cfg.vocab_size), d)
     return params
 
 
+# f32 elements a random draw makes at most (1 GiB): a larger leaf is drawn a
+# slab at a time straight into its (bf16) storage, so no f32 copy of a whole
+# expert stack exists (qwen3-30b-a3b's w_gate is 38.6 GB in f32).
+DRAW_CHUNK = 1 << 28
+
+
+def _draw_normal(out: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Fill ``out`` with ``normal * scale`` rounded to its dtype: in one draw
+    up to DRAW_CHUNK elements, else in slabs along the leading axis."""
+    if out.numel() <= DRAW_CHUNK or out.dim() == 1:
+        out.copy_(torch.randn(out.shape, generator=gen, device=out.device, dtype=torch.float32) * scale)
+        return
+    per = out[0].numel()
+    if per > DRAW_CHUNK:
+        for i in range(out.shape[0]):
+            _draw_normal(out[i], gen, scale)
+        return
+    step = DRAW_CHUNK // per
+    for i in range(0, out.shape[0], step):
+        _draw_normal(out[i:i + step], gen, scale)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device = "cuda") -> Params:
     """Random-init parameters from a seeded ``torch.Generator`` on ``device``
     (the card unless the caller asks for the CPU): the JAX build's shapes and
-    scales (normal * fan_in**-0.5, norms at 1, biases at 0). The values
-    differ from the JAX build's (different RNG)."""
+    scales (normal * fan_in**-0.5, norms at 1, biases at 0, the router bias
+    f32 0). The values differ from the JAX build's (different RNG). A leaf
+    over DRAW_CHUNK elements is drawn a slab at a time into its storage."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = param_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def weight(name, shape, fan_in):
-        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * fan_in**-0.5).to(dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        _draw_normal(out, gen, fan_in**-0.5)
+        return out
 
-    return build_params(cfg, weight, lambda shape, value: torch.full(shape, value, dtype=dt, device=dev))
+    return build_params(cfg, weight, lambda shape, value: torch.full(shape, value, dtype=dt, device=dev),
+                        lambda shape, value: torch.full(shape, value, dtype=torch.float32, device=dev))
 
 
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype | None = None,
@@ -129,6 +197,80 @@ def _mlp_dense(lp: dict, li: int, x: torch.Tensor, act: str) -> torch.Tensor:
     gp = _qmm(x, take_layer(lp["w_gate"], li))
     gate = F.gelu(gp, approximate="tanh") if act == "gelu_tanh" else F.silu(gp)
     return _qmm(gate * _qmm(x, take_layer(lp["w_up"], li)), take_layer(lp["w_down"], li))
+
+
+def _routing_kwargs(cfg: ModelConfig) -> dict:
+    """Family router semantics for ``parallel/moe.route_tokens``."""
+    return dict(
+        scoring=cfg.moe_scoring,
+        norm_topk=cfg.moe_norm_topk,
+        scaling=cfg.moe_routed_scaling,
+        n_group=cfg.moe_n_group,
+        topk_group=cfg.moe_topk_group,
+        # noaux_tc (V3) ranks groups by top-2 sum of biased scores;
+        # group_limited_greedy (V2) by per-group max.
+        group_score="top2sum" if cfg.moe_router_bias else "max",
+    )
+
+
+# DYNAMO_MOE_DISPATCH=dense runs the dense formulation up to this many
+# token-choices (N * k), as the JAX build does.
+DENSE_DISPATCH_MAX = 2048
+
+
+def _mlp_moe(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed MoE MLP over one layer's leaves ``lp`` (``x [B, T, D]``;
+    ``dynamo_tpu/models/llama.py:183``): the dropless dispatch
+    (``parallel/moe.py``), or with ``DYNAMO_MOE_DISPATCH=dense`` and at most
+    DENSE_DISPATCH_MAX token-choices the dense formulation, every token
+    through every expert. Where the JAX build takes its capacity dispatch
+    (``DYNAMO_MOE_DISPATCH=capacity``, or ``dense`` past that size) the port
+    raises: the capacity dispatch serves an ``ep`` mesh axis and comes with
+    it (ROADMAP A8). Then the shared expert, sigmoid-gated for Qwen2-MoE."""
+    b, t, d = x.shape
+    xt = x.reshape(b * t, d)
+    dispatch = os.environ.get("DYNAMO_MOE_DISPATCH", "")
+    dense = dispatch == "dense" and b * t * cfg.num_experts_per_token <= DENSE_DISPATCH_MAX
+    if dispatch == "capacity" or (dispatch == "dense" and not dense):
+        raise NotImplementedError(
+            f"DYNAMO_MOE_DISPATCH={dispatch!r} at {b * t} tokens takes the capacity dispatch, which is not "
+            "ported to dynamo_tpu_torch yet (ROADMAP A8, with expert parallelism)")
+    if dense:
+        out = _routed_dense(lp, xt, cfg)
+    else:
+        out = moe_mlp_dropless(lp, xt, num_experts_per_token=cfg.num_experts_per_token, routing=_routing_kwargs(cfg))
+    if cfg.shared_expert_size:
+        shared = _qmm(F.silu(_qmm(xt, lp["w_shared_gate"])) * _qmm(xt, lp["w_shared_up"]), lp["w_shared_down"])
+        if cfg.shared_expert_gated:
+            shared = shared * torch.sigmoid((xt @ lp["shared_gate"]).float()).to(shared.dtype)
+        out = out + shared
+    return out.reshape(b, t, d)
+
+
+def _routed_dense(lp: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Routed MoE by dense compute over flattened tokens ``[N, D]``: every
+    token through every expert, mixed by routing weight. The same output as
+    the dropless dispatch; O(N*E) operations, so only for decode-sized N."""
+    weights, topi = route_tokens(lp, xt, k=cfg.num_experts_per_token, **_routing_kwargs(cfg))
+    e = lp["router"].shape[-1]
+    mix = torch.zeros((xt.shape[0], e), dtype=torch.float32, device=xt.device).scatter(1, topi, weights)  # [N, E]
+    gate = F.silu(torch.einsum("nd,edf->nef", xt, lp["w_gate"]))
+    up = torch.einsum("nd,edf->nef", xt, lp["w_up"])
+    expert_out = torch.einsum("nef,efd->ned", gate * up, lp["w_down"])  # [N, E, D]
+    return torch.einsum("ned,ne->nd", expert_out.float(), mix).to(xt.dtype)
+
+
+def _mlp_moe_dense(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense-compute MoE MLP over ``x [B, T, D]``: the golden model the
+    dispatched path is held against in tests."""
+    b, t, d = x.shape
+    return _routed_dense(lp, x.reshape(b * t, d), cfg).reshape(b, t, d)
+
+
+def _layer_mlp(lp: Params, li: int, x: torch.Tensor, cfg: ModelConfig, moe: bool) -> torch.Tensor:
+    if moe:
+        return _mlp_moe({k: take_layer(v, li) for k, v in lp.items()}, x, cfg)
+    return _mlp_dense(lp, li, x, cfg.mlp_act)
 
 
 def _head_logits(x: torch.Tensor, head) -> torch.Tensor:
@@ -196,30 +338,34 @@ def forward(
     # Where each row's MLA walk ends depends on the positions only: one
     # reduction per step, shared by every layer's kernel launch.
     walk = walk_facts(positions) if mla and attn_impl is None and t > 1 else None
-    lp = params["layers"]
-    for li in range(nl):
-        h = rms_norm(x, lp["attn_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
+    # (stack, its layer index, whether its MLP is MoE) for every layer li in
+    # cache order: DeepSeek's leading dense layers first, then the rest.
+    order = [(params["dense_layers"], j, False) for j in range(len(params["dense_layers"]["attn_norm"]))] \
+        if "dense_layers" in params else []
+    order += [(params["layers"], j, cfg.is_moe) for j in range(len(params["layers"]["attn_norm"]))]
+    for li, (lp, j, moe) in enumerate(order):
+        h = rms_norm(x, lp["attn_norm"][j], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
         if mla:
             attn_out, _, _ = mla_attention(
-                {k: take_layer(v, li) for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
+                {k: take_layer(v, j) for k, v in lp.items()}, cfg, h, positions, kf, vf, tables_all[li], slots_all[li],
                 inv_freq, attn_mscale=attn_mscale, impl=attn_impl, walk=walk,
             )
             x = x + attn_out
-            h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
-            x = x + _mlp_dense(lp, li, h2, cfg.mlp_act)
+            h2 = rms_norm(x, lp["mlp_norm"][j], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
+            x = x + _layer_mlp(lp, j, h2, cfg, moe)
             continue
-        qp, kp, vp = (_qmm(h, take_layer(lp[name], li)) for name in ("wq", "wk", "wv"))
+        qp, kp, vp = (_qmm(h, take_layer(lp[name], j)) for name in ("wq", "wk", "wv"))
         if cfg.attention_bias:
-            qp, kp, vp = qp + lp["bq"][li], kp + lp["bk"][li], vp + lp["bv"][li]
+            qp, kp, vp = qp + lp["bq"][j], kp + lp["bk"][j], vp + lp["bv"][j]
         if cfg.qk_norm == "flat":
-            qp = rms_norm(qp, lp["q_norm"][li], eps=cfg.rms_eps)
-            kp = rms_norm(kp, lp["k_norm"][li], eps=cfg.rms_eps)
+            qp = rms_norm(qp, lp["q_norm"][j], eps=cfg.rms_eps)
+            kp = rms_norm(kp, lp["k_norm"][j], eps=cfg.rms_eps)
         q = qp.reshape(b, t, cfg.num_heads, cfg.head_dim)
         k = kp.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         v = vp.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         if cfg.qk_norm == "head":
-            q = rms_norm(q, lp["q_norm"][li], eps=cfg.rms_eps)
-            k = rms_norm(k, lp["k_norm"][li], eps=cfg.rms_eps)
+            q = rms_norm(q, lp["q_norm"][j], eps=cfg.rms_eps)
+            k = rms_norm(k, lp["k_norm"][j], eps=cfg.rms_eps)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         if attn_mscale != 1.0:  # YaRN temperature: logits scale by mscale^2
@@ -230,9 +376,9 @@ def forward(
         else:
             attn = paged_attention(q.contiguous(), kf, vf, tables_all[li], positions,
                                    contiguous_positions=contiguous_positions)
-        x = x + _qmm(attn.reshape(b, t, cfg.q_dim), take_layer(lp["wo"], li))
-        h2 = rms_norm(x, lp["mlp_norm"][li], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
-        x = x + _mlp_dense(lp, li, h2, cfg.mlp_act)
+        x = x + _qmm(attn.reshape(b, t, cfg.q_dim), take_layer(lp["wo"], j))
+        h2 = rms_norm(x, lp["mlp_norm"][j], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
+        x = x + _layer_mlp(lp, j, h2, cfg, moe)
     x = rms_norm(x, params["norm_f"], eps=cfg.rms_eps, plus_one=cfg.norm_plus_one)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if logit_indices is not None:

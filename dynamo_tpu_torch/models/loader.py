@@ -20,9 +20,15 @@ read one tensor at a time. Sharded checkpoints list their files in
 ``config.json``), optionally split into shards with an index, so tests and
 tools can write an HF-compatible checkpoint from any parameters.
 
-Not ported yet: MoE leaves (ROADMAP A6), vision towers (``load_vlm``,
-A6) and mesh-sharded placement (A8). GGUF files load through
-``models/gguf.py``.
+Routed-MoE checkpoints load with the JAX loader's name tables: the router
+(``mlp.gate`` or Mixtral's ``block_sparse_moe.gate``), one tensor per expert
+stacked on an expert axis (``mlp.experts.{e}.*``, ``block_sparse_moe.experts.{e}.w1/w3/w2``),
+the shared expert (``mlp.shared_expert(s).*``, ``shared_expert_gate``) and
+DeepSeek-V3's f32 ``e_score_correction_bias``; DeepSeek's leading dense
+layers load into a ``dense_layers`` subtree.
+
+Not ported yet: vision towers (``load_vlm``, ROADMAP A6) and mesh-sharded
+placement (A8). GGUF files load through ``models/gguf.py``.
 """
 
 from __future__ import annotations
@@ -224,42 +230,78 @@ _MLA_MAP: dict[str, tuple[tuple[str, ...], bool]] = {
 }
 
 
-def _find(index, candidates: tuple[str, ...], li: int) -> str:
+# MoE per-layer sources. Router: [E, D] in HF -> [D, E]. Experts are stored
+# one tensor per expert; the loader stacks them on an expert axis.
+_MOE_ROUTER = ("mlp.gate.weight", "block_sparse_moe.gate.weight")
+_MOE_ROUTER_BIAS = ("mlp.gate.e_score_correction_bias",)
+_MOE_EXPERT_MAP: dict[str, tuple[tuple[str, ...], bool]] = {
+    "w_gate": (("mlp.experts.{e}.gate_proj.weight", "block_sparse_moe.experts.{e}.w1.weight"), True),
+    "w_up": (("mlp.experts.{e}.up_proj.weight", "block_sparse_moe.experts.{e}.w3.weight"), True),
+    "w_down": (("mlp.experts.{e}.down_proj.weight", "block_sparse_moe.experts.{e}.w2.weight"), True),
+}
+
+# Always-on shared expert: Qwen2-MoE (``mlp.shared_expert.*`` + a sigmoid
+# gate) / DeepSeek (``mlp.shared_experts.*``, ungated).
+_SHARED_EXPERT_MAP: dict[str, tuple[tuple[str, ...], bool]] = {
+    "w_shared_gate": (("mlp.shared_expert.gate_proj.weight", "mlp.shared_experts.gate_proj.weight"), True),
+    "w_shared_up": (("mlp.shared_expert.up_proj.weight", "mlp.shared_experts.up_proj.weight"), True),
+    "w_shared_down": (("mlp.shared_expert.down_proj.weight", "mlp.shared_experts.down_proj.weight"), True),
+}
+_SHARED_GATE = ("mlp.shared_expert_gate.weight",)
+
+
+def _find(index, candidates: tuple[str, ...], li: int, e: int | None = None) -> str:
     for cand in candidates:
-        name = f"model.layers.{li}.{cand}"
+        name = f"model.layers.{li}." + (cand.format(e=e) if e is not None else cand)
         if name in index:
             return name
-    raise KeyError(f"layer {li}: none of {candidates} in checkpoint")
+    raise KeyError(f"layer {li}: none of {candidates} in checkpoint (expert={e})")
 
 
 class _LazyLeaf:
     """A stacked leaf over per-layer checkpoint tensors: ``shape`` is the
-    stacked ``[L, ...]`` shape in the port's orientation; ``load`` reads one
-    layer at a time, copies it to the device as it is stored, and permutes,
-    transposes and casts it there into a leaf allocated on the device."""
+    stacked ``[L, ...]`` shape in the port's orientation (``[L, E, ...]``
+    for an expert stack, ``expert_axis``); ``load`` reads one tensor at a
+    time, copies it to the device as it is stored, and permutes, transposes
+    and casts it there into a leaf allocated on the device, in ``dtype`` or
+    the leaf's own (the router bias stays f32)."""
 
-    def __init__(self, index, shape: tuple[int, ...], per_layer, row_perm: np.ndarray | None = None) -> None:
+    expert_axis = False
+    dtype: torch.dtype | None = None
+
+    def __init__(self, index, shape: tuple[int, ...], per_layer, row_perm: np.ndarray | None = None,
+                 expert_axis: bool = False, dtype: torch.dtype | None = None) -> None:
         self.index = index
         self.shape = shape
-        self.per_layer = per_layer  # li -> [(tensor name, transpose?)]
+        self.per_layer = per_layer  # li -> [(tensor name, transpose?)], one per expert of a stack
         # Source-row (torch [out, in] axis-0) permutation applied at read
         # time (rope interleaved -> half-split, see rope_load_perm).
         self.row_perm = row_perm
+        self.expert_axis = expert_axis
+        self.dtype = dtype
 
     def names(self) -> set[str]:
         return {n for li in range(self.shape[0]) for n, _t in self.per_layer(li)}
 
-    def layer(self, li: int, device: torch.device) -> torch.Tensor:
-        ((name, transpose),) = self.per_layer(li)
+    def _read(self, name: str, transpose: bool, device: torch.device) -> torch.Tensor:
         arr = self.index.read(name).to(device)
         if self.row_perm is not None:
             arr = arr[torch.from_numpy(self.row_perm).to(device)]
         return arr.T if transpose else arr
 
+    def layer(self, li: int, device: torch.device) -> torch.Tensor:
+        ((name, transpose),) = self.per_layer(li)
+        return self._read(name, transpose, device)
+
     def load(self, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        dtype = self.dtype or dtype
         out = torch.empty(self.shape, dtype=dtype, device=device)
         for li in range(self.shape[0]):
-            out[li].copy_(self.layer(li, device).to(dtype))
+            if self.expert_axis:
+                for e, (name, transpose) in enumerate(self.per_layer(li)):
+                    out[li, e].copy_(self._read(name, transpose, device).to(dtype))
+            else:
+                out[li].copy_(self.layer(li, device).to(dtype))
         return out
 
 
@@ -316,6 +358,8 @@ class _KvBLeaf:
         per_head = full.reshape(self.n_heads, self.seg, -1)  # [H, dn+dv, r_kv]
         return per_head[:, self.offset:self.offset + self.width, :].permute(2, 0, 1)  # [r_kv, H, w]
 
+    expert_axis = False
+    dtype = None
     load = _LazyLeaf.load
 
 
@@ -337,52 +381,81 @@ class _TopLeaf:
 
 def _leaf_specs(index, cfg: ModelConfig) -> dict[str, Any]:
     """The params tree of lazy leaves (``_LazyLeaf``, ``_KvBLeaf``,
-    ``_TopLeaf``), dense GQA or MLA attention over a dense MLP."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints (router and expert leaves) are not ported to "
-                                  "dynamo_tpu_torch yet (ROADMAP A6)")
-    count = cfg.num_layers
+    ``_TopLeaf``): GQA or MLA attention over a dense or routed-MoE MLP. A
+    mixed DeepSeek stack (``cfg.first_k_dense``) gives two subtrees,
+    ``dense_layers`` (checkpoint layers [0, k), dense MLP) and ``layers``
+    (layers [k, L), MoE), as the JAX loader splits them."""
 
-    def simple(suffixes: tuple[str, ...], transpose: bool, row_perm: np.ndarray | None = None) -> _LazyLeaf:
-        shp = index.shape(_find(index, suffixes, 0))
-        shp = shp[::-1] if transpose else shp
-        return _LazyLeaf(index, (count, *shp), lambda li, s=suffixes, t=transpose: [(_find(index, s, li), t)],
-                         row_perm=row_perm)
+    def subtree(l0: int, count: int, moe: bool) -> dict[str, Any]:
+        def simple(suffixes: tuple[str, ...], transpose: bool, row_perm: np.ndarray | None = None,
+                   dtype: torch.dtype | None = None) -> _LazyLeaf:
+            shp = index.shape(_find(index, suffixes, l0))
+            shp = shp[::-1] if transpose else shp
+            return _LazyLeaf(index, (count, *shp),
+                             lambda li, s=suffixes, t=transpose: [(_find(index, s, li + l0), t)],
+                             row_perm=row_perm, dtype=dtype)
 
-    if cfg.attn_type == "mla":
-        layers = {name: simple(s, t) for name, (s, t) in _LAYER_MAP.items() if name in ("attn_norm", "mlp_norm")}
-        # DeepSeek checkpoints store rope dims interleaved: permute the rope
-        # rows of the q projection (per head) and kv_a_proj (single shared
-        # rope key) to half-split at load (rope_load_perm).
-        q_perm = kv_perm = None
-        if cfg.rope_interleave:
-            q_perm = rope_load_perm(cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.qk_rope_head_dim)
-            kv_perm = rope_load_perm(1, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg.qk_rope_head_dim)
-        for name, (suffixes, t) in _MLA_MAP.items():
-            if name in ("w_q_a", "q_norm", "w_q_b") and cfg.q_lora_rank <= 0:
-                continue
-            if name == "w_q" and cfg.q_lora_rank > 0:
-                continue
-            layers[name] = simple(suffixes, t, row_perm={"w_q_b": q_perm, "w_q": q_perm, "w_kv_a": kv_perm}.get(name))
-        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-        layers["w_uk"] = _KvBLeaf(index, count, cfg.num_heads, dn, dv, 0, dn)
-        layers["w_uv"] = _KvBLeaf(index, count, cfg.num_heads, dn, dv, dn, dv)
-    else:
-        layers = {name: simple(s, t) for name, (s, t) in _LAYER_MAP.items()
-                  if name not in ("w_gate", "w_up", "w_down")}
-        if cfg.qk_norm:  # Qwen3 (per-head) / OLMoE (flat) q/k RMS norms
-            layers["q_norm"] = simple(("self_attn.q_norm.weight",), False)
-            layers["k_norm"] = simple(("self_attn.k_norm.weight",), False)
-    if cfg.attention_bias:
-        for name, (suffixes, t) in _BIAS_MAP.items():
-            layers[name] = simple(suffixes, t)
-    for name in ("w_gate", "w_up", "w_down"):
-        layers[name] = simple(_LAYER_MAP[name][0], True)
+        if cfg.attn_type == "mla":
+            layers = {name: simple(s, t) for name, (s, t) in _LAYER_MAP.items() if name in ("attn_norm", "mlp_norm")}
+            # DeepSeek checkpoints store rope dims interleaved: permute the
+            # rope rows of the q projection (per head) and kv_a_proj (single
+            # shared rope key) to half-split at load (rope_load_perm).
+            q_perm = kv_perm = None
+            if cfg.rope_interleave:
+                q_perm = rope_load_perm(cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                                        cfg.qk_rope_head_dim)
+                kv_perm = rope_load_perm(1, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg.qk_rope_head_dim)
+            for name, (suffixes, t) in _MLA_MAP.items():
+                if name in ("w_q_a", "q_norm", "w_q_b") and cfg.q_lora_rank <= 0:
+                    continue
+                if name == "w_q" and cfg.q_lora_rank > 0:
+                    continue
+                layers[name] = simple(suffixes, t,
+                                      row_perm={"w_q_b": q_perm, "w_q": q_perm, "w_kv_a": kv_perm}.get(name))
+            dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+            layers["w_uk"] = _KvBLeaf(index, count, cfg.num_heads, dn, dv, 0, dn, layer_offset=l0)
+            layers["w_uv"] = _KvBLeaf(index, count, cfg.num_heads, dn, dv, dn, dv, layer_offset=l0)
+        else:
+            layers = {name: simple(s, t) for name, (s, t) in _LAYER_MAP.items()
+                      if name not in ("w_gate", "w_up", "w_down")}
+            if cfg.qk_norm:  # Qwen3 (per-head) / OLMoE (flat) q/k RMS norms
+                layers["q_norm"] = simple(("self_attn.q_norm.weight",), False)
+                layers["k_norm"] = simple(("self_attn.k_norm.weight",), False)
+        if cfg.attention_bias:
+            for name, (suffixes, t) in _BIAS_MAP.items():
+                layers[name] = simple(suffixes, t)
+        if moe:
+            e = cfg.num_experts
+            layers["router"] = simple(_MOE_ROUTER, True)
+            if cfg.moe_router_bias:
+                # The correction bias competes with sigmoid scores at O(1e-2)
+                # margins: kept f32, as HF keeps it, never the compute dtype.
+                layers["router_bias"] = simple(_MOE_ROUTER_BIAS, False, dtype=torch.float32)
+            for name, (suffixes, t) in _MOE_EXPERT_MAP.items():
+                shp = index.shape(_find(index, suffixes, l0, 0))[::-1]
+                layers[name] = _LazyLeaf(
+                    index, (count, e, *shp),
+                    lambda li, s=suffixes, t=t: [(_find(index, s, li + l0, ei), t) for ei in range(e)],
+                    expert_axis=True)
+            if cfg.shared_expert_size:
+                for name, (suffixes, t) in _SHARED_EXPERT_MAP.items():
+                    layers[name] = simple(suffixes, t)
+                if cfg.shared_expert_gated:
+                    layers["shared_gate"] = simple(_SHARED_GATE, True)
+        else:
+            for name in ("w_gate", "w_up", "w_down"):
+                layers[name] = simple(_LAYER_MAP[name][0], True)
+        return layers
+
+    k_dense = cfg.first_k_dense if cfg.is_moe else 0
+    moe = cfg.is_moe and any(f"model.layers.{k_dense}.{c}" in index for c in _MOE_ROUTER)
     params: dict[str, Any] = {
         "embed": _TopLeaf(index, "model.embed_tokens.weight", False),
         "norm_f": _TopLeaf(index, "model.norm.weight", False),
-        "layers": layers,
+        "layers": subtree(k_dense, cfg.num_layers - k_dense, moe),
     }
+    if k_dense:
+        params["dense_layers"] = subtree(0, k_dense, False)
     if not cfg.tie_embeddings:
         # A config that says untied over a checkpoint that ties reuses the embeddings.
         head = "lm_head.weight" if "lm_head.weight" in index else "model.embed_tokens.weight"
@@ -523,9 +596,7 @@ def load_model(
 
 def hf_config(cfg: ModelConfig) -> dict[str, Any]:
     """The ``config.json`` dict ``save_params`` writes for ``cfg`` (the JAX
-    writer's keys for the dense and MLA families)."""
-    if cfg.is_moe:
-        raise NotImplementedError("writing MoE checkpoints is not ported to dynamo_tpu_torch yet (ROADMAP A6)")
+    writer's keys, ``dynamo_tpu/models/loader.py:save_params``)."""
     hf: dict[str, Any] = {
         "architectures": ["LlamaForCausalLM"],
         "model_type": "llama",
@@ -548,7 +619,8 @@ def hf_config(cfg: ModelConfig) -> dict[str, Any]:
     if cfg.qk_norm:
         # qk_norm is reconstructed from model_type at load (from_hf).
         if cfg.qk_norm == "head":
-            hf["model_type"], hf["architectures"] = "qwen3", ["Qwen3ForCausalLM"]
+            hf["model_type"] = "qwen3_moe" if cfg.is_moe else "qwen3"
+            hf["architectures"] = ["Qwen3MoeForCausalLM" if cfg.is_moe else "Qwen3ForCausalLM"]
         else:
             hf["model_type"], hf["architectures"] = "olmoe", ["OlmoeForCausalLM"]
     gemma_family = cfg.norm_plus_one or cfg.mlp_act == "gelu_tanh" or cfg.embed_scale
@@ -566,6 +638,29 @@ def hf_config(cfg: ModelConfig) -> dict[str, Any]:
             v_head_dim=cfg.v_head_dim,
             rope_interleave=cfg.rope_interleave,
         )
+    if cfg.is_moe:
+        if cfg.attn_type != "mla" and not cfg.qk_norm:
+            # MLA pinned deepseek_v3; qk_norm pinned qwen3_moe/olmoe above.
+            hf["model_type"] = "qwen2_moe" if cfg.shared_expert_gated or not cfg.shared_expert_size else "deepseek_v2"
+        hf.update(
+            num_experts=cfg.num_experts,
+            num_experts_per_tok=cfg.num_experts_per_token,
+            moe_intermediate_size=cfg.moe_intermediate_size,
+            scoring_func=cfg.moe_scoring,
+            norm_topk_prob=cfg.moe_norm_topk,
+            routed_scaling_factor=cfg.moe_routed_scaling,
+        )
+        if cfg.moe_n_group:
+            hf.update(n_group=cfg.moe_n_group, topk_group=cfg.moe_topk_group)
+        if cfg.moe_router_bias:
+            hf["topk_method"] = "noaux_tc"
+        if cfg.first_k_dense:
+            hf["first_k_dense_replace"] = cfg.first_k_dense
+        if cfg.shared_expert_size:
+            if cfg.shared_expert_gated:
+                hf["shared_expert_intermediate_size"] = cfg.shared_expert_size
+            else:
+                hf["n_shared_experts"] = cfg.shared_expert_size // cfg.moe_intermediate_size
     return hf
 
 
@@ -596,37 +691,56 @@ def _hf_tensors(cfg: ModelConfig, params: Params) -> list[tuple[str, tuple]]:
     put("model.norm.weight", lambda: params["norm_f"], False, zero_center=shift_norms)
     if not cfg.tie_embeddings and "lm_head" in params:
         put("lm_head.weight", lambda: params["lm_head"], True)
-    lp = params["layers"]
     q_sperm = kv_sperm = None
     if cfg.attn_type == "mla" and cfg.rope_interleave:
         q_sperm = rope_save_perm(cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.qk_rope_head_dim)
         kv_sperm = rope_save_perm(1, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg.qk_rope_head_dim)
-    for li in range(cfg.num_layers):
-        base = f"model.layers.{li}."
-        for leaf, (suffixes, transpose) in _LAYER_MAP.items():
-            if cfg.attn_type == "mla" and leaf in ("wq", "wk", "wv", "wo"):
-                continue
-            put(base + suffixes[0], lambda leaf=leaf, li=li: lp[leaf][li], transpose,
-                zero_center=shift_norms and leaf in ("attn_norm", "mlp_norm"))
-        if cfg.qk_norm and cfg.attn_type != "mla":
-            put(base + "self_attn.q_norm.weight", lambda li=li: lp["q_norm"][li], False)
-            put(base + "self_attn.k_norm.weight", lambda li=li: lp["k_norm"][li], False)
-        if cfg.attn_type == "mla":
-            for leaf, (suffixes, transpose) in _MLA_MAP.items():
-                if leaf in lp:
-                    put(base + suffixes[0], lambda leaf=leaf, li=li: lp[leaf][li], transpose,
-                        row_perm={"w_q_b": q_sperm, "w_q": q_sperm, "w_kv_a": kv_sperm}.get(leaf))
 
-            def kv_b(li=li):
-                # kv_b_proj: interleave per-head [K_nope; V] row blocks.
-                uk, uv = lp["w_uk"][li], lp["w_uv"][li]  # [r_kv, H, dn], [r_kv, H, dv]
-                per_head = torch.cat([uk.permute(1, 2, 0), uv.permute(1, 2, 0)], dim=1)  # [H, dn+dv, r_kv]
-                return per_head.reshape(-1, per_head.shape[-1])
+    def write_subtree(lp: dict, l0: int, count: int, moe: bool) -> None:
+        for j in range(count):
+            base = f"model.layers.{j + l0}."
+            for leaf, (suffixes, transpose) in _LAYER_MAP.items():
+                if (moe and leaf in _MOE_EXPERT_MAP) or (cfg.attn_type == "mla" and leaf in ("wq", "wk", "wv", "wo")):
+                    continue
+                put(base + suffixes[0], lambda leaf=leaf, j=j: lp[leaf][j], transpose,
+                    zero_center=shift_norms and leaf in ("attn_norm", "mlp_norm"))
+            if cfg.qk_norm and cfg.attn_type != "mla":
+                put(base + "self_attn.q_norm.weight", lambda j=j: lp["q_norm"][j], False)
+                put(base + "self_attn.k_norm.weight", lambda j=j: lp["k_norm"][j], False)
+            if cfg.attn_type == "mla":
+                for leaf, (suffixes, transpose) in _MLA_MAP.items():
+                    if leaf in lp:
+                        put(base + suffixes[0], lambda leaf=leaf, j=j: lp[leaf][j], transpose,
+                            row_perm={"w_q_b": q_sperm, "w_q": q_sperm, "w_kv_a": kv_sperm}.get(leaf))
 
-            put(base + "self_attn.kv_b_proj.weight", kv_b, False)
-        if cfg.attention_bias:
-            for leaf, (suffixes, transpose) in _BIAS_MAP.items():
-                put(base + suffixes[0], lambda leaf=leaf, li=li: lp[leaf][li], transpose)
+                def kv_b(j=j):
+                    # kv_b_proj: interleave per-head [K_nope; V] row blocks.
+                    uk, uv = lp["w_uk"][j], lp["w_uv"][j]  # [r_kv, H, dn], [r_kv, H, dv]
+                    per_head = torch.cat([uk.permute(1, 2, 0), uv.permute(1, 2, 0)], dim=1)  # [H, dn+dv, r_kv]
+                    return per_head.reshape(-1, per_head.shape[-1])
+
+                put(base + "self_attn.kv_b_proj.weight", kv_b, False)
+            if cfg.attention_bias:
+                for leaf, (suffixes, transpose) in _BIAS_MAP.items():
+                    put(base + suffixes[0], lambda leaf=leaf, j=j: lp[leaf][j], transpose)
+            if moe:
+                put(base + _MOE_ROUTER[0], lambda j=j: lp["router"][j], True)
+                if "router_bias" in lp:
+                    put(base + _MOE_ROUTER_BIAS[0], lambda j=j: lp["router_bias"][j], False)
+                for leaf, (suffixes, transpose) in _MOE_EXPERT_MAP.items():
+                    for e in range(cfg.num_experts):
+                        put(base + suffixes[0].format(e=e), lambda leaf=leaf, j=j, e=e: lp[leaf][j, e], transpose)
+                if cfg.shared_expert_size:
+                    src = 0 if cfg.shared_expert_gated else 1
+                    for leaf, (suffixes, transpose) in _SHARED_EXPERT_MAP.items():
+                        put(base + suffixes[src], lambda leaf=leaf, j=j: lp[leaf][j], transpose)
+                    if cfg.shared_expert_gated:
+                        put(base + _SHARED_GATE[0], lambda j=j: lp["shared_gate"][j], True)
+
+    k_dense = cfg.first_k_dense if cfg.is_moe else 0
+    if k_dense:
+        write_subtree(params["dense_layers"], 0, k_dense, False)
+    write_subtree(params["layers"], k_dense, cfg.num_layers - k_dense, cfg.is_moe)
     return out
 
 

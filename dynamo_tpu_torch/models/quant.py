@@ -22,8 +22,9 @@ checkpoint quantized here equals its JAX quantization. Every quantized
 projection goes through :func:`quant_matmul` (``models/llama.py``,
 ``models/mla.py``): the kernel for CUDA tensors, the plain version for CPU
 ones. Embeddings, norms and biases stay bf16; so do MLA's absorbed
-``w_uk``/``w_uv``. MoE expert leaves (4-D ``qw``, ``maybe_dequant`` in
-``parallel/moe.py``) wait for MoE itself (ROADMAP A6).
+``w_uk``/``w_uv``. A routed-MoE model is refused by name (``MOE_REFUSAL``):
+its 4-D expert leaves have no quantized form in the grouped kernel yet
+(ROADMAP B6), and quantizing them would make leaves no kernel takes.
 ``--quantize int8|int4``; the int4 group width is ``DYN_QUANT_GROUP_SIZE``
 (default 128; GGUF Q4 imports keep their native 32).
 """
@@ -76,6 +77,11 @@ def _pick_group_size(d_in: int, group_size: int) -> int:
     while gs > 2 and (d_in % gs or gs % 2):
         gs -= 2 if gs % 2 == 0 else 1
     return max(gs, 2)
+
+
+MOE_REFUSAL = ("weight-only quantization of a MoE model: quantized expert leaves (4-D int8/int4 experts, "
+               "maybe_dequant in parallel/moe.py, the grouped kernel's quantized forms, GGUF expert tensors) are "
+               "not ported to dynamo_tpu_torch yet (ROADMAP B6)")
 
 
 def _check_mode(mode: str) -> None:
@@ -156,6 +162,8 @@ def quantize_params(params: dict, *, mode: str = "int8", inplace: bool = False) 
                 out[k] = walk(tree[k], k)
             return out
         if name in _MATMUL_LEAVES and not is_quantized(tree):
+            if tree.dim() == 4:  # a [L, E, K, N] expert stack
+                raise NotImplementedError(f"--quantize {mode}: {MOE_REFUSAL}")
             return q_leaf(tree)
         return tree
 
@@ -183,7 +191,7 @@ def quant_matmul(x: torch.Tensor, leaf: Any, *, out_dtype: torch.dtype | None = 
 def maybe_dequant(leaf: Any, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The full-width weight of a quantized leaf in ``dtype`` (plain tensors
     pass through). It materializes the weight: the serving path never calls
-    it (MoE's expert einsums will, ROADMAP A6)."""
+    it (quantized experts would, ROADMAP B6)."""
     if is_quantized(leaf):
         if "qw4" in leaf:
             return _dequant_int4(leaf, dtype)
@@ -206,6 +214,8 @@ def init_params_quantized(cfg, seed: int = 0, *, mode: str = "int8", device: str
     if mode in ("", "none", None):
         return llama.init_params(cfg, seed, device=device)
     _check_mode(mode)
+    if cfg.is_moe:
+        raise NotImplementedError(f"--quantize {mode}: {MOE_REFUSAL}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = llama.param_dtype(cfg)

@@ -57,6 +57,10 @@ SIGNATURES: dict[str, tuple[str, list]] = {
         "dyn_quant_matmul",
         [_P] * 5 + [_I] * 10 + [_P],
     ),
+    "grouped_matmul": (
+        "dyn_grouped_matmul",
+        [_P] * 4 + [_I] * 4 + [_P],
+    ),
     # The fp8 kernels' on-chip e4m3 -> bf16 conversion alone, for checks.
     "fp8_convert": (
         "dyn_fp8_to_bf16",

@@ -193,18 +193,16 @@ def test_strict_refuses_dropped_tensors_and_renamed_index(tmp_path):
 
 
 @pytest.mark.parametrize("config,field", [
-    ({"num_local_experts": 4, "num_experts_per_tok": 2, "model_type": "mixtral"}, "num_experts"),
-    ({"sliding_window": 4096, "model_type": "mistral"}, "sliding_window"),
-    ({"vision_config": {"hidden_size": 32}, "text_config": {}}, "vision_config"),
+    pytest.param({"sliding_window": 4096, "model_type": "mistral"}, "sliding_window",
+                 id="config1-sliding_window"),
+    pytest.param({"vision_config": {"hidden_size": 32}, "text_config": {}}, "vision_config",
+                 id="config2-vision_config"),
 ])
 def test_unported_configs_are_refused_by_name(config, field):
     base = {"hidden_size": 64, "num_attention_heads": 4, "num_hidden_layers": 2, "vocab_size": 256,
             "intermediate_size": 128}
     with pytest.raises(NotImplementedError, match=f"{field}.*A6"):
         ModelConfig.from_hf({**base, **config})
-    moe = ModelConfig(**dataclasses.asdict(JPRESETS["test-tiny-moe"]))
-    with pytest.raises(NotImplementedError, match="MoE.*A6"):
-        loader.load_params("unused", moe, device="cpu", index=object())  # refused before any read
 
 
 HF_CONFIGS = {
@@ -224,6 +222,33 @@ HF_CONFIGS = {
               "vocab_size": 256, "intermediate_size": 128, "head_dim": 32},
     "gemma": {"model_type": "gemma", "hidden_size": 64, "num_attention_heads": 4, "num_hidden_layers": 2,
               "vocab_size": 256, "intermediate_size": 128},
+    "mixtral": {"model_type": "mixtral", "hidden_size": 4096, "num_attention_heads": 32, "num_key_value_heads": 8,
+                "num_hidden_layers": 32, "vocab_size": 32000, "intermediate_size": 14336, "num_local_experts": 8,
+                "num_experts_per_tok": 2, "rope_theta": 1000000.0, "sliding_window": None},
+    "qwen2-moe": {"model_type": "qwen2_moe", "hidden_size": 2048, "num_attention_heads": 16,
+                  "num_key_value_heads": 16, "num_hidden_layers": 24, "vocab_size": 151936,
+                  "intermediate_size": 5632, "num_experts": 60, "num_experts_per_tok": 4,
+                  "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632, "norm_topk_prob": False,
+                  "sliding_window": 32768, "use_sliding_window": False, "rope_theta": 1000000.0},
+    "olmoe": {"model_type": "olmoe", "hidden_size": 2048, "num_attention_heads": 16, "num_key_value_heads": 16,
+              "num_hidden_layers": 16, "vocab_size": 50304, "intermediate_size": 1024, "num_experts": 64,
+              "num_experts_per_tok": 8, "norm_topk_prob": False, "max_position_embeddings": 4096},
+    "qwen3-moe": {"model_type": "qwen3_moe", "hidden_size": 2048, "num_attention_heads": 32,
+                  "num_key_value_heads": 4, "num_hidden_layers": 48, "vocab_size": 151936, "head_dim": 128,
+                  "intermediate_size": 6144, "num_experts": 128, "num_experts_per_tok": 8,
+                  "moe_intermediate_size": 768, "norm_topk_prob": True, "rms_norm_eps": 1e-6},
+    "deepseek-v2": {"model_type": "deepseek_v2", "hidden_size": 2048, "num_attention_heads": 16,
+                    "num_hidden_layers": 27, "vocab_size": 102400, "intermediate_size": 10944, "kv_lora_rank": 512,
+                    "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+                    "first_k_dense_replace": 1, "n_routed_experts": 64, "n_shared_experts": 2,
+                    "num_experts_per_tok": 6, "moe_intermediate_size": 1408, "topk_method": "greedy",
+                    "norm_topk_prob": False, "routed_scaling_factor": 1.0},
+    "deepseek-v3": {"model_type": "deepseek_v3", "hidden_size": 7168, "num_attention_heads": 128,
+                    "num_hidden_layers": 61, "vocab_size": 129280, "intermediate_size": 18432, "kv_lora_rank": 512,
+                    "q_lora_rank": 1536, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+                    "first_k_dense_replace": 3, "n_routed_experts": 256, "n_shared_experts": 1,
+                    "num_experts_per_tok": 8, "moe_intermediate_size": 2048, "n_group": 8, "topk_group": 4,
+                    "routed_scaling_factor": 2.5},
 }
 
 
@@ -268,22 +293,76 @@ def _port_forward(path, extra):
     return outs
 
 
-@pytest.mark.parametrize("family", ["llama-gqa", "qwen2-bias"])
+def _hf_model(family: str):
+    """A tiny seeded HF model of ``family``, built by ``transformers`` itself:
+    the configurations JAX's ``tests/test_golden.py`` pins, with random norm
+    weights where a norm is the point and a random DeepSeek-V3 correction
+    bias (so noaux_tc selection is load-bearing)."""
+    import transformers as tf
+    from transformers.models.deepseek_v2 import DeepseekV2Config, DeepseekV2ForCausalLM
+    from transformers.models.deepseek_v3 import DeepseekV3Config, DeepseekV3ForCausalLM
+
+    common = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                  tie_word_embeddings=False)
+    mla = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_attention_heads=4, num_key_value_heads=4,
+               q_lora_rank=32, kv_lora_rank=24, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+               n_routed_experts=4, num_experts_per_tok=2, moe_intermediate_size=32, n_shared_experts=1,
+               tie_word_embeddings=False, rope_scaling=None, attention_bias=False)
+    seed, build = {
+        "llama-gqa": (0, lambda: tf.LlamaForCausalLM(tf.LlamaConfig(
+            intermediate_size=128, head_dim=16, rope_theta=10000.0, **common))),
+        "qwen2-bias": (2, lambda: tf.Qwen2ForCausalLM(tf.Qwen2Config(
+            intermediate_size=128, rope_theta=1000000.0, **common))),
+        "qwen3": (8, lambda: tf.Qwen3ForCausalLM(tf.Qwen3Config(
+            intermediate_size=128, head_dim=16, rope_theta=1000000.0, **common))),
+        "gemma": (0, lambda: tf.GemmaForCausalLM(tf.GemmaConfig(
+            **{**common, "tie_word_embeddings": True}, intermediate_size=128, head_dim=16, rope_theta=10000.0,
+            hidden_activation="gelu_pytorch_tanh"))),
+        "deepseek-mla-dense": (4, lambda: DeepseekV3ForCausalLM(DeepseekV3Config(
+            num_hidden_layers=2, first_k_dense_replace=2, rope_interleave=True, **mla))),
+        "mixtral": (3, lambda: tf.MixtralForCausalLM(tf.MixtralConfig(
+            intermediate_size=96, num_local_experts=4, num_experts_per_tok=2, **common))),
+        "qwen2-moe-shared": (6, lambda: tf.Qwen2MoeForCausalLM(tf.Qwen2MoeConfig(
+            intermediate_size=128, num_experts=4, num_experts_per_tok=2, moe_intermediate_size=32,
+            shared_expert_intermediate_size=48, norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[],
+            **common))),
+        "deepseek-v3-true-shape": (5, lambda: DeepseekV3ForCausalLM(DeepseekV3Config(
+            num_hidden_layers=3, first_k_dense_replace=1, n_group=2, topk_group=1, topk_method="noaux_tc",
+            routed_scaling_factor=2.5, norm_topk_prob=True, rope_interleave=True, **mla))),
+        "deepseek-v2-group-limited": (7, lambda: DeepseekV2ForCausalLM(DeepseekV2Config(
+            num_hidden_layers=3, first_k_dense_replace=1, n_group=2, topk_group=1,
+            topk_method="group_limited_greedy", routed_scaling_factor=1.0, norm_topk_prob=False, **mla))),
+        "olmoe-flat-qk-norm": (9, lambda: tf.OlmoeForCausalLM(tf.OlmoeConfig(
+            intermediate_size=96, num_experts=8, num_experts_per_tok=2, norm_topk_prob=False, **common))),
+    }[family]
+    torch.manual_seed(seed)
+    model = build().eval().float()
+    with torch.no_grad():
+        for layer in model.model.layers:
+            if family in ("qwen3", "olmoe-flat-qk-norm"):
+                layer.self_attn.q_norm.weight.uniform_(0.5, 1.5)
+                layer.self_attn.k_norm.weight.uniform_(0.5, 1.5)
+            if family == "gemma":
+                layer.input_layernorm.weight.uniform_(-0.5, 0.5)
+                layer.post_attention_layernorm.weight.uniform_(-0.5, 0.5)
+            if family == "deepseek-v3-true-shape" and hasattr(layer.mlp, "gate"):
+                layer.mlp.gate.e_score_correction_bias.uniform_(-0.2, 0.2)
+    return model
+
+
+GOLDEN_FAMILIES = ["llama-gqa", "qwen2-bias", "qwen3", "gemma", "deepseek-mla-dense", "mixtral", "qwen2-moe-shared",
+                   "deepseek-v3-true-shape", "deepseek-v2-group-limited", "olmoe-flat-qk-norm"]
+
+
+@pytest.mark.parametrize("family", GOLDEN_FAMILIES)
 def test_golden_logits_match_hf_transformers(family, tmp_path):
     """A tiny seeded HF model saved by HF itself (its safetensors writer, its
     names), loaded by the port: prefill and two decode steps' logits equal
     HF's within atol 2e-3, rtol 1e-3 (f32 both sides; the attention and
-    matmul orders differ), as tests/test_golden.py holds the JAX build."""
-    from transformers import LlamaConfig, LlamaForCausalLM, Qwen2Config, Qwen2ForCausalLM
-
-    torch.manual_seed(0 if family == "llama-gqa" else 2)
-    common = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-                  num_attention_heads=4, num_key_value_heads=2, tie_word_embeddings=False)
-    if family == "llama-gqa":
-        model = LlamaForCausalLM(LlamaConfig(head_dim=16, rope_theta=10000.0, **common))
-    else:
-        model = Qwen2ForCausalLM(Qwen2Config(rope_theta=1000000.0, **common))
-    model = model.eval().float()
+    matmul orders differ), as tests/test_golden.py holds the JAX build. The
+    MoE families run the dropless dispatch (the grouped product's plain
+    version on the CPU) against HF's per-expert loops."""
+    model = _hf_model(family)
     model.save_pretrained(str(tmp_path), safe_serialization=True)
     extra = [11, 29]
     with torch.no_grad():
@@ -293,6 +372,57 @@ def test_golden_logits_match_hf_transformers(family, tmp_path):
     for step, pos in enumerate([t - 1, t, t + 1]):
         np.testing.assert_allclose(ours[step].numpy(), hf[pos].numpy(), atol=2e-3, rtol=1e-3,
                                    err_msg=f"step {step}")
+
+
+@pytest.mark.parametrize("family", ["mixtral", "qwen2-moe-shared", "olmoe-flat-qk-norm", "deepseek-v3-true-shape"])
+def test_moe_checkpoints_load_bitwise_the_jax_loader_and_round_trip(family, tmp_path):
+    """An HF-saved MoE checkpoint (Mixtral's ``block_sparse_moe`` names,
+    Qwen2-MoE's gated shared expert, OLMoE, DeepSeek-V3's f32 correction
+    bias and its dense_layers/layers split): the port's load_params equals
+    bridge.params_from_jax(JAX load_params) bit for bit; the port's
+    save_params writes JAX's config.json, and both loaders read it back to
+    the same bits."""
+    _hf_model(family).save_pretrained(str(tmp_path / "hf"), safe_serialization=True)
+    cfg = ModelConfig.from_hf(tmp_path / "hf" / "config.json")
+    jcfg = JModelConfig.from_hf(tmp_path / "hf" / "config.json")
+    assert cfg.is_moe and dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    got = loader.load_params(tmp_path / "hf", cfg, device="cpu")
+    jparams = jax.tree.map(np.asarray, jloader.load_params(tmp_path / "hf", jcfg))
+    assert_bitwise(got, params_from_jax(jparams, device="cpu"))
+    if cfg.moe_router_bias:
+        assert got["layers"]["router_bias"].dtype == torch.float32 and "dense_layers" in got
+    loader.save_params(tmp_path / "port", cfg, got, max_shard_bytes=65536)
+    jloader.save_params(tmp_path / "jax", jcfg, jparams)
+    assert json.loads((tmp_path / "port" / "config.json").read_text()) == json.loads(
+        (tmp_path / "jax" / "config.json").read_text())
+    assert_bitwise(loader.load_params(tmp_path / "port", cfg, device="cpu"), got)
+    back = jloader.load_params(tmp_path / "port", JModelConfig.from_hf(tmp_path / "port" / "config.json"))
+    assert_bitwise(params_from_jax(jax.tree.map(np.asarray, back), device="cpu"), got)
+
+
+def test_quantized_and_gguf_moe_are_refused_by_name(tmp_path):
+    """MoE serves at bf16 only: ``--quantize`` on a MoE model (a preset's
+    direct quantized init, or quantizing loaded expert leaves, which would
+    make 4-D leaves no kernel takes) and GGUF MoE import and export are
+    refused by name, naming ROADMAP B6's quantized expert forms."""
+    import asyncio
+
+    from dynamo_tpu_torch import launch
+    from dynamo_tpu_torch.models import gguf
+    from dynamo_tpu_torch.models.quant import quantize_params
+
+    cfg = ModelConfig(**dataclasses.asdict(JPRESETS["test-tiny-moe"]))
+    params = llama.init_params(cfg, 0, device="cpu")
+    for mode in ("int8", "int4"):
+        with pytest.raises(NotImplementedError, match=f"--quantize {mode}.*MoE.*B6"):
+            asyncio.run(launch.build_engine_service("test-tiny-moe", device="cpu", quantize=mode))
+        with pytest.raises(NotImplementedError, match="MoE.*B6"):
+            quantize_params(params, mode=mode)
+    with pytest.raises(NotImplementedError, match="MoE GGUF.*B6"):
+        gguf.load_gguf_params(tmp_path / "unused.gguf", cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE GGUF.*B6"):
+        gguf.save_params_gguf(tmp_path / "moe.gguf", cfg, params)
+    assert not (tmp_path / "moe.gguf").exists()
 
 
 # -- guards ----------------------------------------------------------------------------

@@ -301,9 +301,19 @@ def test_card_refuses_an_mla_geometry_the_kernel_does_not_take(monkeypatch):
 
 
 def test_mla_with_experts_is_refused():
-    cfg = dataclasses.replace(PRESETS["test-tiny-mla"], num_experts=4, num_experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_params(cfg, 0, device="cpu")
+    """MLA + routed experts (DeepSeek-V2/V3) is served since MoE was ported,
+    bf16 experts only: quantizing them is refused by name (ROADMAP B6)."""
+    from dynamo_tpu_torch.models.quant import init_params_quantized, quantize_params
+
+    cfg = dataclasses.replace(PRESETS["test-tiny-mla"], num_experts=4, num_experts_per_token=2,
+                              moe_intermediate_size=32)
+    params = tllama.init_params(cfg, 0, device="cpu")
+    assert params["layers"]["w_gate"].shape == (2, 4, 64, 32)
+    for mode in ("int8", "int4"):
+        with pytest.raises(NotImplementedError, match="MoE.*B6"):
+            init_params_quantized(cfg, 0, mode=mode, device="cpu")
+        with pytest.raises(NotImplementedError, match="MoE.*B6"):
+            quantize_params(params, mode=mode)
 
 
 # -- engine ---------------------------------------------------------------------

@@ -5,8 +5,8 @@
                                          [--no-graphs] [--no-overlap] [--mix spec --spec-k 4]
 
 Serves the request mix of ``chip_smoke.py``'s serve phase, taken from that
-script so the two stay the same (llama-3.2-1b by default, or mla-8b-proxy;
-random init, 8 concurrent completions of 16..1500 prompt tokens, 32 output
+script so the two stay the same (llama-3.2-1b by default, or any model of
+its ``SERVE_KERNELS``: mla-8b-proxy, olmoe-1b-7b, ...; random init, 8 concurrent completions of 16..1500 prompt tokens, 32 output
 tokens each), after the same warm-up request and untimed pass of other
 prompts (so CUDA graphs are captured before the window), under
 ``torch.profiler`` (CPU + CUDA activities). By default the main path: CUDA
@@ -46,7 +46,7 @@ import chip_smoke  # noqa: E402  (the serve mix lives there)
 
 FAMILIES = (  # kernel name fragment -> family, first match wins
     ("decode_partials", "attention: paged_decode"), ("decode_mma", "attention: paged_decode"),
-    ("mla_", "attention: paged_mla"),
+    ("mla_", "attention: paged_mla"), ("grouped_mm", "moe: grouped_matmul"),
     ("prefill", "attention: paged_prefill"), ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
     ("sm90_xmma", "matmul"), ("nvjet", "matmul"), ("index", "gather/scatter"), ("elementwise", "elementwise"),
     ("reduce", "reduction"), ("softmax", "sampling/softmax"), ("topk", "sampling/softmax"),
